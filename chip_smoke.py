@@ -4,16 +4,28 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each runs uncaught: any failure exits non-zero):
- 1. build the hand-written kernels from csrc/ (and the native blue-noise
-    generator) at first use, keeping ptxas's register and spill report;
- 2. render 3 chained flagship frames — 1080p 8-bit limited BT.2020-NC
-    yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak state carried —
-    through libplacebo_tpu_torch.Renderer on "cuda", with every kernel's
-    launch count set to 0 just before and read just after;
+ 1. build the hand-written kernels from csrc/ (one nvcc each, all at
+    once) and the native host code (blue noise, film grain), keeping
+    ptxas's register and spill report;
+ 2. the flagship path: render 3 chained frames — 1080p 8-bit limited
+    BT.2020-NC yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak
+    state carried — through libplacebo_tpu_torch.Renderer on "cuda",
+    every kernel's launch count set to 0 just before and read just after
+    (K1 3 times, K2 and K3 never);
  3. hold K1 against its plain PyTorch version on frame 2's linear-light
     input at 4K, and the GPU render against the CPU render (plain
     versions) on a small input;
- 4. time the render, K1, K1's plain version and the EWA scaler.
+ 4. the config-5 path: the same frames with AV1 film grain (seed 7391 + i)
+    under deband (2 iterations), film grain and Floyd-Steinberg error
+    diffusion to 8 bits, counts read as before (K1 without dither 3, K2
+    3, K3 6 times); the output must be 8-bit codes;
+ 5. hold K1 without dither, K2 and K3 (both ways) against their plain
+    versions on frame 2's inputs at 4K, and the config-5 GPU render
+    against the CPU render on a small input;
+ 6. time both renders (config 5 with a new grain seed every frame),
+    every kernel, its plain version, K3's one-call PyTorch counterpart
+    (torch.gather), deband, grain, and the host's making of one frame's
+    grain tables.
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -33,6 +45,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 FP32_OPS_PER_S = 67e12        # H100 SXM, FP32 outside the tensor cores
 LSB = 1.0 / 255.0
+GRAIN_SEED = 7391
 
 
 def _flagship_yuv(n, h, w, seed=0):
@@ -46,12 +59,14 @@ def _flagship_yuv(n, h, w, seed=0):
     return out
 
 
-def _frame(lt, yuv, device):
-    return lt.frame_from_yuv420p(
+def _frame(lt, yuv, device, grain=None):
+    f = lt.frame_from_yuv420p(
         *yuv, color=lt.CSP_BT2100_PQ, device=device,
         repr=lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
                           levels=lt.ColorLevels.LIMITED,
                           bits=lt.BitEncoding(8, 8, 0)))
+    f.film_grain = grain
+    return f
 
 
 def _cuda_ms(fn, reps):
@@ -68,71 +83,31 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _render_run(renderer, frames, target, params, counters):
+    """Render `frames` in a chain with every launch count set to 0 just
+    before; returns the outputs and the counts just after."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import libplacebo_tpu_torch as lt
-    from libplacebo_tpu_torch._build import build_log
-    from libplacebo_tpu_torch.core import dither as cdither
-    from libplacebo_tpu_torch.core import filters as flt
-    from libplacebo_tpu_torch.core.common import RectF
-    from libplacebo_tpu_torch.ops import polar
-    from libplacebo_tpu_torch.ops.cuda import color_map as k1
+    for mod in counters.values():
+        mod.launches = 0
+    outs = [renderer.render(f, target, params) for f in frames]
+    torch.cuda.synchronize()
+    return outs, {name: mod.launches for name, mod in counters.items()}
 
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    # 1. build
-    t0 = time.perf_counter()
-    ptxas = build_log(k1.build())
-    cdither.blue_noise(6)
-    build_s = time.perf_counter() - t0
-    ptxas_lines = [ln.strip() for ln in ptxas.splitlines()
-                   if "registers" in ln or "spill" in ln]
-
-    # 2. the main path: 3 chained flagship frames on the card
-    H, W = 1080, 1920
-    target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
-    params = lt.RenderParams(upscaler="ewa_lanczos")
-    frames = [_frame(lt, f, dev) for f in _flagship_yuv(3, H, W)]
-    captured = []
-    launch_k1 = k1.color_map_tail
-
-    def capture(img, consts, spline, lut=None):
-        captured.append((img.clone(), consts, spline.clone(), lut))
-        return launch_k1(img, consts, spline, lut)
-
-    renderer = lt.Renderer(device=dev)
-    k1.color_map_tail = capture
-    k1.launches = 0
-    outs = []
-    try:
-        for f in frames:
-            outs.append(renderer.render(f, target, params))
-        torch.cuda.synchronize()
-    finally:
-        k1.color_map_tail = launch_k1
-    launches = k1.launches
-    assert launches == 3, f"K1 ran {launches} times for 3 frames"
-    for out in outs:
-        assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
-        assert bool(torch.isfinite(out).all())
-        assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
-    state = renderer._peak_state.cpu().numpy()
-    assert np.isfinite(state).all() and state[1] > 0, state
-
-    # 3a. K1 vs its plain version on frame 2's input at 4K (these
-    # comparison launches do not count)
-    img, consts, spline, lut = captured[1]
+def _check_k1(k1, args, npix):
+    """K1 vs its plain version on the same inputs (comparison launches
+    are not counted by the caller)."""
+    import torch
+    img, consts, spline, lut = args
     out_k, part_k = k1.color_map_tail(img, consts, spline, lut)
     out_p, part_p = k1.color_map_plain(img, consts, spline, lut)
-    k1.launches = launches
     torch.cuda.synchronize()
     diff = (out_k - out_p).abs()
     max_abs_err = float(diff.max())
@@ -141,10 +116,153 @@ def main() -> int:
     assert frac < 1e-3, frac
     hist_k, hist_p = part_k[:, 0, :64], part_p[:, 0, :64]
     assert float(hist_k.sum()) == float(hist_p.sum())
-    npix = 2 * H * 2 * W
     assert float((hist_k - hist_p).abs().sum()) <= 1e-4 * npix
     torch.testing.assert_close(part_k[:, 1, :3], part_p[:, 1, :3],
                                rtol=1e-5, atol=0.0)
+    return max_abs_err, frac, part_k
+
+
+def _k1_entry(k1, name, args, part, launches, max_abs_err, ms, plain_ms):
+    img, consts, spline, lut = args
+    npix = img.shape[-2] * img.shape[-1]
+    io_bytes = (2 * 3 * npix * 4 + part.numel() * 4 + consts.numel() * 4
+                + spline.numel() * 4 + (lut.numel() * 4 if lut is not None
+                                        else 0))
+    bound, by = _bound(io_bytes, k1.ops_per_pixel(consts) * npix)
+    return {"name": name, "route": "cuda",
+            "source": "libplacebo_tpu_torch/csrc/color_map.cu",
+            "replaces": "libplacebo_tpu/ops/pallas/color_map.py:150",
+            "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def _gather_shear(x, w_out, s, W, H, forward):
+    """K3's function as one torch.gather over the source with one zero
+    column appended, its index built beforehand (set-up, not timed)."""
+    import torch
+    w_in, C, Hp = x.shape
+    src = torch.arange(w_out, device=x.device)[:, None] + \
+        (-s if forward else s) * torch.arange(Hp, device=x.device)[None, :]
+    if forward:
+        valid = (src >= 0) & (src < W)
+    else:
+        valid = torch.arange(w_out, device=x.device)[:, None] < W
+    valid = valid & (torch.arange(Hp, device=x.device)[None, :] < H)
+    idx = torch.where(valid, src, w_in)[:, None, :].expand(
+        w_out, C, Hp).contiguous()
+    xz = torch.cat([x, torch.zeros_like(x[:1])])
+    return lambda: torch.gather(xz, 0, idx)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import libplacebo_tpu_torch as lt
+    from libplacebo_tpu_torch import native
+    from libplacebo_tpu_torch._build import build_all, build_log
+    from libplacebo_tpu_torch.core import dither as cdither
+    from libplacebo_tpu_torch.core import filters as flt
+    from libplacebo_tpu_torch.core import film_grain as cfg
+    from libplacebo_tpu_torch.core.common import RectF
+    from libplacebo_tpu_torch.ops import deband as ops_deband
+    from libplacebo_tpu_torch.ops import film_grain as ops_fg
+    from libplacebo_tpu_torch.ops import polar
+    from libplacebo_tpu_torch.ops.cuda import color_map as k1
+    from libplacebo_tpu_torch.ops.cuda import error_diffusion as k2
+    from libplacebo_tpu_torch.ops.cuda import shear as k3
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    counters = {"k1": k1, "k2": k2, "k3": k3}
+
+    # 1. build: one compiler process per library, all started together
+    t0 = time.perf_counter()
+    build_all([k1.build_spec(), k2.build_spec(), k3.build_spec(),
+               *native.build_specs()])
+    cdither.blue_noise(6)
+    cfg.generate_offsets(GRAIN_SEED, 1, 1)
+    build_s = time.perf_counter() - t0
+    ptxas = {n: build_log(m.build()) for n, m in counters.items()}
+    ptxas_lines = {n: [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+                   for n, log in ptxas.items()}
+
+    # 2. the flagship path: 3 chained frames on the card
+    H, W = 1080, 1920
+    npix = 2 * H * 2 * W
+    target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
+    params = lt.RenderParams(upscaler="ewa_lanczos")
+    yuvs = _flagship_yuv(3, H, W)
+    frames = [_frame(lt, f, dev) for f in yuvs]
+    captured = {"k1": [], "k2": [], "k3": []}
+    real = {"k1": k1.color_map_tail, "k2": k2.wavefront,
+            "k3f": k3.shear_to_colmaj, "k3i": k3.unshear_from_colmaj}
+
+    def cap_k1(img, consts, spline, lut=None):
+        captured["k1"].append((img.clone(), consts, spline.clone(), lut))
+        return real["k1"](img, consts, spline, lut)
+
+    def cap_k2(colmaj, kernel, depth, w, h):
+        captured["k2"].append((colmaj.clone(), kernel, depth, w, h))
+        return real["k2"](colmaj, kernel, depth, w, h)
+
+    def cap_k3(forward):
+        def run(x, w_out, s, w, h):
+            captured["k3"].append((x.clone(), w_out, s, w, h, forward))
+            return real["k3f" if forward else "k3i"](x, w_out, s, w, h)
+        return run
+
+    k1.color_map_tail = cap_k1
+    k2.wavefront = cap_k2
+    k3.shear_to_colmaj = cap_k3(True)
+    k3.unshear_from_colmaj = cap_k3(False)
+    renderer = lt.Renderer(device=dev)
+    try:
+        outs, flag_launches = _render_run(renderer, frames, target, params,
+                                          counters)
+        flag_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        # 4. the config-5 path: the same frames with film grain
+        params5 = lt.RenderParams(upscaler="ewa_lanczos",
+                                  deband=lt.DebandParams(iterations=2),
+                                  film_grain=True,
+                                  error_diffusion="floyd-steinberg")
+        frames5 = [_frame(lt, f, dev, cfg.sample_grain(GRAIN_SEED + i))
+                   for i, f in enumerate(yuvs)]
+        renderer5 = lt.Renderer(device=dev)
+        t = time.perf_counter()
+        outs5, c5_launches = _render_run(renderer5, frames5, target,
+                                         params5, counters)
+        c5_first_s = time.perf_counter() - t
+    finally:
+        k1.color_map_tail = real["k1"]
+        k2.wavefront = real["k2"]
+        k3.shear_to_colmaj = real["k3f"]
+        k3.unshear_from_colmaj = real["k3i"]
+    assert flag_launches == {"k1": 3, "k2": 0, "k3": 0}, flag_launches
+    assert c5_launches == {"k1": 3, "k2": 3, "k3": 6}, c5_launches
+    for out in outs + outs5:
+        assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
+        assert bool(torch.isfinite(out).all())
+        assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    for out in outs5:
+        codes = out * 255.0
+        assert float((codes - torch.round(codes)).abs().max()) <= 255e-6
+    state = renderer._peak_state.cpu().numpy()
+    state5 = renderer5._peak_state.cpu().numpy()
+    assert np.isfinite(state).all() and state[1] > 0, state
+    assert np.isfinite(state5).all() and state5[1] > 0, state5
+
+    # 3a. K1 vs its plain version on frame 2's input at 4K (these
+    # comparison launches do not count)
+    k1_err, k1_frac, k1_part = _check_k1(k1, flag_k1, npix)
 
     # 3b. GPU render vs the CPU (plain) render on a small input
     small = _flagship_yuv(2, 64, 128, seed=7)
@@ -160,52 +278,186 @@ def main() -> int:
             (d.mean(), (d > LSB + 1e-5).mean())
     np.testing.assert_allclose(rg._peak_state.cpu().numpy(),
                                rc._peak_state.numpy(), atol=1e-5)
-    k1.launches = launches
 
-    # 4. timings
-    frame_ms = []
-    for i in range(8):
+    # 5a. K1 without dither, K2 and K3 vs their plain versions on frame
+    # 2's inputs at 4K (exact for K2 and K3)
+    c5_k1 = captured["k1"][1]
+    assert c5_k1[3] is None
+    k1n_err, k1n_frac, k1n_part = _check_k1(k1, c5_k1, npix)
+    colmaj, ed_kernel, depth, ed_w, ed_h = captured["k2"][1]
+    codes_k = k2.wavefront(colmaj, ed_kernel, depth, ed_w, ed_h)
+    codes_p = k2.wavefront_plain(colmaj, ed_kernel, depth, ed_w, ed_h)
+    torch.cuda.synchronize()
+    k2_err = float((codes_k.float() - codes_p.float()).abs().max())
+    assert torch.equal(codes_k, codes_p), k2_err
+    shear_in, unshear_in = captured["k3"][2], captured["k3"][3]
+    assert shear_in[5] and not unshear_in[5]
+    k3_err = 0.0
+    for x, w_out, s, w, h, fwd in (shear_in, unshear_in):
+        got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(
+            x, w_out, s, w, h)
+        want = k3.shear_plain(x, w_out, s, w, h, fwd)
+        lib = _gather_shear(x, w_out, s, w, h, fwd)()
+        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
+        assert torch.equal(got, want) and torch.equal(lib, want)
+
+    # 5b. config-5 GPU render vs the CPU render on a small input; error
+    # diffusion turns ulp differences upstream into 1-LSB flips
+    rg5, rc5 = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+    small5 = []
+    for i, f in enumerate(small):
+        grain = cfg.sample_grain(GRAIN_SEED + i)
+        g = rg5.render(_frame(lt, f, dev, grain), st, params5).cpu().numpy()
+        c = rc5.render(_frame(lt, f, "cpu", grain), st, params5).numpy()
+        d = np.abs(g - c)
+        small5.append({"max": float(d.max()),
+                       "differing": float((d > 1e-6).mean()),
+                       "above_1lsb": float((d > LSB + 1e-6).mean())})
+        assert (d > LSB + 1e-6).mean() <= 5e-4 and \
+            (d > 1e-6).mean() < 0.12, small5[-1]
+    np.testing.assert_allclose(rg5._peak_state.cpu().numpy(),
+                               rc5._peak_state.numpy(), atol=1e-5)
+
+    # 6. timings (their launches are not counted).  Config 5's frames
+    # carry a new grain seed each, as an AV1 stream's do, so every frame
+    # generates and uploads its grain tables
+    def frame_times(r, fs, p):
+        """Host-clocked renders of fs[:8], each synchronized, then the
+        mean frame of fs[8:] rendered back to back (CUDA events)."""
+        samples = []
+        for f in fs[:8]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r.render(f, target, p)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for f in fs[8:]:
+            r.render(f, target, p)
+        end.record()
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        renderer.render(frames[i % 3], target, params)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t) * 1e3)
-    k1_ms = _cuda_ms(lambda: k1.color_map_tail(img, consts, spline, lut), 20)
-    plain_ms = _cuda_ms(lambda: k1.color_map_plain(img, consts, spline,
-                                                   lut), 3)
+        return samples, start.elapsed_time(end) / len(fs[8:])
+
+    n_timed = 14
+    frame_ms, frame_window_ms = frame_times(
+        renderer, [frames[k % 3] for k in range(n_timed)], params)
+    timed5 = [_frame(lt, yuvs[k % 3], dev,
+                     cfg.sample_grain(GRAIN_SEED + len(yuvs) + k))
+              for k in range(n_timed)]
+    c5_ms, c5_window_ms = frame_times(renderer5, timed5, params5)
+    k1_ms = _cuda_ms(lambda: k1.color_map_tail(*flag_k1), 20)
+    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(*flag_k1), 3)
+    k1n_ms = _cuda_ms(lambda: k1.color_map_tail(*c5_k1), 20)
+    k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(*c5_k1), 3)
+    ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
+    k2_ms = _cuda_ms(lambda: k2.wavefront(*ed_args), 5)
+    k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*ed_args), 1)
+    k3_ms, k3_plain_ms, k3_lib_ms, k3_bytes = {}, {}, {}, 0
+    for x, w_out, s, w, h, fwd in (shear_in, unshear_in):
+        d = "forward" if fwd else "inverse"
+        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
+        k3_ms[d] = _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
+        k3_plain_ms[d] = _cuda_ms(
+            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
+        k3_lib_ms[d] = _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
+        # the bytes the function needs: forward, the image read and the
+        # whole sheared frame written (K2 reads its zeros); inverse, only
+        # the w x C x h codes that the unshear keeps, read and written
+        C = x.shape[1]
+        k3_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
+                     else 2 * w * C * h) * x.element_size()
     lin = torch.rand((3, H, W), device=dev) * 49.0
     ewa_cfg = flt.find_filter_config("ewa_lanczos")
     ewa_ms = _cuda_ms(lambda: polar.sample_polar(
         lin, ewa_cfg, 2 * H, 2 * W, RectF(0, 0, W, H)), 5)
-    k1.launches = launches
+    # deband and grain of one frame's three planes, as the renderer runs
+    # them (tables drawn beforehand, as the render plan holds them)
+    planes = [p.data for p in frames5[1].planes]
+    metas = frames5[1].meta_key()[0]
+    dp = lt.DebandParams(iterations=2)
+    db_args = [(p, i, ops_deband.deband_tables(dp, p.shape, i, dev),
+                ops_deband.plane_grain_neutral(frames5[1].repr, m[1]))
+               for i, (p, m) in enumerate(zip(planes, metas))]
+    deband_ms = _cuda_ms(lambda: [ops_deband.deband(
+        p, dp, seed=i, tables=tb, neutral=n) for p, i, tb, n in db_args], 5)
+    cfgs, shift = renderer5._grain_cfgs(metas, frames5[1].repr,
+                                        frames5[1].film_grain)
 
-    io_bytes = (2 * 3 * npix * 4 + part_k.numel() * 4 + consts.numel() * 4
-                + spline.numel() * 4 + (lut.numel() * 4 if lut is not None
-                                        else 0))
-    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
-    ops_per_pixel = k1.ops_per_pixel(consts)
-    ops_ms = ops_per_pixel * npix / FP32_OPS_PER_S * 1e3
-    kernels = [{
-        "name": "k1_color_map", "route": "cuda",
-        "source": "libplacebo_tpu_torch/csrc/color_map.cu",
-        "replaces": "libplacebo_tpu/ops/pallas/color_map.py:150",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": k1_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]
+    def grain_tables(grain):
+        return [ops_fg.prepare_av1_grain(grain, c, m[0][-2], m[0][-1], dev)
+                for c, m in zip(cfgs, metas)]
+    tables = grain_tables(frames5[1].film_grain)
+    # host time to make and queue one frame's tables, a new seed each
+    tables_host_ms = []
+    for k in range(5):
+        grain = cfg.sample_grain(GRAIN_SEED + 1000 + k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        grain_tables(grain)
+        tables_host_ms.append((time.perf_counter() - t) * 1e3)
+    luma = planes[0][0]
+    grain_ms = _cuda_ms(lambda: [ops_fg.apply_av1_grain(
+        p, tb, c, shift, luma=None if c.channels == (0,) else
+        ops_fg.subsample_nearest(luma, c.sub_x, c.sub_y, p.shape[-2],
+                                 p.shape[-1]))
+        for p, tb, c in zip(planes, tables, cfgs)], 5)
+
+    n_taps = len(k2.taps_for(ed_kernel))
+    # what the function needs: the ed_w x C x ed_h pixels of the frame
+    # read, their codes written (the zeros outside the sheared image
+    # change no code that the unshear keeps); per pixel: add, multiply,
+    # round, fused err (2), clip (2), and a fused multiply-add (2) a tap
+    n_px = ed_w * colmaj.shape[1] * ed_h
+    k2_bytes = n_px * (4 + codes_k.element_size())
+    k2_ops = n_px * (7 + 2 * n_taps)
+    k2_bound, k2_by = _bound(k2_bytes, k2_ops)
+    k3_bound, k3_by = _bound(k3_bytes, 0)
+    kernels = [
+        _k1_entry(k1, "k1_color_map", flag_k1, k1_part,
+                  flag_launches["k1"], k1_err, k1_ms, k1_plain_ms),
+        _k1_entry(k1, "k1_color_map_no_dither", c5_k1, k1n_part,
+                  c5_launches["k1"], k1n_err, k1n_ms, k1n_plain_ms),
+        {"name": "k2_error_diffusion", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
+         "launches": c5_launches["k2"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": None},
+        {"name": "k3_shear", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/shear.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
+         "launches": c5_launches["k3"], "max_abs_err": k3_err,
+         "ms": sum(k3_ms.values()), "plain_ms": sum(k3_plain_ms.values()),
+         "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": sum(k3_lib_ms.values())}]
     timings = {
-        "card": card, "frame_ms_median": statistics.median(frame_ms),
-        "frame_ms": frame_ms, "k1_ms": k1_ms, "k1_plain_ms": plain_ms,
-        "ewa_ms": ewa_ms, "k1_bytes": io_bytes, "k1_bytes_ms": bytes_ms,
-        "k1_ops_per_pixel": ops_per_pixel, "k1_ops_ms": ops_ms,
-        "k1_ptxas": ptxas_lines, "k1_differing_fraction": frac,
-        "small_render_max_diff": small_diff, "build_s": build_s,
-        "peak_state": state.tolist()}
+        "card": card, "build_s": build_s,
+        "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
+        "frame_window_ms": frame_window_ms,
+        "config5_frame_ms_median": statistics.median(c5_ms),
+        "config5_frame_ms": c5_ms, "config5_window_ms": c5_window_ms,
+        "config5_first_3_frames_s": c5_first_s,
+        "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
+        "k1_no_dither_ms": k1n_ms, "k1_no_dither_plain_ms": k1n_plain_ms,
+        "k1_differing_fraction": k1_frac,
+        "k1_no_dither_differing_fraction": k1n_frac,
+        "k1_ops_per_pixel": k1.ops_per_pixel(flag_k1[1]),
+        "k1_no_dither_ops_per_pixel": k1.ops_per_pixel(c5_k1[1]),
+        "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_bytes": k2_bytes,
+        "k2_ops": k2_ops, "k2_columns": colmaj.shape[0],
+        "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
+        "k3_gather_ms": k3_lib_ms, "k3_bytes": k3_bytes,
+        "ewa_ms": ewa_ms, "deband_ms": deband_ms, "grain_ms": grain_ms,
+        "grain_tables_host_ms": tables_host_ms,
+        "ptxas": ptxas_lines, "small_render_max_diff": small_diff,
+        "small_config5_render": small5, "peak_state": state.tolist(),
+        "config5_peak_state": state5.tolist()}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "timings": timings,
-                   "k1_ptxas_report": ptxas}, f, indent=1)
+                   "ptxas_report": ptxas}, f, indent=1)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 Renders frames on an NVIDIA GPU with PyTorch for the plain tensor stages
 and hand-written Hopper kernels where the reference package has Pallas
-kernels (ops/cuda, sources in csrc/).  Entry points default to
+kernels (ops/cuda, sources in csrc/: K1 the color-map tail, K2 the
+error-diffusion wavefront, K3 its shear).  Entry points default to
 device="cuda" and raise without a GPU unless given device="cpu", where
 every kernel runs its plain PyTorch version.  The port never imports
 JAX or the reference package.
@@ -18,6 +19,8 @@ _torch.backends.cudnn.allow_tf32 = False
 from .core.colorspace import (BitEncoding, ColorLevels, ColorPrimaries,  # noqa: E402
                               ColorRepr, ColorSpace, ColorSystem,
                               ColorTransfer, CSP_BT2100_PQ, CSP_SRGB)
+from .core.film_grain import AV1GrainData, FilmGrainData  # noqa: E402
+from .ops.deband import DebandParams  # noqa: E402
 from .ops.dithering import DitherParams  # noqa: E402
 from .ops.peak_detect import PeakDetectParams  # noqa: E402
 from .render.frame import Frame, Plane, frame_from_yuv420p  # noqa: E402
@@ -25,7 +28,8 @@ from .render.renderer import (RenderParams, Renderer, Target,  # noqa: E402
                               render_image)
 
 __all__ = ["Renderer", "render_image", "RenderParams", "Target", "Frame",
-           "Plane", "frame_from_yuv420p", "DitherParams",
+           "Plane", "frame_from_yuv420p", "DitherParams", "DebandParams",
+           "FilmGrainData", "AV1GrainData",
            "PeakDetectParams", "BitEncoding", "ColorLevels",
            "ColorPrimaries", "ColorRepr", "ColorSpace", "ColorSystem",
            "ColorTransfer", "CSP_BT2100_PQ", "CSP_SRGB"]

@@ -2,9 +2,11 @@
 
 The renderer has no weights; what crosses is the carried state (the
 peak-detection state (2,) and the temporal frame index), the input
-planes and the dither LUT (regenerated bit-identically from the same
-native source).  The interface is numpy arrays, so this module — like
-the rest of the port — never imports JAX.
+planes, the frame's film-grain description and, for a test that wants
+to rule out the random draws, deband's random tables.  The dither LUT
+and the grain tables are regenerated bit-identically from the same
+native sources.  The interface is numpy arrays and plain dicts, so this
+module — like the rest of the port — never imports JAX.
 """
 from __future__ import annotations
 
@@ -14,11 +16,13 @@ import numpy as np
 import torch
 
 from .core.colorspace import ColorRepr, ColorSpace
+from .core.film_grain import AV1GrainData, FilmGrainData
 from .render.frame import Frame, Plane
 from .render.renderer import Renderer
 from .utils.device import resolve_device
 
-__all__ = ["renderer_state_from_jax", "frame_from_numpy"]
+__all__ = ["renderer_state_from_jax", "frame_from_numpy",
+           "film_grain_from_fields", "deband_tables_from_numpy"]
 
 
 def renderer_state_from_jax(peak_state: np.ndarray, frame_idx: int,
@@ -47,3 +51,36 @@ def frame_from_numpy(planes: Sequence, repr: ColorRepr, color: ColorSpace,
         t = torch.from_numpy(np.array(data, np.float32)).to(dev)
         out.append(Plane(t, tuple(mapping), shift_x=sx, shift_y=sy))
     return Frame(planes=out, repr=repr, color=color)
+
+
+def _ints(v):
+    """Nested sequences of integers as nested tuples of Python ints."""
+    if isinstance(v, (list, tuple, np.ndarray)):
+        return tuple(_ints(x) for x in v)
+    return int(v)
+
+
+def film_grain_from_fields(d: dict) -> FilmGrainData:
+    """The port's FilmGrainData from the fields of a reference one —
+    dataclasses.asdict(frame.film_grain) — for AV1 grain."""
+    if d.get("type") != "av1" or d.get("av1") is None:
+        raise NotImplementedError("only AV1 grain is ported (H.274: "
+                                  "ROADMAP slice 3 item 18)")
+    a = dict(d["av1"])
+    for name in ("points_y", "num_points_uv", "points_uv", "ar_coeffs_y",
+                 "ar_coeffs_uv", "uv_mult", "uv_mult_luma", "uv_offset"):
+        a[name] = _ints(a[name])
+    return FilmGrainData(type="av1", seed=int(d["seed"]),
+                         av1=AV1GrainData(**a))
+
+
+def deband_tables_from_numpy(choices: Sequence, noise, device=None):
+    """Deband random tables — the reference's deband_rng_tables output
+    as numpy arrays: per-iteration (H, W) candidate choices and the grain
+    noise (or None) — as the tensors `ops.deband.deband(tables=)`
+    takes."""
+    dev = resolve_device(device)
+    return ([torch.from_numpy(np.array(c, np.int32)).to(dev)
+             for c in choices],
+            torch.from_numpy(np.array(noise, np.float32)).to(dev)
+            if noise is not None else None)

@@ -25,6 +25,7 @@ csrc/color_map.cu for what bounds it on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -42,7 +43,7 @@ from ..peak_detect import stripe_partials
 
 __all__ = ["LAYOUT", "TailPlan", "plan_tail", "pack_constants",
            "color_map_tail", "color_map_plain", "pick_block_rows",
-           "launches", "ops_per_pixel"]
+           "launches", "ops_per_pixel", "build", "build_spec"]
 
 _NCOEF = (2 * HARMONICS + 1) * (POLY_DEG + 1)
 
@@ -397,10 +398,19 @@ def kernel_flags():
         [f"-DK1_OFF_{name}={off}" for name, off in _OFF.items()]
 
 
+def build_spec():
+    """The kernel library's build spec (_build.build_all)."""
+    from ..._build import nvcc_path
+    return ("k1_color_map", ["csrc/color_map.cu"], nvcc_path(),
+            kernel_flags())
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_lib():
-    from ..._build import load_shared, nvcc_path
-    lib = load_shared("k1_color_map", ["csrc/color_map.cu"], nvcc_path(),
-                      kernel_flags())
+    """The loaded, typed kernel library (built at first use; looked up
+    once, since finding the compiler costs more than a launch)."""
+    from ..._build import load_shared
+    lib = load_shared(*build_spec())
     fn = lib.k1_color_map_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]

@@ -1,8 +1,9 @@
-"""Ordered dithering against a tiled bias matrix.
+"""Ordered dithering against a tiled bias matrix, and error diffusion.
 
-Counterpart of `DitherParams`, `_bias_matrix` and `dither` in
+Counterpart of `DitherParams`, `_bias_matrix`, `dither`,
+`error_diffusion` and `error_diffusion_scan` in
 libplacebo_tpu/ops/dithering.py (reference pl_shader_dither,
-shaders/dithering.c:109).  Error diffusion is slice 2 of the port.
+shaders/dithering.c:109, and pl_shader_error_diffusion, :326).
 """
 from __future__ import annotations
 
@@ -14,10 +15,13 @@ import torch
 
 from ..core import dither as dth
 from ..core.colorspace import ColorTransfer
-from ..core.dither import DitherMethod
+from ..core.dither import DitherMethod, ErrorDiffusionKernel
 from ..core.fastmath import fma, rcp
+from .cuda import error_diffusion as k2
+from .cuda import shear as k3
 
-__all__ = ["DitherParams", "dither", "dither_lut", "bias_matrix"]
+__all__ = ["DitherParams", "dither", "dither_lut", "bias_matrix",
+           "error_diffusion", "error_diffusion_scan"]
 
 
 @dataclass(frozen=True)
@@ -101,3 +105,63 @@ def dither(img, new_depth: int, params: Optional[DitherParams] = None,
                 torch.pow(high, gamma) - torch.pow(low, gamma), 1e-6)
         return torch.where(offset > bias, high, low)
     return torch.floor(fma(img, scale, bias)) * rcp(scale)
+
+
+# ---------------------------------------------------------------------------
+# Error diffusion (reference pl_shader_error_diffusion, dithering.c:326)
+# ---------------------------------------------------------------------------
+
+def error_diffusion(img, new_depth: int,
+                    kernel: Optional[ErrorDiffusionKernel] = None):
+    """Error-diffusion dither of a (..., C, H, W) image to `new_depth`
+    bits: shear to the column-major wavefront layout (kernel K3), walk
+    it (kernel K2), unshear the integer codes (K3), scale them back and
+    clip.  Nothing is padded: the result does not depend on padding."""
+    k = kernel or dth.ED_FLOYD_STEINBERG
+    *lead, H, W = img.shape
+    x = img.reshape(-1, H, W)
+    s = k.shift
+    xcm = x.permute(2, 0, 1).contiguous()                   # (W, C, H)
+    colmaj = k3.shear_to_colmaj(xcm, W + (H - 1) * s, s, W, H)
+    codes = k2.wavefront(colmaj, k, new_depth, W, H)
+    codes = k3.unshear_from_colmaj(codes, W, s, W, H).permute(1, 2, 0)
+    out = codes.to(torch.float32) * rcp(float((1 << new_depth) - 1))
+    return torch.clamp(out, 0.0, 1.0).reshape(*lead, H, W)
+
+
+def error_diffusion_scan(img, new_depth: int,
+                         kernel: Optional[ErrorDiffusionKernel] = None):
+    """The reference's scan formulation (its oracle for the wavefront
+    kernel): gather-shear the image, walk the sheared columns with a
+    (C, H, max_off) pending window, gather-unshear.  Kept as the tests'
+    oracle for `error_diffusion`."""
+    k = kernel or dth.ED_FLOYD_STEINBERG
+    *lead, H, W = img.shape
+    x = img.reshape(-1, H, W)
+    s = k.shift
+    scale = float((1 << new_depth) - 1)
+    Ws = W + (H - 1) * s
+    offsets = torch.arange(H)[:, None] * s
+    col = torch.arange(Ws)[None, :] - offsets                 # (H, Ws)
+    valid = ((col >= 0) & (col < W)).to(img.device)
+    idx = col.clamp(0, W - 1).to(img.device).expand(x.shape[0], H, Ws)
+    sheared = torch.where(valid, torch.gather(x, 2, idx), 0.0)
+    taps = k2.taps_for(k)
+    max_off = max(off for _, off, _ in taps)
+    pending = torch.zeros((x.shape[0], H, max_off), device=img.device)
+    quants = []
+    for j in range(Ws):
+        cur = sheared[:, :, j] + pending[:, :, 0]
+        r = torch.round(cur * scale)
+        quants.append(r * rcp(scale))
+        err = torch.where(valid[:, j], fma(r, -rcp(scale), cur), 0.0)
+        pending = torch.cat([pending[:, :, 1:],
+                             torch.zeros_like(pending[:, :, :1])], dim=2)
+        for dy, off, wgt in taps:
+            contrib = torch.nn.functional.pad(err[:, :H - dy], (dy, 0)) \
+                if dy else err
+            pending[:, :, off - 1] = fma(contrib, wgt, pending[:, :, off - 1])
+    out_sheared = torch.stack(quants, dim=2)                  # (C, H, Ws)
+    back = (torch.arange(W)[None, :] + offsets).to(img.device)
+    out = torch.gather(out_sheared, 2, back.expand(x.shape[0], H, W))
+    return torch.clamp(out, 0.0, 1.0).reshape(*lead, H, W)

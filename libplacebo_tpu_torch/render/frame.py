@@ -15,6 +15,7 @@ import torch
 from ..core.colorspace import (BitEncoding, ColorLevels, ColorRepr,
                                ColorSpace, ColorSystem)
 from ..core.common import RectF
+from ..core.film_grain import FilmGrainData
 from ..utils.device import raw_to_device, resolve_device
 
 __all__ = ["Plane", "Frame", "frame_from_yuv420p"]
@@ -46,10 +47,12 @@ class Frame:
     repr: ColorRepr = field(default_factory=ColorRepr)
     color: ColorSpace = field(default_factory=ColorSpace)
     crop: Optional[RectF] = None
+    # film grain metadata (reference pl_frame.film_grain); the seed may
+    # change every frame without a new render plan
+    film_grain: Optional[FilmGrainData] = None
     # outside the ported slice: the renderer raises when these are set
     rotation: int = 0
     overlays: list = field(default_factory=list)
-    film_grain: Optional[object] = None
 
     @property
     def ref_plane(self) -> Plane:
@@ -78,13 +81,25 @@ class Frame:
         return self.crop or RectF(0, 0, self.w, self.h)
 
     def meta_key(self) -> tuple:
-        """Static signature of everything that shapes the render plan."""
+        """Static signature of everything that shapes the render plan.
+        The grain's structure (which channels, overlap, scaling shift) is
+        static; its seed is not — a new seed only swaps the per-frame
+        grain tables."""
+        grain_static = None
+        if self.film_grain is not None and self.film_grain.av1 is not None:
+            a = self.film_grain.av1
+            grain_static = (self.film_grain.type, a.num_points_y > 0,
+                            a.num_points_uv[0] > 0, a.num_points_uv[1] > 0,
+                            a.chroma_scaling_from_luma, a.overlap,
+                            a.scaling_shift)
+        elif self.film_grain is not None:
+            grain_static = (self.film_grain.type,)
         return (
             tuple((tuple(p.data.shape), p.component_mapping, p.shift_x,
                    p.shift_y) for p in self.planes),
             self.repr.sys, self.repr.levels, self.repr.alpha,
             self.repr.bits, self.color.primaries, self.color.transfer,
-            self.color.hdr, self.get_crop(), str(self.device))
+            self.color.hdr, self.get_crop(), str(self.device), grain_static)
 
 
 def frame_from_yuv420p(y: np.ndarray, u: np.ndarray, v: np.ndarray,

@@ -1,16 +1,20 @@
 """The renderer: frame -> target image.
 
-Counterpart of libplacebo_tpu/render/renderer.py for the main path of
-the port's first slice, keeping the reference package's stage order
-(`_trace_pipeline`): merge planes (bilinear chroma alignment) -> decode
--> linearize -> main scaler (EWA direct path) -> the fused color-map
-tail (kernel K1: tone + gamut + delinearize + encode + dither, with the
-peak partials) -> finish the peak state.  Planning (color inference,
-boundary fits, filter weights, K1's packed constants) happens once per
-signature on the host and is cached; PyTorch then runs the stages
-eagerly.  Every parameter outside the slice raises NotImplementedError
-naming the ROADMAP item that ports it — nothing silently takes another
-path.
+Counterpart of libplacebo_tpu/render/renderer.py for the paths of the
+port's first two slices, keeping the reference package's stage order
+(`_trace_pipeline`): per plane deband and AV1 film grain -> merge
+planes (bilinear chroma alignment) -> decode -> linearize -> main
+scaler (EWA direct path) -> the fused color-map tail (kernel K1: tone +
+gamut + delinearize + encode, with the peak partials, and the ordered
+dither unless error diffusion quantizes) -> error diffusion (kernels K3,
+K2, K3) -> finish the peak state.  Planning (color inference, boundary
+fits, filter weights, K1's packed constants, deband's random tables)
+happens once per signature on the host and is cached; the grain tables
+are per frame (their seed changes): generated on the host (cached by
+seed, as the reference caches them) and uploaded every frame.  PyTorch
+then runs the stages eagerly.  Every parameter outside the ported slices
+raises NotImplementedError naming the ROADMAP item that ports it —
+nothing silently takes another path.
 """
 from __future__ import annotations
 
@@ -24,20 +28,24 @@ from ..core.colorspace import (COLOR_SDR_WHITE, ColorLevels, ColorPrimaries,
                                ColorRepr, ColorSpace, ColorSystem,
                                ColorTransfer, HdrScaling,
                                color_mapping_matrix, color_space_infer_map,
-                               hdr_rescale, primaries_clip,
+                               hdr_rescale, levels_guess, primaries_clip,
                                primaries_compatible, primaries_get,
-                               primaries_guess)
+                               primaries_guess, system_is_ycbcr_like)
 from ..core.common import RectF
+from ..core.dither import find_error_diffusion_kernel
 from ..core.gamut_mapping import GamutMapConstants
 from ..core.tone_mapping import ToneMapConstants
 from ..ops import color as ops_color
+from ..ops import deband as ops_deband
 from ..ops import dithering as ops_dither
+from ..ops import film_grain as ops_fg
 from ..ops import gamut as ops_gamut
 from ..ops import peak_detect as ops_peak
 from ..ops import polar as ops_polar
 from ..ops import sampling as ops_sampling
 from ..ops import tone_dynamic as ops_tone
 from ..ops.cuda import color_map as k1
+from ..ops.deband import DebandParams
 from ..ops.dithering import DitherParams
 from ..ops.peak_detect import PeakDetectParams
 from ..utils.device import resolve_device
@@ -93,7 +101,8 @@ class RenderParams:
         default_factory=GamutMapConstants)
     peak_detect: Optional[PeakDetectParams] = field(
         default_factory=PeakDetectParams)
-    deband: Optional[object] = None
+    deband: Optional[DebandParams] = None
+    film_grain: bool = True      # honor frame-attached grain data
     deinterlace: Optional[object] = None
     contrast_recovery: float = 0.0
     inverse_tone_mapping: bool = False
@@ -128,9 +137,6 @@ def _check_slice(params: RenderParams, target: Target, frame: Frame):
         (params.hooks, "user hooks", "slice 3 item 22"),
         (params.lut is not None, "custom LUTs", "slice 3 item 15"),
         (target.icc is not None, "ICC profiles", "slice 3 item 16"),
-        (params.deband is not None, "debanding", "slice 2 item 12"),
-        (params.error_diffusion, "error diffusion",
-         "slice 2 item 14, kernels K2/K3"),
         (params.deinterlace is not None, "deinterlacing", "slice 3 item 19"),
         (params.distort is not None, "distortion", "slice 3 item 20"),
         (params.cone is not None, "cone distortion", "slice 3 item 21"),
@@ -138,7 +144,9 @@ def _check_slice(params: RenderParams, target: Target, frame: Frame):
          "target blending", "slice 3 item 21"),
         (target.overlays or frame.overlays, "overlays", "slice 3 item 21"),
         (frame.rotation % 4, "frame rotation", "slice 3 item 21"),
-        (frame.film_grain is not None, "film grain", "slice 2 item 13"),
+        (params.film_grain and frame.film_grain is not None and
+         frame.film_grain.type == "h274", "H.274 film grain",
+         "slice 3 item 18"),
         (params.color_adjustment is not None, "color adjustment",
          "slice 3 item 21"),
         (params.corner_rounding > 0, "corner rounding", "slice 3 item 21"),
@@ -248,9 +256,9 @@ def _dither_params(params: RenderParams, dst_color: ColorSpace):
 
 
 class Renderer:
-    """Holds the plan cache and the temporal state carried across frames:
-    the peak-detection state (2,) on the device and the frame index that
-    rotates a temporal dither."""
+    """Holds the plan cache and the temporal state carried across
+    frames: the peak-detection state (2,) on the device and the frame
+    index that rotates a temporal dither."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -267,16 +275,39 @@ class Renderer:
                 ref_i = i
         return ref_i
 
-    def _merge_planes(self, planes, plane_metas, params: RenderParams):
-        """Align every plane to the reference plane's grid and stack the
-        channels (reference pass_read_image's sampler step)."""
+    def _merge_planes(self, planes, plane_metas, params: RenderParams,
+                      deband=None, grain=None):
+        """Per-plane deband and film grain, then alignment of every plane
+        to the reference plane's grid and channel stacking (reference
+        pass_read_image, renderer.c:1553: plane_deband ->
+        plane_film_grain -> sampler).  `deband` holds per plane None or
+        (DebandParams, neutral values, random tables); `grain` is None or
+        (per-plane GrainCfg or None, the frame's grain tables, scaling
+        shift).  Chroma grain scales with the frame's input luma, not the
+        debanded one."""
         ref_i = self._ref_plane_index(plane_metas)
         H, W = planes[ref_i].shape[-2], planes[ref_i].shape[-1]
+        ref_mapping = plane_metas[ref_i][1]
+        luma_full = planes[ref_i][..., ref_mapping.index(0), :, :] \
+            if 0 in ref_mapping else None
         up_cfg = _find_scaler(params.plane_upscaler or params.upscaler)
         down_cfg = _find_scaler(params.plane_downscaler or params.downscaler)
         channels = {}
-        for (shape, mapping, sx, sy), data in zip(plane_metas, planes):
+        for i, ((shape, mapping, sx, sy), data) in enumerate(
+                zip(plane_metas, planes)):
             ph, pw = data.shape[-2], data.shape[-1]
+            if deband is not None and deband[i] is not None:
+                dp, neutral, tables = deband[i]
+                data = ops_deband.deband(data, dp, seed=i, tables=tables,
+                                         neutral=neutral)
+            if grain is not None and grain[0][i] is not None:
+                cfgs, tables, scaling_shift = grain
+                luma = None
+                if 0 not in mapping and luma_full is not None:
+                    luma = ops_fg.subsample_nearest(
+                        luma_full, cfgs[i].sub_x, cfgs[i].sub_y, ph, pw)
+                data = ops_fg.apply_av1_grain(data, tables[i], cfgs[i],
+                                              scaling_shift, luma=luma)
             if (ph, pw) == (H, W) and (sx or sy) and \
                     not params.correct_subpixel_offsets:
                 pass    # a same-size subpixel siting snaps to the texel
@@ -296,18 +327,55 @@ class Renderer:
         order = sorted(channels)
         return torch.stack([channels[c] for c in order], dim=-3)
 
+    def _grain_cfgs(self, plane_metas, frame_repr: ColorRepr,
+                    frame_grain):
+        """Per-plane static grain configs (None = no grain on the plane),
+        and the scaling shift."""
+        ref_shape = plane_metas[self._ref_plane_index(plane_metas)][0]
+        H, W = ref_shape[-2], ref_shape[-1]
+        bits = max(frame_repr.bits.color_depth or 8, 8)
+        limited = levels_guess(frame_repr) == ColorLevels.LIMITED
+        cfgs = []
+        for shape, mapping, _, _ in plane_metas:
+            cfg = ops_fg.grain_cfg_for(
+                frame_grain, tuple(mapping), bits=min(bits, 12),
+                sub_x=1 if shape[-1] * 2 <= W else 0,
+                sub_y=1 if shape[-2] * 2 <= H else 0,
+                limited_range=limited,
+                is_ycbcr=system_is_ycbcr_like(frame_repr.sys))
+            cfgs.append(cfg if any(cfg.active) else None)
+        return cfgs, frame_grain.av1.scaling_shift
+
     def _trace_pipeline(self, frame_meta_key, target: Target,
                         params: RenderParams, frame_repr: ColorRepr,
                         frame_color: ColorSpace, crop: RectF,
-                        dither_phase: int = 0):
+                        frame_grain=None, dither_phase: int = 0):
         """Plan one signature on the host and return the per-frame stage
-        function pipeline(peak_state, *planes) -> (image, new_state)."""
+        function pipeline(peak_state, grain_tables, *planes) -> (image,
+        new_state)."""
         plane_metas = frame_meta_key[0]
         dst_raw = target.color
         if dst_raw.primaries == ColorPrimaries.UNKNOWN:
             dst_raw = ColorSpace(primaries_guess(target.w, target.h),
                                  dst_raw.transfer, dst_raw.hdr)
         src_color, dst_color = color_space_infer_map(frame_color, dst_raw)
+        grain_cfgs = scaling_shift = None
+        if params.film_grain and ops_fg.needs_fg(frame_grain):
+            grain_cfgs, scaling_shift = self._grain_cfgs(
+                plane_metas, frame_repr, frame_grain)
+        deband = None
+        if params.deband is not None:
+            # reference plane_deband (renderer.c:1318-1342): the grain
+            # amplitude is divided by the source's nominal peak; the
+            # random tables depend on the plane's shape and index only
+            db = params.deband
+            if src_color.hdr.max_luma > 0:
+                db = replace(db, grain=db.grain /
+                             (src_color.hdr.max_luma / COLOR_SDR_WHITE))
+            deband = [None if 3 in mapping else (
+                db, ops_deband.plane_grain_neutral(frame_repr, mapping),
+                ops_deband.deband_tables(db, shape, i, self.device))
+                for i, (shape, mapping, _, _) in enumerate(plane_metas)]
         _tm_fn = params.tone_mapping_function
         use_peak = (params.peak_detect is not None and src_color.is_hdr()
                     and (src_color.primaries != dst_color.primaries or
@@ -349,9 +417,18 @@ class Renderer:
                                   else params.downscaler)
             cfg_down = _find_scaler(params.downscaler)
         dp = _dither_params(params, dst_color) if params.dither else None
+        quantize = target.bit_depth and (target.bit_depth < 16 or
+                                         params.force_dither)
+        # an unknown kernel name diffuses with Floyd-Steinberg, as in the
+        # reference
+        ed_kernel = find_error_diffusion_kernel(params.error_diffusion) \
+            if params.error_diffusion else None
 
-        def pipeline(peak_state, *planes):
-            img = self._merge_planes(planes, plane_metas, params)
+        def pipeline(peak_state, grain_tables, *planes):
+            grain = (grain_cfgs, grain_tables, scaling_shift) \
+                if grain_cfgs is not None else None
+            img = self._merge_planes(planes, plane_metas, params, deband,
+                                     grain)
             img = ops_color.decode_color(img, frame_repr)
             if use_linear:
                 img = ops_color.linearize(img, src_color)
@@ -379,8 +456,13 @@ class Renderer:
                 img = ops_color.delinearize(img, src_color)
             if fused_tail is None:
                 img = ops_color.encode_color(img, target.repr)
-                if target.bit_depth and dp is not None and \
-                        (target.bit_depth < 16 or params.force_dither):
+            # error diffusion needs the whole encoded frame, so it runs
+            # after the tail, which then leaves out the ordered dither
+            if quantize and (fused_tail is None or params.error_diffusion):
+                if params.error_diffusion:
+                    img = ops_dither.error_diffusion(img, target.bit_depth,
+                                                     ed_kernel)
+                elif dp is not None:
                     img = ops_dither.dither(img, target.bit_depth, dp,
                                             frame_index=dither_phase)
             return torch.clamp(img, 0.0, 1.0), new_state
@@ -468,12 +550,24 @@ class Renderer:
         if fn is None:
             fn = self._trace_pipeline(frame.meta_key(), target, params,
                                       frame.repr, frame.color,
-                                      frame.get_crop(),
+                                      frame.get_crop(), frame.film_grain,
                                       dither_phase=dither_phase)
         self._cache[key] = fn
         while len(self._cache) > _MAX_CACHED_PIPELINES:
             self._cache.pop(next(iter(self._cache)))
-        out, self._peak_state = fn(self._peak_state,
+        # per-frame grain tables (the seed may change every frame; host
+        # generation cached by seed)
+        grain_tables = None
+        if params.film_grain and ops_fg.needs_fg(frame.film_grain):
+            plane_metas = frame.meta_key()[0]
+            cfgs, _ = self._grain_cfgs(plane_metas, frame.repr,
+                                       frame.film_grain)
+            grain_tables = tuple(
+                ops_fg.prepare_av1_grain(frame.film_grain, cfg, meta[0][-2],
+                                         meta[0][-1], self.device)
+                if cfg else None
+                for cfg, meta in zip(cfgs, plane_metas))
+        out, self._peak_state = fn(self._peak_state, grain_tables,
                                    *[p.data for p in frame.planes])
         return out
 

@@ -3,6 +3,7 @@ package's guards hold (no JAX import, the card by default).
 
 Tolerance: exact (bit for bit) — these are the same float64 numpy
 computations, or the same native source, on both sides."""
+import os
 import subprocess
 import sys
 
@@ -109,8 +110,37 @@ def test_blue_noise_bit_identical():
                                   tdither.bayer_matrix(16))
 
 
+def test_build_all_starts_every_build_and_raises_on_failure():
+    """_build.build_all returns one library path per spec (built or found
+    built); a spec that does not compile raises, naming its library."""
+    from libplacebo_tpu_torch import _build, native
+    paths = _build.build_all(native.build_specs())
+    assert len(paths) == 2 and all(os.path.exists(p) for p in paths)
+    bad = ("no_such_flag", ["native/dither.cc"], "g++",
+           ["-fPIC", "--no-such-flag"])
+    with pytest.raises(RuntimeError, match="build of no_such_flag failed"):
+        _build.build_all(native.build_specs() + [bad])
+
+
+def test_arrays_to_device_keeps_values_types_and_shapes():
+    from libplacebo_tpu_torch.utils.device import arrays_to_device
+    rng = np.random.default_rng(0)
+    host = [rng.random((3, 5)).astype(np.float32),
+            rng.integers(0, 2 ** 32, (4,), dtype=np.uint32).view(np.int32),
+            rng.random((2, 2, 3)).astype(np.float32)]
+    out = arrays_to_device(host, torch.device("cpu"))
+    for a, t in zip(host, out):
+        assert t.dtype == torch.from_numpy(a).dtype and t.shape == a.shape
+        np.testing.assert_array_equal(t.numpy(), a)
+
+
 def test_package_imports_no_jax():
     code = ("import sys, libplacebo_tpu_torch, libplacebo_tpu_torch.carry\n"
+            "import libplacebo_tpu_torch.ops.deband, "
+            "libplacebo_tpu_torch.ops.film_grain, "
+            "libplacebo_tpu_torch.ops.cuda.error_diffusion, "
+            "libplacebo_tpu_torch.ops.cuda.shear, "
+            "libplacebo_tpu_torch.core.threefry\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'libplacebo_tpu' or "
             "m.startswith('libplacebo_tpu.')]\n"
@@ -140,7 +170,7 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("feature", [
-    dict(deband=object()), dict(error_diffusion="floyd-steinberg"),
+    dict(deinterlace=object()), dict(distort=object()),
     dict(hooks=(object(),)), dict(antiringing_strength=0.5),
     dict(contrast_recovery=0.3), dict(gamut_mapping="relative"),
     dict(tone_mapping_function="bt2390"),

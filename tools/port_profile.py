@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch/CUDA port's flagship render on one GPU.
+"""Profile the PyTorch/CUDA port's flagship or config-5 render on one GPU.
 
-Run from the root of a checkout:  python3 tools/port_profile.py [frames]
+Run from the root of a checkout:
+    python3 tools/port_profile.py [frames] [--config5]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
-Lanczos, K1 tail) after two warm-up frames, twice over:
+Lanczos, K1 tail) or, with --config5, config 5 (the same frame carrying
+AV1 film grain, with deband (2 iterations), film grain and
+Floyd-Steinberg error diffusion: K1 without dither, K3, K2, K3; a new
+grain seed every frame, as an AV1 stream carries) after two warm-up
+frames, twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
@@ -13,7 +18,8 @@ The device busy share is the profiled kernel time over the unprofiled
 window (the profiler's own host cost lengthens its wall time, so that
 wall time is not the denominator).  Prints both, the table by kernel and
 the card's name and power limit; the lot is also written to
-chiprun_out/port_profile.txt.
+chiprun_out/port_profile.txt (port_profile_config5.txt with
+--config5).
 """
 import os
 import subprocess
@@ -32,7 +38,9 @@ def main() -> int:
     import libplacebo_tpu_torch as lt
     from torch.profiler import ProfilerActivity, profile
 
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 4
+    args = [a for a in sys.argv[1:] if a != "--config5"]
+    config5 = "--config5" in sys.argv[1:]
+    n = int(args[0]) if args else 4
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -49,16 +57,30 @@ def main() -> int:
                           bits=lt.BitEncoding(8, 8, 0)))
     target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
     params = lt.RenderParams(upscaler="ewa_lanczos")
+    grains = [None] * (2 + 2 * n)
+    if config5:
+        from libplacebo_tpu_torch.core.film_grain import sample_grain
+        grains = [sample_grain(7391 + k) for k in range(len(grains))]
+        params = lt.RenderParams(upscaler="ewa_lanczos",
+                                 deband=lt.DebandParams(iterations=2),
+                                 film_grain=True,
+                                 error_diffusion="floyd-steinberg")
     r = lt.Renderer()
-    for _ in range(2):
+    grain_iter = iter(grains)
+
+    def render():
+        frame.film_grain = next(grain_iter)
         r.render(frame, target, params)
+
+    for _ in range(2):
+        render()
     torch.cuda.synchronize()
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
-        r.render(frame, target, params)
+        render()
     end.record()
     torch.cuda.synchronize()
     window_ms = start.elapsed_time(end)
@@ -66,14 +88,14 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            r.render(frame, target, params)
+            render()
         torch.cuda.synchronize()
     events = prof.key_averages()
     # kernels only (the aten ops above them repeat their device time)
     dev_ms = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     table = events.table(sort_by="self_cuda_time_total", row_limit=30)
-    lines = [card,
+    lines = [card, "config 5" if config5 else "flagship",
              f"frames {n} back to back, unprofiled: {window_ms:.3f} ms "
              f"({window_ms / n:.3f} ms/frame)",
              f"device time under the profiler: {dev_ms:.3f} ms "
@@ -81,7 +103,8 @@ def main() -> int:
              f"{dev_ms / window_ms:.1%} of the unprofiled window",
              table]
     os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "port_profile.txt"), "w") as f:
+    name = "port_profile_config5.txt" if config5 else "port_profile.txt"
+    with open(os.path.join("chiprun_out", name), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines))
     return 0
