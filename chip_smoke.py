@@ -20,12 +20,16 @@ Phases (each runs uncaught: any failure exits non-zero):
     diffusion to 8 bits, counts read as before (K1 without dither 3, K2
     3, K3 6 times); the output must be 8-bit codes;
  5. hold K1 without dither, K2 and K3 (both ways) against their plain
-    versions on frame 2's inputs at 4K, and the config-5 GPU render
+    versions on frame 2's inputs at 4K (K2 also for Jarvis-Judice-Ninke,
+    s = 3, on the same frame sheared for it), and the config-5 GPU render
     against the CPU render on a small input;
  6. time both renders (config 5 with a new grain seed every frame),
     every kernel, its plain version, K3's one-call PyTorch counterpart
     (torch.gather), deband, grain, and the host's making of one frame's
-    grain tables.
+    grain tables; K2's timed runs must all return the codes of its first
+    (a race between its bands would show as a difference), and K2 is
+    timed on one 32-row band and on one channel of the same columns,
+    which splits its time into the column step and the pipeline's fill.
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -285,13 +289,24 @@ def main() -> int:
     assert c5_k1[3] is None
     k1n_err, k1n_frac, k1n_part = _check_k1(k1, c5_k1, npix)
     colmaj, ed_kernel, depth, ed_w, ed_h = captured["k2"][1]
-    codes_k = k2.wavefront(colmaj, ed_kernel, depth, ed_w, ed_h)
-    codes_p = k2.wavefront_plain(colmaj, ed_kernel, depth, ed_w, ed_h)
-    torch.cuda.synchronize()
-    k2_err = float((codes_k.float() - codes_p.float()).abs().max())
-    assert torch.equal(codes_k, codes_p), k2_err
     shear_in, unshear_in = captured["k3"][2], captured["k3"][3]
     assert shear_in[5] and not unshear_in[5]
+    jjn = cdither.find_error_diffusion_kernel("jarvis-judice-ninke")
+    colmaj3 = k3.shear_to_colmaj(shear_in[0], ed_w + (ed_h - 1) * jjn.shift,
+                                 jjn.shift, ed_w, ed_h)
+    # the kernel writes every sheared position: whole arrays are exact
+    k2_err = 0.0
+    for args in ((colmaj, ed_kernel, depth, ed_w, ed_h),
+                 (colmaj3, jjn, depth, ed_w, ed_h)):
+        got = k2.wavefront(*args)
+        want = k2.wavefront_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        k2_err = max(k2_err, err)
+        assert torch.equal(got, want), (args[1].name, err)
+        if args[1] is ed_kernel:
+            codes_k = got
+    del colmaj3, got, want
     k3_err = 0.0
     for x, w_out, s, w, h, fwd in (shear_in, unshear_in):
         got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(
@@ -352,7 +367,22 @@ def main() -> int:
     k1n_ms = _cuda_ms(lambda: k1.color_map_tail(*c5_k1), 20)
     k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(*c5_k1), 3)
     ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
-    k2_ms = _cuda_ms(lambda: k2.wavefront(*ed_args), 5)
+    k2_runs = []
+    k2_ms = _cuda_ms(lambda: k2_runs.append(k2.wavefront(*ed_args)), 5)
+    assert all(torch.equal(r, codes_k) for r in k2_runs), \
+        "K2's repeated runs differ"
+    del k2_runs
+    _, k2_blocks, k2_threads = k2.geometry(*colmaj.shape)
+    # the column step against the pipeline's fill: the same columns
+    # walked by one 32-row band alone, and by one channel's bands
+    band = colmaj[:, :1, :32].contiguous()
+    chan = colmaj[:, :1, :].contiguous()
+    k2_band_ms = _cuda_ms(
+        lambda: k2.wavefront(band, ed_kernel, depth, ed_w, 32), 5)
+    k2_chan_ms = _cuda_ms(
+        lambda: k2.wavefront(chan, ed_kernel, depth, ed_w, ed_h), 5)
+    k2_chan_bands = k2.geometry(*chan.shape)[1]
+    del band, chan
     k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*ed_args), 1)
     k3_ms, k3_plain_ms, k3_lib_ms, k3_bytes = {}, {}, {}, 0
     for x, w_out, s, w, h, fwd in (shear_in, unshear_in):
@@ -447,6 +477,12 @@ def main() -> int:
         "k1_no_dither_ops_per_pixel": k1.ops_per_pixel(c5_k1[1]),
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_bytes": k2_bytes,
         "k2_ops": k2_ops, "k2_columns": colmaj.shape[0],
+        "k2_ns_per_column": k2_ms * 1e6 / colmaj.shape[0],
+        "k2_grid": [k2_blocks, k2_threads],
+        "k2_one_band_ms": k2_band_ms, "k2_one_channel_ms": k2_chan_ms,
+        "k2_step_ns": k2_band_ms * 1e6 / colmaj.shape[0],
+        "k2_fill_us_per_band": (k2_chan_ms - k2_band_ms) * 1e3 /
+        (k2_chan_bands - 1),
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
         "k3_gather_ms": k3_lib_ms, "k3_bytes": k3_bytes,
         "ewa_ms": ewa_ms, "deband_ms": deband_ms, "grain_ms": grain_ms,

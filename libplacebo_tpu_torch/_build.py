@@ -21,7 +21,7 @@ import subprocess
 import threading
 
 __all__ = ["BUILD_DIR", "build_all", "build_log", "build_shared",
-           "load_shared", "nvcc_path"]
+           "generated_include", "load_shared", "nvcc_path"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
@@ -38,6 +38,23 @@ def nvcc_path() -> str:
             return cand
     raise RuntimeError("nvcc not found (set NVCC or install the CUDA "
                        "toolkit under /usr/local/cuda)")
+
+
+def generated_include(filename: str, text: str) -> str:
+    """Write `text`, a source made at build time, as
+    BUILD_DIR/gen-<hash>/<filename> and return that directory for `-I`.
+    Its name follows the text, so the flags, and with them the hash of
+    every library built against it, change when the text does."""
+    digest = hashlib.sha256(f"{filename}\n{text}".encode()).hexdigest()
+    inc = os.path.join(BUILD_DIR, f"gen-{digest[:16]}")
+    path = os.path.join(inc, filename)
+    if not os.path.exists(path):
+        os.makedirs(inc, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    return inc
 
 
 def _digest(paths, flags) -> str:

@@ -22,7 +22,10 @@ a time; the kernel (csrc/error_diffusion.cu) repeats its arithmetic
 operation for operation, so the two agree bit for bit.
 
 `wavefront` is the entry: a CPU tensor runs the plain version, a CUDA
-tensor launches the kernel (counted in `launches`) or raises.
+tensor launches the kernel (counted in `launches`) or raises.  The
+kernel is compiled for the patterns of `ERROR_DIFFUSION_KERNELS`, its
+tap tables generated from them (`tap_table_header`); another pattern
+runs on the CPU only and raises on the card.
 """
 from __future__ import annotations
 
@@ -33,15 +36,13 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ...core.dither import ErrorDiffusionKernel
+from ...core.dither import ERROR_DIFFUSION_KERNELS, ErrorDiffusionKernel
 from ...core.fastmath import fma, rcp
 
-__all__ = ["taps_for", "code_dtype", "wavefront", "wavefront_plain",
-           "launches", "build", "build_spec"]
+__all__ = ["taps_for", "tap_table_header", "code_dtype", "wavefront",
+           "wavefront_plain", "launches", "build", "build_spec", "geometry"]
 
 launches = 0
-
-_MAX_TAPS = 15        # 3 x 5 pattern (csrc: kMaxTaps)
 
 
 def taps_for(kernel: ErrorDiffusionKernel) -> List[Tuple[int, int, float]]:
@@ -52,6 +53,29 @@ def taps_for(kernel: ErrorDiffusionKernel) -> List[Tuple[int, int, float]]:
     return [(dy, dx + dy * kernel.shift, float(kern[dy, dx + 2]))
             for dy in range(3) for dx in range(-2, 3)
             if kern[dy, dx + 2] != 0.0]
+
+
+def tap_table_header() -> str:
+    """The tap tables the kernel is compiled with, as the C++ header
+    `k2_taps.h` that csrc/error_diffusion.cu includes: `kPatterns` and
+    `pattern(p)`, the shift and `taps_for` of pattern p of
+    ERROR_DIFFUSION_KERNELS (weights as exact hex float literals)."""
+    lines = ["// Generated from core/dither.py::ERROR_DIFFUSION_KERNELS by",
+             "// ops/cuda/error_diffusion.py::tap_table_header.",
+             f"constexpr int kPatterns = {len(ERROR_DIFFUSION_KERNELS)};",
+             "__host__ __device__ constexpr Pattern pattern(int p) {",
+             "  switch (p) {"]
+    for p, kernel in enumerate(ERROR_DIFFUSION_KERNELS):
+        taps = taps_for(kernel)
+        dys, offs, wgts = (", ".join(v) for v in zip(
+            *[(str(dy), str(off), float(w).hex() + "f")
+              for dy, off, w in taps]))
+        lines += [f"    case {p}:  // {kernel.name}",
+                  f"      return {{{kernel.shift}, {len(taps)}, {{{dys}}}, "
+                  f"{{{offs}}}, {{{wgts}}}}};"]
+    lines += ["    default:", "      return {0, 0, {}, {}, {}};", "  }", "}",
+              ""]
+    return "\n".join(lines)
 
 
 def code_dtype(new_depth: int) -> torch.dtype:
@@ -91,12 +115,14 @@ def wavefront_plain(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
 
 
 def build_spec():
-    """The kernel library's build spec (_build.build_all)."""
-    from ..._build import nvcc_path
+    """The kernel library's build spec (_build.build_all); writes the
+    tap tables' header into the build directory."""
+    from ..._build import generated_include, nvcc_path
+    taps = generated_include("k2_taps.h", tap_table_header())
     return ("k2_error_diffusion", ["csrc/error_diffusion.cu"], nvcc_path(),
             ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-             f"-DK2_MAX_TAPS={_MAX_TAPS}"])
+             "-I", taps])
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,10 +132,11 @@ def _kernel_lib():
     from ..._build import load_shared
     lib = load_shared(*build_spec())
     fn = lib.k2_wavefront_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_float,
-                                 ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
+        [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.k2_geometry.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    lib.k2_geometry.restype = None
     lib.k2_error_string.argtypes = [ctypes.c_int]
     lib.k2_error_string.restype = ctypes.c_char_p
     return lib
@@ -118,6 +145,16 @@ def _kernel_lib():
 def build():
     """Compile (once) and load the kernel library."""
     return _kernel_lib()
+
+
+def geometry(Wsp: int, C: int, Hp: int) -> Tuple[int, int, int]:
+    """(scratch words the wrapper clears, blocks, threads a block) of the
+    kernel's launch on a (Wsp, C, Hp) image."""
+    words, blocks, threads = (ctypes.c_longlong(), ctypes.c_int(),
+                              ctypes.c_int())
+    _kernel_lib().k2_geometry(Wsp, C, Hp, ctypes.byref(words),
+                              ctypes.byref(blocks), ctypes.byref(threads))
+    return words.value, blocks.value, threads.value
 
 
 def wavefront(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
@@ -137,18 +174,22 @@ def wavefront(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
     Wsp, C, Hp = colmaj.shape
     if H > Hp or not 1 <= new_depth <= 16:
         raise ValueError(f"K2: {H} rows in {Hp}, depth {new_depth}")
-    taps = taps_for(kernel)
-    n = len(taps)
-    dys = (ctypes.c_int * n)(*[t[0] for t in taps])
-    offs = (ctypes.c_int * n)(*[t[1] for t in taps])
-    wgts = (ctypes.c_float * n)(*[t[2] for t in taps])
+    if kernel not in ERROR_DIFFUSION_KERNELS:
+        raise ValueError(
+            f"K2: the kernel runs the patterns of ERROR_DIFFUSION_KERNELS "
+            f"({', '.join(k.name for k in ERROR_DIFFUSION_KERNELS)}), not "
+            f"{kernel.name!r}; another pattern runs on a CPU tensor only")
     scale = float((1 << new_depth) - 1)
     dt = code_dtype(new_depth)
     out = torch.empty((Wsp, C, Hp), dtype=dt, device=colmaj.device)
+    # the band ticket and the boundary words, zero at every launch
+    scratch = torch.zeros(geometry(Wsp, C, Hp)[0], dtype=torch.int32,
+                          device=colmaj.device)
     lib = _kernel_lib()
     rc = lib.k2_wavefront_launch(
-        colmaj.data_ptr(), out.data_ptr(), int(dt == torch.int32), Wsp, C,
-        Hp, W, H, kernel.shift, n, dys, offs, wgts, scale, rcp(scale),
+        colmaj.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        int(dt == torch.int32), ERROR_DIFFUSION_KERNELS.index(kernel), Wsp,
+        C, Hp, W, H, scale, rcp(scale),
         torch.cuda.current_stream(colmaj.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("K2 launch failed: " +

@@ -284,6 +284,47 @@ def test_wavefront_rounds_the_error_once():
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+def _compiled_tap_tables():
+    """{pattern index: (name, shift, taps)} as K2 is compiled with them:
+    the `pattern()` switch of the header `tap_table_header` generates
+    for csrc/error_diffusion.cu, read back from its C++ text."""
+    import re
+    text = k2.tap_table_header()
+    assert f"constexpr int kPatterns = " \
+        f"{len(tdither.ERROR_DIFFUSION_KERNELS)};" in text
+    tables = {}
+    for m in re.finditer(r"case (\d+):\s*//\s*([\w-]+)\s*return\s*\{(.*?)\};",
+                         text, re.S):
+        head, dys, offs, wgts = re.fullmatch(
+            r"(\d+,\s*\d+),\s*\{(.*?)\},\s*\{(.*?)\},\s*\{(.*?)\}",
+            m.group(3).strip(), re.S).groups()
+        shift, n = (int(v) for v in head.split(","))
+        dys, offs = ([int(v) for v in g.split(",")] for g in (dys, offs))
+        wgts = [float.fromhex(v.strip().rstrip("f")) for v in wgts.split(",")]
+        assert len(dys) == len(offs) == len(wgts) == n
+        tables[int(m.group(1))] = (m.group(2), shift, list(zip(dys, offs,
+                                                               wgts)))
+    return tables
+
+
+@pytest.mark.parametrize("index", range(len(tdither.ERROR_DIFFUSION_KERNELS)))
+def test_k2_compiled_tap_table_equals_taps_for(index):
+    """The tap table compiled into K2 (one template instance a pattern,
+    from the generated header) is, pattern for pattern in
+    ERROR_DIFFUSION_KERNELS order, the pattern's shift and taps_for(k):
+    the same taps, order and float32 weights, bit for bit."""
+    tables = _compiled_tap_tables()
+    assert sorted(tables) == list(range(len(tdither.ERROR_DIFFUSION_KERNELS)))
+    k = tdither.ERROR_DIFFUSION_KERNELS[index]
+    name, shift, taps = tables[index]
+    assert (name, shift) == (k.name, k.shift)
+    want = k2.taps_for(k)
+    assert [(dy, off) for dy, off, _ in taps] == \
+        [(dy, off) for dy, off, _ in want]
+    assert np.array_equal(np.float32([w for _, _, w in taps]).view(np.uint32),
+                          np.float32([w for _, _, w in want]).view(np.uint32))
+
+
 # -- the slice end to end ------------------------------------------------
 
 def _yuv(seed, h=SRC_H, w=SRC_W):
@@ -427,6 +468,46 @@ def test_k2_kernel_matches_plain_on_card(cuda_device, name):
     torch.cuda.synchronize()
     assert k2.launches == before + 1
     assert torch.equal(out, k2.wavefront_plain(cm, k, 8, W, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("name", [k.name for k in
+                                  tdither.ERROR_DIFFUSION_KERNELS])
+@pytest.mark.parametrize("shape", [(3, 37, 5), (2, 300, 3), (3, 70, 41)])
+def test_k2_kernel_crosses_band_boundaries_on_card(cuda_device, shape,
+                                                   name, depth):
+    """K2 vs its plain version where the pipelining can go wrong: row
+    counts that are not a multiple of the 32-row band (one lane a row),
+    several bands and blocks (boundary errors handed down through the
+    global buffer), narrow images (W < s*H, most of the sheared frame
+    outside the image), at 8 bits (int16 codes) and 16 (int32).  Every
+    sheared position is written: the whole code array is exact."""
+    _k2_exact_on_card(cuda_device, shape, name, depth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("name", ["floyd-steinberg", "jarvis-judice-ninke"])
+def test_k2_kernel_beyond_8192_rows_on_card(cuda_device, name, depth):
+    """More rows than the earlier one-block-a-channel kernel took (8192):
+    258 bands of a 2-column image, exact (the plain version walks its
+    16-25 thousand sheared columns in a few seconds)."""
+    _k2_exact_on_card(cuda_device, (1, 8250, 2), name, depth)
+
+
+def _k2_exact_on_card(cuda_device, shape, name, depth):
+    k = tdither.find_error_diffusion_kernel(name)
+    C, H, W = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(H * 7 + W)
+    x = torch.rand((C, H, W), device=cuda_device, generator=gen)
+    Ws = W + (H - 1) * k.shift
+    cm = k3.shear_plain(x.permute(2, 0, 1).contiguous(), Ws, k.shift, W, H,
+                        True)
+    out = k2.wavefront(cm, k, depth, W, H)
+    torch.cuda.synchronize()
+    assert out.dtype == (torch.int16 if depth == 8 else torch.int32)
+    assert torch.equal(out, k2.wavefront_plain(cm, k, depth, W, H))
 
 
 def _measure(n_frames=8):

@@ -122,6 +122,22 @@ def test_build_all_starts_every_build_and_raises_on_failure():
         _build.build_all(native.build_specs() + [bad])
 
 
+def test_generated_include_follows_its_text():
+    """_build.generated_include writes a source made at build time into
+    a directory named by its text: the same text gives the same directory
+    (written once), another text another one, so flags that name it
+    rebuild the library when the text changes."""
+    from libplacebo_tpu_torch import _build
+    a = _build.generated_include("t.h", "constexpr int k = 1;\n")
+    assert a == _build.generated_include("t.h", "constexpr int k = 1;\n")
+    b = _build.generated_include("t.h", "constexpr int k = 2;\n")
+    assert a != b and os.path.dirname(a) == _build.BUILD_DIR
+    for d, text in ((a, "constexpr int k = 1;\n"),
+                    (b, "constexpr int k = 2;\n")):
+        with open(os.path.join(d, "t.h")) as f:
+            assert f.read() == text
+
+
 def test_arrays_to_device_keeps_values_types_and_shapes():
     from libplacebo_tpu_torch.utils.device import arrays_to_device
     rng = np.random.default_rng(0)
