@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each runs uncaught: any failure exits non-zero):
  1. build the hand-written kernels from csrc/ (one nvcc each, all at
     once) and the native host code (blue noise, film grain), keeping
-    ptxas's register and spill report;
+    ptxas's register and spill report, and read K1's pixel loop out of
+    its SASS (libplacebo_tpu_torch/_sass.py: instructions an iteration
+    by class, calls, ptxas's stack frame);
  2. the flagship path: render 3 chained frames — 1080p 8-bit limited
     BT.2020-NC yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak
     state carried — through libplacebo_tpu_torch.Renderer on "cuda",
@@ -29,7 +31,9 @@ Phases (each runs uncaught: any failure exits non-zero):
     grain tables; K2's timed runs must all return the codes of its first
     (a race between its bands would show as a difference), and K2 is
     timed on one 32-row band and on one channel of the same columns,
-    which splits its time into the column step and the pipeline's fill.
+    which splits its time into the column step and the pipeline's fill;
+    K1's instruction floor from its SASS count and the SM clock read
+    while it runs.
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -105,31 +109,30 @@ def _render_run(renderer, frames, target, params, counters):
     return outs, {name: mod.launches for name, mod in counters.items()}
 
 
-def _check_k1(k1, args, npix):
+def _check_k1(k1, args):
     """K1 vs its plain version on the same inputs (comparison launches
     are not counted by the caller)."""
     import torch
-    img, consts, spline, lut = args
-    out_k, part_k = k1.color_map_tail(img, consts, spline, lut)
-    out_p, part_p = k1.color_map_plain(img, consts, spline, lut)
+    img, plan, spline, lut = args
+    out_k, part_k = k1.color_map_tail(img, plan, spline, lut)
+    out_p, part_p = k1.color_map_plain(img, plan.consts, spline, lut)
     torch.cuda.synchronize()
     diff = (out_k - out_p).abs()
     max_abs_err = float(diff.max())
     frac = float((diff > 1e-6).float().mean())
     assert max_abs_err <= LSB + 1e-6, max_abs_err
     assert frac < 1e-3, frac
-    hist_k, hist_p = part_k[:, 0, :64], part_p[:, 0, :64]
-    assert float(hist_k.sum()) == float(hist_p.sum())
-    assert float((hist_k - hist_p).abs().sum()) <= 1e-4 * npix
+    assert torch.equal(part_k[:, 0, :64], part_p[:, 0, :64])
     torch.testing.assert_close(part_k[:, 1, :3], part_p[:, 1, :3],
                                rtol=1e-5, atol=0.0)
     return max_abs_err, frac, part_k
 
 
 def _k1_entry(k1, name, args, part, launches, max_abs_err, ms, plain_ms):
-    img, consts, spline, lut = args
+    img, plan, spline, lut = args
+    consts = plan.consts
     npix = img.shape[-2] * img.shape[-1]
-    io_bytes = (2 * 3 * npix * 4 + part.numel() * 4 + consts.numel() * 4
+    io_bytes = (2 * 3 * npix * 4 + part.numel() * 4 + consts.nbytes
                 + spline.numel() * 4 + (lut.numel() * 4 if lut is not None
                                         else 0))
     bound, by = _bound(io_bytes, k1.ops_per_pixel(consts) * npix)
@@ -166,7 +169,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import libplacebo_tpu_torch as lt
-    from libplacebo_tpu_torch import native
+    from libplacebo_tpu_torch import _sass, native
     from libplacebo_tpu_torch._build import build_all, build_log
     from libplacebo_tpu_torch.core import dither as cdither
     from libplacebo_tpu_torch.core import filters as flt
@@ -197,6 +200,20 @@ def main() -> int:
     ptxas_lines = {n: [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
                    for n, log in ptxas.items()}
+    # K1's shape: the pixel loop's instruction mix, read from the SASS
+    # (cuobjdump from the toolkit or from Triton's package; none = fail)
+    k1_sass_text = _sass.disassemble(k1.build()._name)
+    k1_report = _sass.ptxas_report(ptxas["k1"])
+    k1_sass, k1_ptxas = {}, {}
+    for variant, inst in (("dither", "k1_color_mapILb1E"),
+                          ("no_dither", "k1_color_mapILb0E")):
+        k1_sass[variant] = _sass.loop_mix(k1_sass_text, inst)
+        # one pixel an iteration: the count is a pixel's only without a
+        # loop inside the pixel loop
+        assert not k1_sass[variant]["inner_loops"], k1_sass[variant]
+        report = [v for n, v in k1_report.items() if inst in n]
+        assert len(report) == 1, k1_report
+        k1_ptxas[variant] = report[0]
 
     # 2. the flagship path: 3 chained frames on the card
     H, W = 1080, 1920
@@ -209,9 +226,9 @@ def main() -> int:
     real = {"k1": k1.color_map_tail, "k2": k2.wavefront,
             "k3f": k3.shear_to_colmaj, "k3i": k3.unshear_from_colmaj}
 
-    def cap_k1(img, consts, spline, lut=None):
-        captured["k1"].append((img.clone(), consts, spline.clone(), lut))
-        return real["k1"](img, consts, spline, lut)
+    def cap_k1(img, plan, spline, lut):
+        captured["k1"].append((img.clone(), plan, spline.clone(), lut))
+        return real["k1"](img, plan, spline, lut)
 
     def cap_k2(colmaj, kernel, depth, w, h):
         captured["k2"].append((colmaj.clone(), kernel, depth, w, h))
@@ -266,7 +283,10 @@ def main() -> int:
 
     # 3a. K1 vs its plain version on frame 2's input at 4K (these
     # comparison launches do not count)
-    k1_err, k1_frac, k1_part = _check_k1(k1, flag_k1, npix)
+    k1_err, k1_frac, k1_part = _check_k1(k1, flag_k1)
+    # K1's check-free square root vs sqrtf on every float of the range
+    # its PQ curves clamp into
+    assert k1.sqrt_check(dev) == 0
 
     # 3b. GPU render vs the CPU (plain) render on a small input
     small = _flagship_yuv(2, 64, 128, seed=7)
@@ -287,7 +307,7 @@ def main() -> int:
     # 2's inputs at 4K (exact for K2 and K3)
     c5_k1 = captured["k1"][1]
     assert c5_k1[3] is None
-    k1n_err, k1n_frac, k1n_part = _check_k1(k1, c5_k1, npix)
+    k1n_err, k1n_frac, k1n_part = _check_k1(k1, c5_k1)
     colmaj, ed_kernel, depth, ed_w, ed_h = captured["k2"][1]
     shear_in, unshear_in = captured["k3"][2], captured["k3"][3]
     assert shear_in[5] and not unshear_in[5]
@@ -363,9 +383,25 @@ def main() -> int:
               for k in range(n_timed)]
     c5_ms, c5_window_ms = frame_times(renderer5, timed5, params5)
     k1_ms = _cuda_ms(lambda: k1.color_map_tail(*flag_k1), 20)
-    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(*flag_k1), 3)
+    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        flag_k1[0], flag_k1[1].consts, *flag_k1[2:]), 3)
     k1n_ms = _cuda_ms(lambda: k1.color_map_tail(*c5_k1), 20)
-    k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(*c5_k1), 3)
+    k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        c5_k1[0], c5_k1[1].consts, *c5_k1[2:]), 3)
+    # the SM clock while K1 runs: ~0.5-1 s of launches queued, read
+    # before they finish; the instruction floor is the pixel loop's
+    # instructions (one pixel an iteration) over every scheduler's lanes
+    # at that clock
+    for _ in range(1000):
+        k1.color_map_tail(*flag_k1)
+    k1_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    torch.cuda.synchronize()
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32
+    k1_floor_ms = {v: m["per_iteration"] * npix / (lanes * k1_mhz * 1e6) * 1e3
+                   for v, m in k1_sass.items()}
     ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
     k2_runs = []
     k2_ms = _cuda_ms(lambda: k2_runs.append(k2.wavefront(*ed_args)), 5)
@@ -473,8 +509,14 @@ def main() -> int:
         "k1_no_dither_ms": k1n_ms, "k1_no_dither_plain_ms": k1n_plain_ms,
         "k1_differing_fraction": k1_frac,
         "k1_no_dither_differing_fraction": k1n_frac,
-        "k1_ops_per_pixel": k1.ops_per_pixel(flag_k1[1]),
-        "k1_no_dither_ops_per_pixel": k1.ops_per_pixel(c5_k1[1]),
+        "k1_ops_per_pixel": k1.ops_per_pixel(flag_k1[1].consts),
+        "k1_no_dither_ops_per_pixel": k1.ops_per_pixel(c5_k1[1].consts),
+        "k1_sass": {v: {k: m[k] for k in (
+            "per_iteration", "classes", "static_instructions",
+            "slow_path_instructions", "calls",
+            "slow_path_calls")} for v, m in k1_sass.items()},
+        "k1_ptxas": k1_ptxas, "k1_sm_clock_mhz": k1_mhz,
+        "k1_instruction_floor_ms": k1_floor_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_bytes": k2_bytes,
         "k2_ops": k2_ops, "k2_columns": colmaj.shape[0],
         "k2_ns_per_column": k2_ms * 1e6 / colmaj.shape[0],
@@ -493,7 +535,9 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "timings": timings,
-                   "ptxas_report": ptxas}, f, indent=1)
+                   "ptxas_report": ptxas, "k1_sass": k1_sass}, f, indent=1)
+    with open(os.path.join("chiprun_out", "k1_sass.txt"), "w") as f:
+        f.write(k1_sass_text)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

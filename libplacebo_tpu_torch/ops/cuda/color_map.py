@@ -11,11 +11,13 @@ for any other: the renderer then runs the plain stages, as the
 reference does when its tail is not eligible).
 
 Everything static is planned on the host in float64 and packed once
-into one float32 vector (`LAYOUT`); the per-frame spline scalars form a
-second, 8-long vector.  The kernel (csrc/color_map.cu) and the plain
-version (`color_map_plain`) both read those two vectors, so they cannot
-compute their constants apart.  The plain version repeats the kernel's
-arithmetic operation for operation.
+into one float32 vector (`LAYOUT`), kept in host memory: each launch
+copies it into the kernel's parameters, where the kernel reads every
+coefficient at a compile-time offset, with no staging in shared memory.  The per-frame spline scalars
+form a second, 8-long vector on the device.  The kernel
+(csrc/color_map.cu) and the plain version (`color_map_plain`) both read
+those two vectors, so they cannot compute their constants apart.  The
+plain version repeats the kernel's arithmetic operation for operation.
 
 `color_map_tail` is the entry: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel (and counts the launch in `launches`)
@@ -26,8 +28,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,9 +43,10 @@ from ..color import nominal_luma_norm
 from ..gamut import GamutBoundary, boundary_rows, HARMONICS, POLY_DEG
 from ..peak_detect import stripe_partials
 
-__all__ = ["LAYOUT", "TailPlan", "plan_tail", "pack_constants",
-           "color_map_tail", "color_map_plain", "pick_block_rows",
-           "launches", "ops_per_pixel", "build", "build_spec"]
+__all__ = ["LAYOUT", "TailPlan", "RowMasks", "plan_tail", "pack_constants",
+           "row_masks", "color_map_tail", "color_map_plain",
+           "pick_block_rows", "launches", "ops_per_pixel", "sqrt_check",
+           "build", "build_spec"]
 
 _NCOEF = (2 * HARMONICS + 1) * (POLY_DEG + 1)
 
@@ -72,20 +75,30 @@ for _name, _len in LAYOUT:
     _n += _len
 NCONST = _n
 
+# The kernel takes the packed vector by value among its parameters,
+# which may hold 4096 bytes; the rest of its list is 5 pointers and 9
+# ints (csrc/color_map.cu checks the same with a static_assert).
+PARAM_LIMIT = 4096
+PARAM_BYTES = 4 * NCONST + 5 * 8 + 9 * 4
+assert PARAM_BYTES <= PARAM_LIMIT, (PARAM_BYTES, PARAM_LIMIT)
+
 # FP32 operations per pixel of the kernel's chain, counted from
 # csrc/color_map.cu (each add, multiply, divide, sqrt, exp, log, min,
 # max, compare or floor counts 1, a fused multiply-add 2).  Always run:
 # peak partials 61, RGB->ICh 190 (three pow-free PQ curves at 49 each),
 # spline + hull 26, Fourier basis + intensity powers 55, chroma softclip
-# 44, ICh->RGB 179, per channel RGB softclip + delinearize + sRGB
-# 3 x 52, their max 3, and each boundary fit's floor 1.
-_OPS_FIXED = 61 + 190 + 26 + 55 + 44 + 179 + 3 * 52 + 3 + 2
+# 44, ICh->RGB 179, the RGB softclip's per-pixel terms from the largest
+# channel 27 (peak 1, bb's numerator 3, a 5, bb 3, scale 7, blend weight
+# 8), then per channel the softclip's rest + delinearize + sRGB 3 x 25,
+# the largest channel 3, and each boundary fit's floor 1.
+_OPS_FIXED = 61 + 190 + 26 + 55 + 44 + 179 + 27 + 3 * 25 + 3 + 2
 _OPS_ROW0 = 13          # a fit's constant row: 1 multiply + 6 FMAs
 _OPS_ROW = 15           # any other kept row, then times its basis term
 _OPS_DITHER = 3 * 4     # per channel an FMA, a floor and a multiply
 
 launches = 0
 _SUB = 64 + 3          # a kernel block's partials record (csrc: kSub)
+_COLS = 128            # columns a kernel block (csrc: kThreads)
 
 
 def pick_block_rows(h: int, budget_rows: int = 8) -> int:
@@ -101,12 +114,64 @@ def pick_block_rows(h: int, budget_rows: int = 8) -> int:
     return best or budget_rows
 
 
+_MATRICES = ("src_rgb2lms", "lms2ipt", "ipt2lms", "dst_lms2rgb")
+
+
+class RowMasks(NamedTuple):
+    """Bit r of `*_kept`: row r of that boundary fit has a nonzero
+    coefficient (the kernel skips the others); bit r of `*_swap`: its
+    first two products fuse in the other order (c[0] < 0 < c[1]);
+    bit 3 m + i of `mat_swap`: row i of matrix m of `_MATRICES` fuses
+    its second product first (w0 == 1, or w0 < 0 < w1 != 1) — the
+    rounding of core/fastmath.py::mix."""
+    src_kept: int
+    dst_kept: int
+    src_swap: int
+    dst_swap: int
+    mat_swap: int
+
+
+def _fit_rows(consts, name):
+    c = np.asarray(consts, np.float32)
+    return c[_OFF[name]:_OFF[name] + _NCOEF].reshape(
+        2 * HARMONICS + 1, POLY_DEG + 1)
+
+
+def _matrix(consts, name):
+    c = np.asarray(consts, np.float32)
+    return c[_OFF[name]:_OFF[name] + 9].reshape(3, 3)
+
+
+def _bits(flags) -> int:
+    return sum(1 << r for r, f in enumerate(flags) if f)
+
+
+def row_masks(consts) -> RowMasks:
+    """The kernel's RowMasks of the packed constants (host memory)."""
+    src, dst = _fit_rows(consts, "src_coefs"), _fit_rows(consts, "dst_coefs")
+    m = np.concatenate([_matrix(consts, name) for name in _MATRICES])
+    return RowMasks(_bits((src != 0).any(axis=1)),
+                    _bits((dst != 0).any(axis=1)),
+                    _bits((src[:, 0] < 0) & (src[:, 1] > 0)),
+                    _bits((dst[:, 0] < 0) & (dst[:, 1] > 0)),
+                    _bits((m[:, 0] == 1) | ((m[:, 0] < 0) & (m[:, 1] > 0)
+                                            & (m[:, 1] != 1))))
+
+
 @dataclass(frozen=True)
 class TailPlan:
-    """Host plan of one K1 chain: the packed constants and the dither LUT
-    (None = no dither)."""
+    """Host plan of one K1 chain: the packed constants (kept as a
+    read-only copy), the dither LUT (None = no dither), and the row masks,
+    always derived from those constants."""
     consts: np.ndarray
-    lut: Optional[np.ndarray]
+    lut: Optional[np.ndarray] = None
+    rows: RowMasks = field(init=False)
+
+    def __post_init__(self):
+        consts = np.array(self.consts, np.float32)
+        consts.setflags(write=False)
+        object.__setattr__(self, "consts", consts)
+        object.__setattr__(self, "rows", row_masks(consts))
 
 
 def pack_constants(b_src: GamutBoundary, b_dst: GamutBoundary,
@@ -186,6 +251,10 @@ def plan_tail(params, dst_color, target, b_src, b_dst, dst_min_pq,
                             params.gamut_constants, dst_color,
                             target.bit_depth if dither_lut is not None
                             else 0, params.peak_detect.black_cutoff)
+    # the kernel mixes every matrix row as three products (`mix` skips a
+    # zero weight, which no pair of real primaries gives)
+    if any((_matrix(consts, name) == 0).any() for name in _MATRICES):
+        return None
     return TailPlan(consts, dither_lut)
 
 
@@ -194,14 +263,10 @@ def ops_per_pixel(consts) -> int:
     constants: the fixed chain, every boundary-fit row that
     `boundary_rows` kept (the kernel skips an all-zero, pruned row), and
     the dither where the plan dithers (a nonzero dither scale)."""
-    c = consts.cpu().numpy() if isinstance(consts, torch.Tensor) \
-        else np.asarray(consts)
+    c = np.asarray(consts)
     ops = _OPS_FIXED
-    for name in ("src_coefs", "dst_coefs"):
-        rows = c[_OFF[name]:_OFF[name] + _NCOEF].reshape(
-            2 * HARMONICS + 1, POLY_DEG + 1)
-        kept = (rows != 0).any(axis=1)
-        ops += _OPS_ROW0 * int(kept[0]) + _OPS_ROW * int(kept[1:].sum())
+    for kept in row_masks(c)[:2]:
+        ops += _OPS_ROW0 * (kept & 1) + _OPS_ROW * bin(kept >> 1).count("1")
     if c[_OFF["dither_scale"]] != 0:
         ops += _OPS_DITHER
     return ops
@@ -412,9 +477,11 @@ def _kernel_lib():
     from ..._build import load_shared
     lib = load_shared(*build_spec())
     fn = lib.k1_color_map_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.k1_sqrt_check_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.k1_sqrt_check_launch.restype = ctypes.c_int
     lib.k1_error_string.argtypes = [ctypes.c_int]
     lib.k1_error_string.restype = ctypes.c_char_p
     return lib
@@ -423,6 +490,21 @@ def _kernel_lib():
 def build():
     """Compile (once) and load the kernel library."""
     return _kernel_lib()
+
+
+def sqrt_check(device) -> int:
+    """How many floats the kernel's check-free square root (csrc:
+    sqrt_in_range) rounds otherwise than sqrtf over the range the PQ
+    curves clamp its operands into (csrc: kSqrtLo..kSqrtHi): 0 is
+    exact."""
+    lib = _kernel_lib()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    rc = lib.k1_sqrt_check_launch(
+        bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("K1 sqrt check failed: " +
+                           lib.k1_error_string(rc).decode())
+    return int(bad.item())
 
 
 def _check(t, name, shape=None):
@@ -435,19 +517,23 @@ def _check(t, name, shape=None):
                          f"expected {tuple(shape)}")
 
 
-def color_map_tail(img, consts, spline, lut=None):
-    """Run K1 on a (3, H, W) float32 frame of linear light.  `consts` is
-    the packed constant vector (TailPlan.consts as a tensor), `spline`
-    the 8 per-frame spline scalars, `lut` the (n, n) dither LUT or None.
+def color_map_tail(img, plan, spline, lut):
+    """Run K1 on a (3, H, W) float32 frame of linear light.  `plan` is
+    the chain's TailPlan (its packed constants in host memory and their
+    row masks), `spline` the 8 per-frame spline scalars, `lut` the
+    (n, n) dither LUT tensor (plan.lut on the frame's device) or None.
     Returns (out, (H / block_rows, 8, 128) peak partials)."""
     global launches
+    if not isinstance(plan, TailPlan) or plan.consts.shape != (NCONST,):
+        raise ValueError(f"K1: plan must be a TailPlan of {NCONST} "
+                         f"constants")
+    consts = plan.consts
     if img.device.type == "cpu":
         return color_map_plain(img, consts, spline, lut)
     if img.device.type != "cuda":
         raise ValueError(f"K1: unsupported device {img.device}")
     C, H, W = img.shape
     _check(img, "img", (3, H, W))
-    _check(consts, "consts", (NCONST,))
     _check(spline, "spline", (8,))
     n = 0
     if lut is not None:
@@ -456,22 +542,22 @@ def color_map_tail(img, consts, spline, lut=None):
         if n & (n - 1):
             raise ValueError(f"K1: dither LUT size {n} is not a power of 2")
     bh = pick_block_rows(H)
-    if H % bh:
-        raise ValueError(f"K1: {H} rows do not split into stripes")
+    if H % bh or W % _COLS:
+        raise ValueError(f"K1: a {H}x{W} frame does not split into "
+                         f"{bh}-row stripes of {_COLS}-column blocks")
     stripes = H // bh
-    # blocks per stripe: ~2k pixels each, so a 4K frame runs ~4k blocks
-    nsub = max(1, min(32, bh * W // 2048))
     out = torch.empty_like(img)
-    sub = torch.empty((stripes, nsub, _SUB), dtype=torch.float32,
+    sub = torch.empty((stripes, W // _COLS, _SUB), dtype=torch.float32,
                       device=img.device)
     partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
                            device=img.device)
     lib = _kernel_lib()
     rc = lib.k1_color_map_launch(
         img.data_ptr(), out.data_ptr(), sub.data_ptr(),
-        partials.data_ptr(), consts.data_ptr(),
+        partials.data_ptr(), consts.ctypes.data,
         spline.data_ptr(), lut.data_ptr() if lut is not None else None,
-        n, H, W, bh, nsub, torch.cuda.current_stream(img.device).cuda_stream)
+        n, H, W, bh, *plan.rows,
+        torch.cuda.current_stream(img.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("K1 launch failed: " +
                            lib.k1_error_string(rc).decode())

@@ -510,7 +510,6 @@ class Renderer:
         if plan is None:
             return None
         dev = self.device
-        consts = torch.from_numpy(plan.consts).to(dev)
         lut_t = torch.from_numpy(plan.lut).to(dev) \
             if plan.lut is not None else None
 
@@ -520,7 +519,7 @@ class Renderer:
                                           dst_max_pq, params.tone_constants)
 
         def run(img, peak_stats):
-            return k1.color_map_tail(img.contiguous(), consts,
+            return k1.color_map_tail(img.contiguous(), plan,
                                      spline(peak_stats), lut_t)
         return run
 

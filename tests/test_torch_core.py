@@ -206,3 +206,94 @@ def test_outside_the_slice_raises(feature):
     params = lt.RenderParams(upscaler="ewa_lanczos", **feature)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.Renderer(device="cpu").render(frame, target, params)
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_112pq_oetf_fastEf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   MUFU.RSQ R4, R4 ;                /* 0x0000000400047308 */
+                                                                    /* 0x000e240000001400 */
+        /*0010*/                   FMUL R4, R4, c[0x0][0x210] ;
+        /*0020*/                   RET.REL.NODEC R2 `(_ZN12_GLOBAL__N_112k1_color_mapEPKf) ;
+\t\t..........
+
+
+\t\tFunction : _ZN12_GLOBAL__N_112k1_color_mapEPKf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0020*/                   FFMA R2, R3, c[0x0][0x210], R2 ;
+        /*0030*/                   CALL.REL.NOINC `(_ZN12_GLOBAL__N_112pq_oetf_fastEf) ;
+        /*0040*/                   MUFU.RSQ R4, R2 ;
+        /*0050*/              @!P0 BRA 0x80 ;
+        /*0060*/                   MOV R28, 0x80 ;
+        /*0070*/                   CALL.REL.NOINC 0xc0 ;
+        /*0080*/               @P1 BRA 0x40 ;
+        /*0090*/                   ATOMS.POPC.INC.32 RZ, [UR4] ;
+        /*00a0*/               @P2 BRA `(.L_x_1) ;
+        /*00b0*/                   EXIT ;
+        /*00c0*/                   FFMA R1, R1, R1, R1 ;
+        /*00d0*/                   RET.REL.NODEC R20 0x0 ;
+.L_x_2:
+        /*00e0*/                   BRA `(.L_x_2);
+"""
+
+
+def test_sass_loop_mix():
+    """_sass.loop_mix finds the widest loop, lists the loop inside it,
+    adds a device function's body at its call site, and leaves out the
+    IEEE slow-path call that a predicated branch jumps over, with its
+    set-up."""
+    from libplacebo_tpu_torch import _sass
+    mix = _sass.loop_mix(_SASS, "k1_color_map")
+    assert mix["function"] == "_ZN12_GLOBAL__N_112k1_color_mapEPKf"
+    assert mix["loop_bytes"] == [0x20, 0xa0]
+    assert mix["inner_loops"] == [[0x40, 0x80]]
+    assert mix["static_instructions"] == 9
+    assert mix["per_iteration"] == 10
+    assert mix["slow_path_instructions"] == 2
+    assert mix["classes"] == {"atoms": 1, "branch": 3, "call_ret": 2,
+                              "fp32": 2, "mufu": 2}
+    assert mix["calls"] == {"_ZN12_GLOBAL__N_112pq_oetf_fastEf": 1}
+    assert mix["slow_path_calls"] == {"0xc0": 1}
+    with pytest.raises(ValueError):
+        _sass.loop_mix(_SASS, "_GLOBAL__N_")
+    # the nested loop 0x40..0x80 run three times: its counted instructions
+    # (0x40, 0x50, 0x80) and its slow-path set-up and call twice more
+    mix3 = _sass.loop_mix(_SASS, "k1_color_map", inner_trips=3)
+    assert mix3["per_iteration"] == 10 + 2 * 3
+    assert mix3["slow_path_instructions"] == 2 * 3
+    assert mix3["classes"] == {"atoms": 1, "branch": 3 + 2 * 2,
+                               "call_ret": 2, "fp32": 2, "mufu": 2 + 2}
+    assert mix3["slow_path_calls"] == {"0xc0": 3}
+    assert mix3["static_instructions"] == 9
+
+
+@pytest.mark.parametrize("op, cls", [
+    ("FFMA.FTZ", "fp32"), ("LDS.U.128", "lds"), ("MUFU.RSQ", "mufu"),
+    ("CALL.REL.NOINC", "call_ret"), ("STL.64", "local"),
+    ("ATOMS.POPC.INC.32", "atoms"), ("LOP3.LUT", "integer"),
+    ("BSSY", "branch"), ("ULDC.64", "constant_load"), ("XYZ", "other")])
+def test_sass_classes(op, cls):
+    """Each opcode falls in the class the mix reports it under."""
+    from libplacebo_tpu_torch import _sass
+    assert _sass.classify(op) == cls
+
+
+def test_ptxas_report():
+    """_sass.ptxas_report reads registers, stack frame and spills per
+    function from nvcc's -Xptxas -v output."""
+    from libplacebo_tpu_torch import _sass
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z2k1v' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z2k1v\n"
+        "    16 bytes stack frame, 4 bytes spill stores, 8 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 72 registers, used 1 barriers, 1792 bytes "
+        "cmem[0]\n")
+    assert _sass.ptxas_report(log) == {"_Z2k1v": {
+        "registers": 72, "stack_frame": 16, "spill_stores": 4,
+        "spill_loads": 8}}
