@@ -4,11 +4,12 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each runs uncaught: any failure exits non-zero):
- 1. build the hand-written kernels from csrc/ (one nvcc each, all at
-    once) and the native host code (blue noise, film grain), keeping
-    ptxas's register and spill report, and read K1's pixel loop out of
-    its SASS (libplacebo_tpu_torch/_sass.py: instructions an iteration
-    by class, calls, ptxas's stack frame);
+ 1. build the hand-written kernels from csrc/ (one nvcc a library — K1
+    is one library a tone curve — all at once) and the native host code
+    (blue noise, film grain), keeping ptxas's register and spill report,
+    and read K1's pixel loop out of its SASS (libplacebo_tpu_torch/
+    _sass.py: instructions an iteration by class, calls, ptxas's stack
+    frame), for the flagship instance and the two of phase 7;
  2. the flagship path: render 3 chained frames — 1080p 8-bit limited
     BT.2020-NC yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak
     state carried — through libplacebo_tpu_torch.Renderer on "cuda",
@@ -25,7 +26,7 @@ Phases (each runs uncaught: any failure exits non-zero):
     versions on frame 2's inputs at 4K (K2 also for Jarvis-Judice-Ninke,
     s = 3, on the same frame sheared for it), and the config-5 GPU render
     against the CPU render on a small input;
- 6. time both renders (config 5 with a new grain seed every frame),
+ 6. time the renders (config 5 with a new grain seed every frame),
     every kernel, its plain version, K3's one-call PyTorch counterpart
     (torch.gather), deband, grain, and the host's making of one frame's
     grain tables; K2's timed runs must all return the codes of its first
@@ -33,7 +34,16 @@ Phases (each runs uncaught: any failure exits non-zero):
     timed on one 32-row band and on one channel of the same columns,
     which splits its time into the column step and the pipeline's fill;
     K1's instruction floor from its SASS count and the SM clock read
-    while it runs.
+    while it runs;
+ 7. config 4 (the flagship's content at 10 bits with 0.005-1000-nit
+    mastering metadata, bt2390 tone curve, softclip gamut map: K1's
+    <bt2390, softclip> instance with dither) and config 2's color path
+    (8-bit BT.709 BT.1886 with RenderParams(): sigmoidized separable
+    Lanczos, K1's pass-through instance), 3 chained frames each, counts
+    read as before (K1 3 times each); hold each instance against its
+    plain version on frame 2's input at 4K, and each GPU render against
+    the CPU render on a small input; time both renders and instances.
+On every path the renderer must count K1 tails only (no plain tails).
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -56,23 +66,37 @@ LSB = 1.0 / 255.0
 GRAIN_SEED = 7391
 
 
-def _flagship_yuv(n, h, w, seed=0):
+def _flagship_yuv(n, h, w, seed=0, bits=8):
+    """The flagship's seeded content, limited range, at 8 or 10 bits."""
     rng = np.random.default_rng(seed)
+    lo, span_y, span_c = (16, 219, 224) if bits == 8 else (64, 876, 896)
+    dt = np.uint8 if bits == 8 else np.uint16
     out = []
     for _ in range(n):
-        y = (rng.random((h, w)) * 219 + 16).astype(np.uint8)
-        u = (rng.random((h // 2, w // 2)) * 224 + 16).astype(np.uint8)
-        v = (rng.random((h // 2, w // 2)) * 224 + 16).astype(np.uint8)
+        y = (rng.random((h, w)) * span_y + lo).astype(dt)
+        u = (rng.random((h // 2, w // 2)) * span_c + lo).astype(dt)
+        v = (rng.random((h // 2, w // 2)) * span_c + lo).astype(dt)
         out.append((y, u, v))
     return out
 
 
-def _frame(lt, yuv, device, grain=None):
+def _frame(lt, yuv, device, grain=None, config="flagship"):
+    """A frame of the flagship (and config 5), config 4 (10 bits,
+    1000-nit mastering metadata) or config 2 (BT.709 BT.1886)."""
+    color, system, bits = lt.CSP_BT2100_PQ, lt.ColorSystem.BT_2020_NC, 8
+    if config == "config4":
+        color = lt.ColorSpace(lt.ColorPrimaries.BT_2020, lt.ColorTransfer.PQ,
+                              lt.HdrMetadata(min_luma=0.005,
+                                             max_luma=1000.0))
+        bits = 10
+    elif config == "config2":
+        color = lt.ColorSpace(lt.ColorPrimaries.BT_709,
+                              lt.ColorTransfer.BT_1886)
+        system = lt.ColorSystem.BT_709
     f = lt.frame_from_yuv420p(
-        *yuv, color=lt.CSP_BT2100_PQ, device=device,
-        repr=lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
-                          levels=lt.ColorLevels.LIMITED,
-                          bits=lt.BitEncoding(8, 8, 0)))
+        *yuv, color=color, device=device, bit_depth=bits,
+        repr=lt.ColorRepr(sys=system, levels=lt.ColorLevels.LIMITED,
+                          bits=lt.BitEncoding(bits, bits, 0)))
     f.film_grain = grain
     return f
 
@@ -99,43 +123,53 @@ def _bound(nbytes, ops):
 
 
 def _render_run(renderer, frames, target, params, counters):
-    """Render `frames` in a chain with every launch count set to 0 just
-    before; returns the outputs and the counts just after."""
+    """Render `frames` in a chain with every launch count, and the
+    renderer's tail counts, set to 0 just before; returns the outputs,
+    the launch counts just after and the (K1, plain) tail counts."""
     import torch
+    from libplacebo_tpu_torch.render import renderer as trender
     for mod in counters.values():
         mod.launches = 0
+    trender.k1_tails = trender.plain_tails = 0
     outs = [renderer.render(f, target, params) for f in frames]
     torch.cuda.synchronize()
-    return outs, {name: mod.launches for name, mod in counters.items()}
+    return outs, {name: mod.launches for name, mod in counters.items()}, \
+        (trender.k1_tails, trender.plain_tails)
 
 
 def _check_k1(k1, args):
     """K1 vs its plain version on the same inputs (comparison launches
     are not counted by the caller)."""
     import torch
-    img, plan, spline, lut = args
-    out_k, part_k = k1.color_map_tail(img, plan, spline, lut)
-    out_p, part_p = k1.color_map_plain(img, plan.consts, spline, lut)
+    img, plan, tone, lut = args
+    out_k, part_k = k1.color_map_tail(img, plan, tone, lut)
+    out_p, part_p = k1.color_map_plain(img, plan.consts, tone, lut,
+                                       plan.instance)
     torch.cuda.synchronize()
     diff = (out_k - out_p).abs()
     max_abs_err = float(diff.max())
     frac = float((diff > 1e-6).float().mean())
     assert max_abs_err <= LSB + 1e-6, max_abs_err
     assert frac < 1e-3, frac
-    assert torch.equal(part_k[:, 0, :64], part_p[:, 0, :64])
-    torch.testing.assert_close(part_k[:, 1, :3], part_p[:, 1, :3],
-                               rtol=1e-5, atol=0.0)
+    if plan.tone:
+        assert torch.equal(part_k[:, 0, :64], part_p[:, 0, :64])
+        torch.testing.assert_close(part_k[:, 1, :3], part_p[:, 1, :3],
+                                   rtol=1e-5, atol=0.0)
+    else:
+        assert part_k is None and part_p is None
     return max_abs_err, frac, part_k
 
 
 def _k1_entry(k1, name, args, part, launches, max_abs_err, ms, plain_ms):
-    img, plan, spline, lut = args
+    img, plan, tone, lut = args
     consts = plan.consts
     npix = img.shape[-2] * img.shape[-1]
-    io_bytes = (2 * 3 * npix * 4 + part.numel() * 4 + consts.nbytes
-                + spline.numel() * 4 + (lut.numel() * 4 if lut is not None
-                                        else 0))
-    bound, by = _bound(io_bytes, k1.ops_per_pixel(consts) * npix)
+    io_bytes = (2 * 3 * npix * 4 + consts.nbytes
+                + (part.numel() * 4 if part is not None else 0)
+                + (tone.numel() * 4 if tone is not None else 0)
+                + (lut.numel() * 4 if lut is not None else 0))
+    bound, by = _bound(io_bytes,
+                       k1.ops_per_pixel(consts, plan.instance) * npix)
     return {"name": name, "route": "cuda",
             "source": "libplacebo_tpu_torch/csrc/color_map.cu",
             "replaces": "libplacebo_tpu/ops/pallas/color_map.py:150",
@@ -181,6 +215,7 @@ def main() -> int:
     from libplacebo_tpu_torch.ops.cuda import color_map as k1
     from libplacebo_tpu_torch.ops.cuda import error_diffusion as k2
     from libplacebo_tpu_torch.ops.cuda import shear as k3
+    from libplacebo_tpu_torch.render import renderer as trender
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -191,12 +226,15 @@ def main() -> int:
 
     # 1. build: one compiler process per library, all started together
     t0 = time.perf_counter()
-    build_all([k1.build_spec(), k2.build_spec(), k3.build_spec(),
+    build_all([*k1.build_specs(), k2.build_spec(), k3.build_spec(),
                *native.build_specs()])
     cdither.blue_noise(6)
     cfg.generate_offsets(GRAIN_SEED, 1, 1)
     build_s = time.perf_counter() - t0
     ptxas = {n: build_log(m.build()) for n, m in counters.items()}
+    k1_libs = k1.libraries()
+    ptxas.update({f"k1_tone{t}": build_log(lib) for t, lib in k1_libs.items()
+                  if t != 1})
     ptxas_lines = {n: [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
                    for n, log in ptxas.items()}
@@ -205,14 +243,25 @@ def main() -> int:
     k1_sass_text = _sass.disassemble(k1.build()._name)
     k1_report = _sass.ptxas_report(ptxas["k1"])
     k1_sass, k1_ptxas = {}, {}
-    for variant, inst in (("dither", "k1_color_mapILb1E"),
-                          ("no_dither", "k1_color_mapILb0E")):
+    for variant, inst in (("dither", k1.instance_name(1, 2, True)),
+                          ("no_dither", k1.instance_name(1, 2, False))):
         k1_sass[variant] = _sass.loop_mix(k1_sass_text, inst)
         # one pixel an iteration: the count is a pixel's only without a
         # loop inside the pixel loop
         assert not k1_sass[variant]["inner_loops"], k1_sass[variant]
         report = [v for n, v in k1_report.items() if inst in n]
         assert len(report) == 1, k1_report
+        k1_ptxas[variant] = report[0]
+    # the instances of config 4 and config 2 (softclip's sincos keeps a
+    # range-reduction loop on its slow path, which |delta| < pi never
+    # takes; the count is of the fast path)
+    for variant, (tone, gamut) in (("config4", (2, 3)), ("config2", (0, 0))):
+        inst = k1.instance_name(tone, gamut, True)
+        k1_sass[variant] = _sass.loop_mix(
+            _sass.disassemble(k1_libs[tone]._name), inst)
+        report = [v for n, v in _sass.ptxas_report(
+            build_log(k1_libs[tone])).items() if inst in n]
+        assert len(report) == 1
         k1_ptxas[variant] = report[0]
 
     # 2. the flagship path: 3 chained frames on the card
@@ -226,9 +275,10 @@ def main() -> int:
     real = {"k1": k1.color_map_tail, "k2": k2.wavefront,
             "k3f": k3.shear_to_colmaj, "k3i": k3.unshear_from_colmaj}
 
-    def cap_k1(img, plan, spline, lut):
-        captured["k1"].append((img.clone(), plan, spline.clone(), lut))
-        return real["k1"](img, plan, spline, lut)
+    def cap_k1(img, plan, tone, lut):
+        captured["k1"].append((img.clone(), plan, tone.clone()
+                               if tone is not None else None, lut))
+        return real["k1"](img, plan, tone, lut)
 
     def cap_k2(colmaj, kernel, depth, w, h):
         captured["k2"].append((colmaj.clone(), kernel, depth, w, h))
@@ -245,9 +295,16 @@ def main() -> int:
     k3.shear_to_colmaj = cap_k3(True)
     k3.unshear_from_colmaj = cap_k3(False)
     renderer = lt.Renderer(device=dev)
+    params4 = lt.RenderParams(upscaler="ewa_lanczos",
+                              tone_mapping_function="bt2390",
+                              gamut_mapping="softclip")
+    params2 = lt.RenderParams()
+    yuvs4 = _flagship_yuv(3, H, W, bits=10)
+    frames4 = [_frame(lt, f, dev, config="config4") for f in yuvs4]
+    frames2 = [_frame(lt, f, dev, config="config2") for f in yuvs]
     try:
-        outs, flag_launches = _render_run(renderer, frames, target, params,
-                                          counters)
+        outs, flag_launches, flag_tails = _render_run(
+            renderer, frames, target, params, counters)
         flag_k1 = captured["k1"][1]
         captured["k1"].clear()
         # 4. the config-5 path: the same frames with film grain
@@ -259,9 +316,20 @@ def main() -> int:
                    for i, f in enumerate(yuvs)]
         renderer5 = lt.Renderer(device=dev)
         t = time.perf_counter()
-        outs5, c5_launches = _render_run(renderer5, frames5, target,
-                                         params5, counters)
+        outs5, c5_launches, c5_tails = _render_run(
+            renderer5, frames5, target, params5, counters)
         c5_first_s = time.perf_counter() - t
+        captured["c5_k1"] = captured["k1"][1]
+        captured["k1"].clear()
+        # 7. config 4 and config 2's color path
+        renderer4, renderer2 = lt.Renderer(device=dev), lt.Renderer(device=dev)
+        outs4, c4_launches, c4_tails = _render_run(
+            renderer4, frames4, target, params4, counters)
+        c4_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        outs2, c2_launches, c2_tails = _render_run(
+            renderer2, frames2, target, params2, counters)
+        c2_k1 = captured["k1"][1]
     finally:
         k1.color_map_tail = real["k1"]
         k2.wavefront = real["k2"]
@@ -269,7 +337,16 @@ def main() -> int:
         k3.unshear_from_colmaj = real["k3i"]
     assert flag_launches == {"k1": 3, "k2": 0, "k3": 0}, flag_launches
     assert c5_launches == {"k1": 3, "k2": 3, "k3": 6}, c5_launches
-    for out in outs + outs5:
+    assert c4_launches == {"k1": 3, "k2": 0, "k3": 0}, c4_launches
+    assert c2_launches == {"k1": 3, "k2": 0, "k3": 0}, c2_launches
+    # every tail of every path ran on K1
+    for tails in (flag_tails, c5_tails, c4_tails, c2_tails):
+        assert tails == (3, 0), tails
+    assert (c4_k1[1].tone, c4_k1[1].gamut) == (2, 3) and \
+        c4_k1[1].flags == k1.FLAG_HUESHIFT and c4_k1[3] is not None
+    assert (c2_k1[1].tone, c2_k1[1].gamut, c2_k1[1].flags) == (0, 0, 0) \
+        and c2_k1[2] is None and c2_k1[3] is not None
+    for out in outs + outs5 + outs4 + outs2:
         assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
         assert bool(torch.isfinite(out).all())
         assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
@@ -278,8 +355,11 @@ def main() -> int:
         assert float((codes - torch.round(codes)).abs().max()) <= 255e-6
     state = renderer._peak_state.cpu().numpy()
     state5 = renderer5._peak_state.cpu().numpy()
+    state4 = renderer4._peak_state.cpu().numpy()
     assert np.isfinite(state).all() and state[1] > 0, state
     assert np.isfinite(state5).all() and state5[1] > 0, state5
+    assert np.isfinite(state4).all() and state4[1] > 0, state4
+    assert not renderer2._peak_state.any()
 
     # 3a. K1 vs its plain version on frame 2's input at 4K (these
     # comparison launches do not count)
@@ -305,7 +385,7 @@ def main() -> int:
 
     # 5a. K1 without dither, K2 and K3 vs their plain versions on frame
     # 2's inputs at 4K (exact for K2 and K3)
-    c5_k1 = captured["k1"][1]
+    c5_k1 = captured["c5_k1"]
     assert c5_k1[3] is None
     k1n_err, k1n_frac, k1n_part = _check_k1(k1, c5_k1)
     colmaj, ed_kernel, depth, ed_w, ed_h = captured["k2"][1]
@@ -353,6 +433,30 @@ def main() -> int:
     np.testing.assert_allclose(rg5._peak_state.cpu().numpy(),
                                rc5._peak_state.numpy(), atol=1e-5)
 
+    # 7b. config 4's and config 2's K1 instances vs their plain versions
+    # on frame 2's input at 4K, and the GPU renders vs the CPU renders on
+    # a small input (the flagship's gate)
+    k1_4_err, k1_4_frac, k1_4_part = _check_k1(k1, c4_k1)
+    k1_2_err, k1_2_frac, _ = _check_k1(k1, c2_k1)
+    small42 = {}
+    for config, p in (("config4", params4), ("config2", params2)):
+        rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+        small42[config] = []
+        bits = 10 if config == "config4" else 8
+        for f in _flagship_yuv(2, 64, 128, seed=7, bits=bits):
+            g = rg.render(_frame(lt, f, dev, config=config), st,
+                          p).cpu().numpy()
+            c = rc.render(_frame(lt, f, "cpu", config=config), st,
+                          p).numpy()
+            d = np.abs(g - c)
+            small42[config].append({
+                "max": float(d.max()), "mean": float(d.mean()),
+                "above_1lsb": float((d > LSB + 1e-5).mean())})
+            assert d.mean() < 1e-4 and (d > LSB + 1e-5).mean() <= 5e-4, \
+                small42[config][-1]
+        np.testing.assert_allclose(rg._peak_state.cpu().numpy(),
+                                   rc._peak_state.numpy(), atol=1e-5)
+
     # 6. timings (their launches are not counted).  Config 5's frames
     # carry a new grain seed each, as an AV1 stream's do, so every frame
     # generates and uploads its grain tables
@@ -375,9 +479,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return samples, start.elapsed_time(end) / len(fs[8:])
 
-    n_timed = 14
+    n_timed = 12
     frame_ms, frame_window_ms = frame_times(
         renderer, [frames[k % 3] for k in range(n_timed)], params)
+    c4_ms, c4_window_ms = frame_times(
+        renderer4, [frames4[k % 3] for k in range(n_timed)], params4)
+    c2_ms, c2_window_ms = frame_times(
+        renderer2, [frames2[k % 3] for k in range(n_timed)], params2)
     timed5 = [_frame(lt, yuvs[k % 3], dev,
                      cfg.sample_grain(GRAIN_SEED + len(yuvs) + k))
               for k in range(n_timed)]
@@ -386,6 +494,12 @@ def main() -> int:
     k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
         flag_k1[0], flag_k1[1].consts, *flag_k1[2:]), 3)
     k1n_ms = _cuda_ms(lambda: k1.color_map_tail(*c5_k1), 20)
+    k1_4_ms = _cuda_ms(lambda: k1.color_map_tail(*c4_k1), 20)
+    k1_4_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        c4_k1[0], c4_k1[1].consts, *c4_k1[2:], c4_k1[1].instance), 3)
+    k1_2_ms = _cuda_ms(lambda: k1.color_map_tail(*c2_k1), 20)
+    k1_2_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        c2_k1[0], c2_k1[1].consts, *c2_k1[2:], c2_k1[1].instance), 3)
     k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
         c5_k1[0], c5_k1[1].consts, *c5_k1[2:]), 3)
     # the SM clock while K1 runs: ~0.5-1 s of launches queued, read
@@ -401,7 +515,7 @@ def main() -> int:
     torch.cuda.synchronize()
     lanes = torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32
     k1_floor_ms = {v: m["per_iteration"] * npix / (lanes * k1_mhz * 1e6) * 1e3
-                   for v, m in k1_sass.items()}
+                   for v, m in k1_sass.items() if "dither" in v}
     ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
     k2_runs = []
     k2_ms = _cuda_ms(lambda: k2_runs.append(k2.wavefront(*ed_args)), 5)
@@ -485,6 +599,10 @@ def main() -> int:
                   flag_launches["k1"], k1_err, k1_ms, k1_plain_ms),
         _k1_entry(k1, "k1_color_map_no_dither", c5_k1, k1n_part,
                   c5_launches["k1"], k1n_err, k1n_ms, k1n_plain_ms),
+        _k1_entry(k1, "k1_color_map_bt2390_softclip", c4_k1, k1_4_part,
+                  c4_launches["k1"], k1_4_err, k1_4_ms, k1_4_plain_ms),
+        _k1_entry(k1, "k1_color_map_pass", c2_k1, None, c2_launches["k1"],
+                  k1_2_err, k1_2_ms, k1_2_plain_ms),
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -511,6 +629,20 @@ def main() -> int:
         "k1_no_dither_differing_fraction": k1n_frac,
         "k1_ops_per_pixel": k1.ops_per_pixel(flag_k1[1].consts),
         "k1_no_dither_ops_per_pixel": k1.ops_per_pixel(c5_k1[1].consts),
+        "config4_frame_ms_median": statistics.median(c4_ms),
+        "config4_frame_ms": c4_ms, "config4_window_ms": c4_window_ms,
+        "config2_frame_ms_median": statistics.median(c2_ms),
+        "config2_frame_ms": c2_ms, "config2_window_ms": c2_window_ms,
+        "k1_config4_ms": k1_4_ms, "k1_config4_plain_ms": k1_4_plain_ms,
+        "k1_config2_ms": k1_2_ms, "k1_config2_plain_ms": k1_2_plain_ms,
+        "k1_config4_differing_fraction": k1_4_frac,
+        "k1_config2_differing_fraction": k1_2_frac,
+        "k1_config4_ops_per_pixel": k1.ops_per_pixel(c4_k1[1].consts,
+                                                     c4_k1[1].instance),
+        "k1_config2_ops_per_pixel": k1.ops_per_pixel(c2_k1[1].consts,
+                                                     c2_k1[1].instance),
+        "small_config4_config2_render": small42,
+        "config4_peak_state": state4.tolist(),
         "k1_sass": {v: {k: m[k] for k in (
             "per_iteration", "classes", "static_instructions",
             "slow_path_instructions", "calls",

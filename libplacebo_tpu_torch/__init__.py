@@ -18,7 +18,8 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from .core.colorspace import (BitEncoding, ColorLevels, ColorPrimaries,  # noqa: E402
                               ColorRepr, ColorSpace, ColorSystem,
-                              ColorTransfer, CSP_BT2100_PQ, CSP_SRGB)
+                              ColorTransfer, CSP_BT2100_PQ, CSP_SRGB,
+                              HdrMetadata)
 from .core.film_grain import AV1GrainData, FilmGrainData  # noqa: E402
 from .ops.deband import DebandParams  # noqa: E402
 from .ops.dithering import DitherParams  # noqa: E402
@@ -32,4 +33,4 @@ __all__ = ["Renderer", "render_image", "RenderParams", "Target", "Frame",
            "FilmGrainData", "AV1GrainData",
            "PeakDetectParams", "BitEncoding", "ColorLevels",
            "ColorPrimaries", "ColorRepr", "ColorSpace", "ColorSystem",
-           "ColorTransfer", "CSP_BT2100_PQ", "CSP_SRGB"]
+           "ColorTransfer", "CSP_BT2100_PQ", "CSP_SRGB", "HdrMetadata"]

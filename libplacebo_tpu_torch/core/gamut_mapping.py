@@ -1,10 +1,12 @@
 """IPT gamut geometry (host numpy, float64).
 
 Counterpart of the parts of libplacebo_tpu/core/gamut_mapping.py that
-the perceptual device map needs to fit its gamut boundaries
-(ops/gamut.py::fit_boundary): the IPT matrices, the `_Gamut` helper and
-the vectorized bisection / golden-section searches for the boundary
-chroma and the hue-wise peaks (reference gamut_mapping.c:258-540).
+the device gamut operators need on the host (ops/gamut.py): the IPT
+matrices, the `_Gamut` helper, the vectorized bisection / golden-section
+searches for the boundary chroma and the hue-wise peaks that
+`fit_boundary` fits, and softclip's hue-shift spline
+(`_hueshift_prepare`/`_hueshift_apply`, reference
+gamut_mapping.c:258-700).
 Luminances are PQ-encoded; linear RGB is normalized to 10k nits.
 """
 from __future__ import annotations
@@ -95,6 +97,23 @@ class _Gamut:
         self.max_rgb = float(_pq_eotf(max_luma)) + eps
 
 
+def _rgb2ipt(rgb, gamut: _Gamut):
+    lms = rgb @ gamut.rgb2lms.T
+    lmsp = _pq_oetf(lms)
+    return lmsp @ LMS2IPT.T
+
+
+def _ipt2rgb(ipt, gamut: _Gamut):
+    lmsp = ipt @ IPT2LMS.T
+    lms = _pq_eotf(lmsp)
+    return lms @ gamut.lms2rgb.T
+
+
+def _ipt2ich(ipt):
+    I, P, T = ipt[..., 0], ipt[..., 1], ipt[..., 2]
+    return np.stack([I, np.hypot(P, T), np.arctan2(T, P)], axis=-1)
+
+
 def _ich2ipt(ich):
     I, C, h = ich[..., 0], ich[..., 1], ich[..., 2]
     return np.stack([I, C * np.cos(h), C * np.sin(h)], axis=-1)
@@ -163,3 +182,68 @@ def _saturate(hue, gamut: _Gamut):
         lo = new_lo
         a, b = new_a, new_b
     return np.where((a[..., 1] > b[..., 1])[..., None], a, b)
+
+
+def _hueshift_prepare(src: _Gamut, dst: _Gamut):
+    """Cubic-spline hue-shift table between gamuts (reference
+    hueshift_prepare, gamut_mapping.c:628)."""
+    S = 12
+    N = S + 2
+    O = float(_pq_eotf(src.min_luma))
+    X = float(_pq_eotf(src.max_luma))
+    M = (O + X) / 2.0
+    refpoints = np.array([
+        [X, O, O], [O, X, O], [O, O, X],
+        [O, X, X], [X, O, X], [X, X, O],
+        [O, X, M], [X, O, M], [X, M, O],
+        [O, M, X], [M, O, X], [M, X, O],
+    ])
+    ich_src = _ipt2ich(_rgb2ipt(refpoints, src))
+    ich_dst = _ipt2ich(_rgb2ipt(refpoints, dst))
+    delta = ich_dst[:, 2] - ich_src[:, 2]
+    delta = np.where(delta > np.pi, delta - 2 * np.pi,
+                     np.where(delta < -np.pi, delta + 2 * np.pi, delta))
+    order = np.argsort(ich_src[:, 2], kind="stable")
+    hues = np.empty(N)
+    deltas = np.empty(N)
+    hues[1:S + 1] = ich_src[order, 2]
+    deltas[1:S + 1] = delta[order]
+    hues[0] = hues[S] - 2 * np.pi
+    deltas[0] = deltas[S]
+    hues[S + 1] = hues[1] + 2 * np.pi
+    deltas[S + 1] = deltas[1]
+
+    dh = np.zeros(N)
+    dddh = np.zeros(N)
+    for i in range(N - 1, 0, -1):
+        dh[i - 1] = hues[i] - hues[i - 1]
+        dddh[i] = (deltas[i] - deltas[i - 1]) / dh[i - 1]
+    # natural cubic spline by Gaussian elimination (the reference's steps)
+    tmp = np.zeros((N, N))
+    for i in range(1, N - 1):
+        tmp[i][i] = 2 * (dh[i - 1] + dh[i])
+        if i != 1:
+            tmp[i][i - 1] = tmp[i - 1][i] = dh[i - 1]
+        tmp[i][N - 1] = 6 * (dddh[i + 1] - dddh[i])
+    for i in range(1, N - 2):
+        q = tmp[i + 1][i] / tmp[i][i]
+        tmp[i + 1, 1:N] -= q * tmp[i, 1:N]
+    K = np.zeros(N)
+    for i in range(N - 2, 0, -1):
+        s = float(np.dot(tmp[i, i:N - 1], K[i:N - 1]))
+        K[i] = (tmp[i][N - 1] - s) / tmp[i][i]
+    return hues, deltas, dh, dddh, K
+
+
+def _hueshift_apply(table, h):
+    """The hue-shift spline at hues h (reference hueshift_apply,
+    gamut_mapping.c:682)."""
+    hues, deltas, dh, dddh, K = table
+    N = len(hues)
+    idx = np.clip(np.searchsorted(hues, h, side="right") - 1, 0, N - 2)
+    a = (K[idx + 1] - K[idx]) / (6 * dh[idx])
+    b = K[idx] / 2
+    c = dddh[idx + 1] - (2 * dh[idx] * K[idx] + K[idx + 1] * dh[idx]) / 6
+    d = deltas[idx]
+    x = h - hues[idx]
+    return h + (((a * x + b) * x + c) * x + d)

@@ -9,6 +9,8 @@ and like the hand-written kernel.
 """
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
@@ -20,7 +22,8 @@ from ..core.colorspace import (COLOR_SDR_WHITE, ColorRepr, ColorSpace,
                                ColorTransfer, color_repr_decode)
 
 __all__ = ["mat_pointwise", "decode_color",
-           "encode_color", "linearize", "delinearize", "nominal_luma_norm"]
+           "encode_color", "linearize", "delinearize", "nominal_luma_norm",
+           "SigmoidParams", "sigmoidize", "desigmoidize"]
 
 
 def mat_pointwise(img, mat, bias=None):
@@ -116,3 +119,41 @@ def delinearize(img, csp: ColorSpace):
     if trc == ColorTransfer.PQ:
         return tf.pq_oetf_fast(img * (COLOR_SDR_WHITE / 10000.0))
     return tf.delinearize(img, trc)
+
+
+# ---------------------------------------------------------------------------
+# Sigmoidization (reference pl_shader_sigmoidize, shaders/colorspace.c:851)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SigmoidParams:
+    """Reference pl_sigmoid_params: defaults center=0.75, slope=6.5."""
+    center: float = 0.75
+    slope: float = 6.5
+
+    def key(self):
+        return (self.center, self.slope)
+
+
+def _sigmoid_range(params: SigmoidParams):
+    center, slope = params.center, params.slope
+    offset = 1.0 / (1 + math.exp(slope * center))
+    scale = 1.0 / (1 + math.exp(slope * (center - 1))) - offset
+    return offset, scale
+
+
+def sigmoidize(img, params: SigmoidParams = SigmoidParams()):
+    """Nonlinear [0, 1] -> the sigmoid domain, for ringing-resistant
+    linear scaling; passes through (0, 0) and (1, 1)."""
+    offset, scale = _sigmoid_range(params)
+    x = torch.clamp(img, 0.0, 1.0)
+    return fma(torch.log(1.0 / fma(x, scale, offset) - 1.0),
+               -(1.0 / params.slope), params.center)
+
+
+def desigmoidize(img, params: SigmoidParams = SigmoidParams()):
+    """The inverse of `sigmoidize`."""
+    offset, scale = _sigmoid_range(params)
+    x = torch.clamp(img, 0.0, 1.0)
+    return (1.0 / scale) / (1.0 + torch.exp(
+        (params.center - x) * params.slope)) - offset / scale

@@ -1,11 +1,15 @@
-"""HDR peak detection: per-stripe partials and their temporal finish.
+"""HDR peak detection: same-frame detection, per-stripe partials and
+their temporal finish.
 
-Counterpart of the delayed (`allow_delayed`) path of
-libplacebo_tpu/ops/peak_detect.py: the color-map kernel (K1) emits one
-(8, 128) partials record per row stripe — the 64-bin PQ histogram and
-[pq_sum_active, active_count, pq_max] — and `finish_from_packed`
-reduces them into the carried (avg_pq, max_pq) state with the
-reference's percentile interpolation and IIR smoothing
+Counterpart of libplacebo_tpu/ops/peak_detect.py.  Two ways in:
+- `detect_peak` / `applied_stats` measure a whole frame before its tone
+  map (16x16-tile averages, the 64-bin histogram's percentile), for
+  `allow_delayed=False` and for tails the color-map kernel does not run;
+- with `allow_delayed` the color-map kernel (K1) emits one (8, 128)
+  partials record per row stripe — the 64-bin PQ histogram and
+  [pq_sum_active, active_count, pq_max] — and `finish_from_packed`
+  reduces them.
+Both end in the reference's percentile interpolation and IIR smoothing
 (colorspace.c:1020-1146).  The histogram layout is the reference's:
 14-bit PQ, 7-bit bins biased by half the range, 64 bins.
 """
@@ -21,8 +25,9 @@ from ..core.fastmath import fma, rcp
 from ..core.transfer import pq_oetf_fast
 
 __all__ = ["PeakDetectParams", "peak_detect_state_init", "delayed_stats",
-           "block_partials", "stripe_partials", "finish_from_packed",
-           "finish_from_partials", "PARTIAL_SHAPE"]
+           "detect_peak", "applied_stats", "block_partials",
+           "stripe_partials", "finish_from_packed", "finish_from_partials",
+           "PARTIAL_SHAPE"]
 
 PQ_BITS = 14
 PQ_MAX = (1 << PQ_BITS) - 1
@@ -131,6 +136,75 @@ def _temporal_update(avg_cur, max_cur, wg_bias, state,
     return avg_out, max_out, torch.stack([avg_out, max_out]).float()
 
 
+def _percentile_max(hist, frame_max, params: PeakDetectParams):
+    """The measured peak: the 64-bin histogram's percentile, linearly
+    interpolated in its bin (reference measure_peak,
+    colorspace.c:1020-1065), or the frame max at percentile 100."""
+    if not 0 < params.percentile < 100:
+        return frame_max
+    total = torch.sum(hist)
+    target = torch.ceil(params.percentile / 100.0 * total)
+    csum = torch.cumsum(hist, dim=0)
+    bin_idx = torch.argmax((csum >= target).to(torch.int32))
+    cl = csum[bin_idx] - hist[bin_idx]
+    ch = cl + hist[bin_idx] + 1.0
+    shift = PQ_BITS - HIST_BITS
+    pq_low = ((bin_idx + HIST_BIAS) << shift).float() * rcp(PQ_MAX)
+    pq_high0 = ((bin_idx + 1 + HIST_BIAS) << shift).float() * rcp(PQ_MAX)
+    pq_high = torch.where(ch > total, frame_max, pq_high0)
+    ratio = (target - cl) / torch.clamp_min(ch - cl, 1.0)
+    measured = fma(pq_high - pq_low, ratio, pq_low)
+    return torch.where(total > 0, measured, frame_max)
+
+
+def detect_peak(img_linear, state, params: PeakDetectParams):
+    """Measure a (3, H, W) linear-light frame (NORM units) and update
+    the temporal state: (avg_pq, max_pq, new_state), 0-dim tensors and
+    the (2,) state.  The average is the mean of the active 16x16 tiles'
+    means (zero-padded at the ragged edge), as the reference's
+    workgroups average."""
+    pq, active, bins = _pixel_pq(img_linear, params)
+    th = tw = 16
+    H, W = pq.shape
+    Hp, Wp = -(-H // th) * th, -(-W // tw) * tw
+    pad = (0, Wp - W, 0, Hp - H)
+    pq_pad = torch.nn.functional.pad(pq, pad)
+    act = torch.nn.functional.pad(active, pad)
+    tiles = pq_pad.reshape(Hp // th, th, Wp // tw, tw)
+    acts = act.reshape(Hp // th, th, Wp // tw, tw)
+    tile_sum = torch.where(acts, tiles, torch.zeros_like(tiles)) \
+        .sum(dim=(1, 3))
+    tile_cnt = acts.sum(dim=(1, 3)).float()
+    tile_max = tiles.amax(dim=(1, 3))
+    tile_avg = tile_sum / torch.clamp_min(tile_cnt, 1.0)
+    wg_active = tile_cnt > 0
+    wg_count = wg_active.sum().float()
+    frame_avg = torch.where(wg_active, tile_avg,
+                            torch.zeros_like(tile_avg)).sum() / \
+        torch.clamp_min(wg_count, 1.0)
+    frame_max = tile_max.amax()
+    wg_bias = wg_count / float(wg_active.numel())
+    hist = torch.bincount(bins[active], minlength=HIST_BINS).float()
+    max_cur = _percentile_max(hist, frame_max, params)
+    has_content = wg_count > 0
+    black = torch.full_like(frame_max, COLOR_HDR_BLACK)
+    avg_cur = torch.where(has_content, frame_avg, black)
+    max_cur = torch.where(has_content, max_cur, black)
+    return _temporal_update(avg_cur, max_cur, wg_bias, state, params)
+
+
+def applied_stats(img_linear, state, params: PeakDetectParams,
+                  src_max_pq: float):
+    """detect_peak and the allow_delayed policy: the (avg_pq, max_pq)
+    the tone map applies this frame — this frame's smoothed stats, or
+    with `allow_delayed` the previous state (delayed_stats) — and the
+    new state."""
+    avg, mx, new_state = detect_peak(img_linear, state, params)
+    if not params.allow_delayed:
+        return avg, mx, new_state
+    return delayed_stats(state, src_max_pq) + (new_state,)
+
+
 def finish_from_packed(packed, state, params: PeakDetectParams):
     """finish_from_partials on (G, 8, 128) packed records."""
     g = packed.shape[0]
@@ -156,24 +230,7 @@ def finish_from_partials(hists, stats, state, params: PeakDetectParams):
     frame_max = torch.amax(stats[:, 2])
     wg_bias = wg_count / torch.clamp_min(n_blocks, 1.0)
 
-    if 0 < params.percentile < 100:
-        total = torch.sum(hist)
-        target = torch.ceil(params.percentile / 100.0 * total)
-        csum = torch.cumsum(hist, dim=0)
-        bin_idx = torch.argmax((csum >= target).to(torch.int32))
-        cl = csum[bin_idx] - hist[bin_idx]
-        ch = cl + hist[bin_idx] + 1.0
-        shift = PQ_BITS - HIST_BITS
-        pq_low = ((bin_idx + HIST_BIAS) << shift).float() * rcp(PQ_MAX)
-        pq_high0 = ((bin_idx + 1 + HIST_BIAS) << shift).float() * \
-            rcp(PQ_MAX)
-        pq_high = torch.where(ch > total, frame_max, pq_high0)
-        ratio = (target - cl) / torch.clamp_min(ch - cl, 1.0)
-        measured = fma(pq_high - pq_low, ratio, pq_low)
-        max_cur = torch.where(total > 0, measured, frame_max)
-    else:
-        max_cur = frame_max
-
+    max_cur = _percentile_max(hist, frame_max, params)
     has_content = wg_count > 0
     black = torch.full_like(frame_max, COLOR_HDR_BLACK)
     avg_cur = torch.where(has_content, frame_avg, black)

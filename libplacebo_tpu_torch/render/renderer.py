@@ -1,13 +1,17 @@
 """The renderer: frame -> target image.
 
-Counterpart of libplacebo_tpu/render/renderer.py for the paths of the
-port's first two slices, keeping the reference package's stage order
-(`_trace_pipeline`): per plane deband and AV1 film grain -> merge
-planes (bilinear chroma alignment) -> decode -> linearize -> main
-scaler (EWA direct path) -> the fused color-map tail (kernel K1: tone +
-gamut + delinearize + encode, with the peak partials, and the ordered
-dither unless error diffusion quantizes) -> error diffusion (kernels K3,
-K2, K3) -> finish the peak state.  Planning (color inference, boundary
+Counterpart of libplacebo_tpu/render/renderer.py for the ported paths,
+keeping the reference package's stage order (`_trace_pipeline`): per
+plane deband and AV1 film grain -> merge planes (bilinear chroma
+alignment) -> decode -> linearize (and sigmoidize, for SDR sources) ->
+main scaler (EWA direct path or separable) -> desigmoidize -> the
+color-map tail -> error diffusion (kernels K3, K2, K3) -> finish the
+peak state.  The tail runs on kernel K1 (tone + gamut + delinearize +
+encode, with the peak partials, and the ordered dither unless error
+diffusion quantizes) for the chains `ops/cuda/color_map.plan_tail`
+admits, and as plain stages otherwise (with same-frame peak detection
+where the tone map needs it); `k1_tails` and `plain_tails` count which
+ran.  Planning (color inference, boundary
 fits, filter weights, K1's packed constants, deband's random tables)
 happens once per signature on the host and is cached; the grain tables
 are per frame (their seed changes): generated on the host (cached by
@@ -34,6 +38,7 @@ from ..core.colorspace import (COLOR_SDR_WHITE, ColorLevels, ColorPrimaries,
 from ..core.common import RectF
 from ..core.dither import find_error_diffusion_kernel
 from ..core.gamut_mapping import GamutMapConstants
+from ..core import tone_mapping as tm
 from ..core.tone_mapping import ToneMapConstants
 from ..ops import color as ops_color
 from ..ops import deband as ops_deband
@@ -52,9 +57,15 @@ from ..utils.device import resolve_device
 from .frame import Frame
 
 __all__ = ["RenderParams", "Target", "Renderer", "render_image",
-           "color_map_stage"]
+           "ColorChain", "color_chain", "color_map_stage", "k1_tails",
+           "plain_tails"]
 
 _MAX_CACHED_PIPELINES = 64
+
+# color-map tails run, per frame: through kernel K1, and as plain stages
+# (what a caller reads to see which path a render took)
+k1_tails = 0
+plain_tails = 0
 
 
 @dataclass(frozen=True)
@@ -152,8 +163,8 @@ def _check_slice(params: RenderParams, target: Target, frame: Frame):
         (params.corner_rounding > 0, "corner rounding", "slice 3 item 21"),
         (params.contrast_recovery > 0, "contrast recovery",
          "slice 3 item 21"),
-        (params.show_clipping or params.visualize_lut,
-         "clipping / tone-curve visualization", "slice 3 item 21"),
+        (params.visualize_lut, "tone-curve visualization",
+         "slice 3 item 21"),
         (params.antiringing_strength > 0, "anti-ringing",
          "slice 1 items 5 and 7"),
         (any(3 in p.component_mapping for p in frame.planes),
@@ -200,51 +211,108 @@ def _dst_pq_range(dst: ColorSpace) -> Tuple[float, float]:
             hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, dst_inf.hdr.max_luma))
 
 
-def color_map_stage(img, src: ColorSpace, dst: ColorSpace,
-                    params: RenderParams, peak_stats=None):
-    """Linear-light conversion: tone + gamut mapping through one IPT
-    round trip (reference pl_shader_color_map_ex).  `peak_stats` =
-    (avg_pq, max_pq) 0-dim tensors drive the dynamic tone curve."""
+@dataclass(frozen=True)
+class ColorChain:
+    """How `color_map_stage` maps one color space to another, planned on
+    the host: `kind` "pass" is the fast path without the IPT round trip
+    (`matrix`, a primaries conversion or None, then `clamp`, the
+    (lo, hi) range or None); "ipt" is the round trip with `tone` None,
+    "dynamic" (detected stats) or "static" (metadata curve) and the
+    gamut operator `gamut` (None clamps) between b_src and b_dst."""
+    kind: str
+    dst_min_pq: float
+    dst_max_pq: float
+    matrix: Optional[object] = None
+    clamp: Optional[Tuple[float, float]] = None
+    tone: Optional[str] = None
+    gamut: Optional[str] = None
+    b_src: Optional[object] = None
+    b_dst: Optional[object] = None
+
+
+def color_chain(src: ColorSpace, dst: ColorSpace, params: RenderParams,
+                dynamic: bool) -> ColorChain:
+    """The chain `color_map_stage` runs for src -> dst, with detected
+    peak stats (`dynamic`) or without (reference
+    pl_shader_color_map_ex's planning, colorspace.c:1651-1788)."""
     need_gamut = (src.primaries != dst.primaries and
                   params.gamut_mapping not in (None, "", "none"))
     _, src_max_n, _ = src.infer().nominal_luma(params.tone_map_metadata)
     src_peak = src_max_n / COLOR_SDR_WHITE
     dst_peak = dst.nominal_peak_norm()
-    need_tone = peak_stats is not None or src_peak > dst_peak + 1e-3
+    need_tone = dynamic or src_peak > dst_peak + 1e-3
     if params.inverse_tone_mapping and dst_peak > src_peak + 1e-3 \
-            and peak_stats is None:
+            and not dynamic:
         need_tone = True
     dst_min_pq, dst_max_pq = _dst_pq_range(dst)
-
-    if not need_tone:
-        if not need_gamut or params.gamut_mapping in ("clip", "saturation"):
-            if src.primaries != dst.primaries:
-                m = color_mapping_matrix(primaries_get(src.primaries),
-                                         primaries_get(dst.primaries))
-                img = ops_color.mat_pointwise(img, m.m)
-            if need_gamut:
-                b = ops_gamut.ipt_space(primaries_get(dst.primaries),
-                                        dst_min_pq, dst_max_pq)
-                to_norm = COLOR_SDR_WHITE / 10000.0
-                img = torch.clamp(img, b.min_rgb / to_norm,
-                                  b.max_rgb / to_norm)
-            return img
-
+    if not need_tone and (not need_gamut or
+                          params.gamut_mapping in ("clip", "saturation")):
+        matrix = clamp = None
+        if src.primaries != dst.primaries:
+            matrix = color_mapping_matrix(primaries_get(src.primaries),
+                                          primaries_get(dst.primaries)).m
+        if need_gamut:
+            b = ops_gamut.ipt_space(primaries_get(dst.primaries),
+                                    dst_min_pq, dst_max_pq)
+            to_norm = COLOR_SDR_WHITE / 10000.0
+            clamp = (b.min_rgb / to_norm, b.max_rgb / to_norm)
+        return ColorChain("pass", dst_min_pq, dst_max_pq, matrix=matrix,
+                          clamp=clamp)
     b_src, b_dst, gamut_fn = _boundaries(src, dst, params, dst_min_pq,
                                          dst_max_pq, need_gamut)
+    tone = ("dynamic" if dynamic else "static") if need_tone else None
+    return ColorChain("ipt", dst_min_pq, dst_max_pq, tone=tone,
+                      gamut=gamut_fn, b_src=b_src, b_dst=b_dst)
+
+
+def color_map_stage(img, src: ColorSpace, dst: ColorSpace,
+                    params: RenderParams, peak_stats=None):
+    """Linear-light conversion: tone + gamut mapping through one IPT
+    round trip (reference pl_shader_color_map_ex).  `peak_stats` =
+    (avg_pq, max_pq) 0-dim tensors drive the dynamic tone curve;
+    without them the curve is the static one from the metadata
+    (core/tone_mapping.apply_device)."""
+    chain = color_chain(src, dst, params, peak_stats is not None)
+    if chain.kind == "pass":
+        if chain.matrix is not None:
+            img = ops_color.mat_pointwise(img, chain.matrix)
+        if chain.clamp is not None:
+            img = torch.clamp(img, *chain.clamp)
+        return img
+    dst_min_pq, dst_max_pq = chain.dst_min_pq, chain.dst_max_pq
+    src_inf = src.infer()
     tone_fn = None
-    if need_tone:
-        if peak_stats is None:
-            raise _outside("the static (metadata-driven) tone curve",
-                           "slice 1 item 9: tone_mapping.apply_device")
+    if chain.tone == "dynamic":
         avg_pq, max_pq = peak_stats
         tone_fn = lambda x: ops_tone.tone_map_dynamic(  # noqa: E731
             x, params.tone_mapping_function, src_max=max_pq,
             src_avg=avg_pq, dst_min=dst_min_pq, dst_max=dst_max_pq,
             constants=params.tone_constants)
-    return ops_gamut.color_map_ipt(img, tone_fn, gamut_fn, b_src, b_dst,
+    elif chain.tone == "static":
+        def to_pq(nits):
+            return hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, nits)
+        src_min_n, src_max_n, src_avg_n = src_inf.nominal_luma(
+            params.tone_map_metadata)
+        fun = tm.find_tone_map_function(params.tone_mapping_function) \
+            or tm.TONE_MAP_SPLINE
+        tp = tm.ToneMapParams(
+            function=fun, input_scaling=HdrScaling.PQ,
+            output_scaling=HdrScaling.PQ, lut_size=256,
+            constants=params.tone_constants, input_min=to_pq(src_min_n),
+            input_max=to_pq(src_max_n),
+            input_avg=to_pq(src_avg_n) if src_avg_n else 0.0,
+            output_min=dst_min_pq, output_max=dst_max_pq, hdr=src_inf.hdr)
+        tone_fn = lambda x: tm.apply_device(x, tp)  # noqa: E731
+    show_bounds = None
+    if params.show_clipping:
+        show_bounds = (
+            hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, src_inf.hdr.min_luma),
+            hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, src_inf.hdr.max_luma))
+    return ops_gamut.color_map_ipt(img, tone_fn, chain.gamut, chain.b_src,
+                                   chain.b_dst,
                                    to_norm=COLOR_SDR_WHITE / 10000.0,
-                                   constants=params.gamut_constants)
+                                   constants=params.gamut_constants,
+                                   show_clip_bounds=show_bounds)
 
 
 def _dither_params(params: RenderParams, dst_color: ColorSpace):
@@ -376,12 +444,13 @@ class Renderer:
                 db, ops_deband.plane_grain_neutral(frame_repr, mapping),
                 ops_deband.deband_tables(db, shape, i, self.device))
                 for i, (shape, mapping, _, _) in enumerate(plane_metas)]
+        # peak detection drives every dynamic-capable curve; st2094-40
+        # with HDR10+ OOTF anchors stays on the static curve
         _tm_fn = params.tone_mapping_function
         use_peak = (params.peak_detect is not None and src_color.is_hdr()
                     and (src_color.primaries != dst_color.primaries or
                          src_color.transfer != dst_color.transfer)
-                    and _tm_fn in ("spline", "bt2390", "st2094-40",
-                                   "st2094-10")
+                    and _tm_fn in ops_tone.DYNAMIC_TONE_FUNCTIONS
                     and not (_tm_fn == "st2094-40"
                              and src_color.hdr.ootf is not None))
         dst_crop = target.crop or RectF(0, 0, target.w, target.h)
@@ -396,9 +465,9 @@ class Renderer:
         upscaling = dst_w > src_w or dst_h > src_h
         use_linear = (params.linear_scaling and needs_scale
                       and not params.disable_linear_scaling)
-        if use_linear and params.sigmoid is not None and \
-                not src_color.is_hdr():
-            raise _outside("sigmoidized scaling", "slice 1 item 6")
+        sig = ops_color.SigmoidParams(*params.sigmoid) \
+            if use_linear and params.sigmoid is not None and \
+            not src_color.is_hdr() else None
         need_color_map = (src_color.primaries != dst_color.primaries or
                           src_color.transfer != dst_color.transfer)
         fused_tail = None
@@ -406,9 +475,6 @@ class Renderer:
             fused_tail = self._fused_tail(params, src_color, dst_color,
                                           target, use_peak, dst_w, dst_h,
                                           dst_crop, dither_phase)
-            if use_peak and fused_tail is None:
-                raise _outside("peak detection outside the fused tail "
-                               "(same-frame detect_peak)", "slice 1 item 8")
         src_max_pq = hdr_rescale(HdrScaling.NITS, HdrScaling.PQ,
                                  src_color.hdr.max_luma)
         scaler = cfg_down = None
@@ -425,6 +491,7 @@ class Renderer:
             if params.error_diffusion else None
 
         def pipeline(peak_state, grain_tables, *planes):
+            global k1_tails, plain_tails
             grain = (grain_cfgs, grain_tables, scaling_shift) \
                 if grain_cfgs is not None else None
             img = self._merge_planes(planes, plane_metas, params, deband,
@@ -432,6 +499,8 @@ class Renderer:
             img = ops_color.decode_color(img, frame_repr)
             if use_linear:
                 img = ops_color.linearize(img, src_color)
+                if sig is not None:
+                    img = ops_color.sigmoidize(img, sig)
             if scaler is not None:
                 if scaler.polar:
                     img = ops_polar.sample_polar(img, scaler, dst_h, dst_w,
@@ -440,18 +509,32 @@ class Renderer:
                     img = ops_sampling.resize_separable(
                         img, dst_h, dst_w, scaler, crop, cfg_down=cfg_down,
                         antiring=scaler.antiring)
+            if sig is not None:
+                img = ops_color.desigmoidize(img, sig)
             new_state = peak_state
             if need_color_map:
                 if not use_linear:
                     img = ops_color.linearize(img, src_color)
                 if fused_tail is not None:
-                    stats = ops_peak.delayed_stats(peak_state, src_max_pq)
+                    # K1 measures this frame's peak partials while it
+                    # tone-maps with the previous frames' stats
+                    stats = ops_peak.delayed_stats(peak_state, src_max_pq) \
+                        if use_peak else None
                     img, packed = fused_tail(img, stats)
-                    _, _, new_state = ops_peak.finish_from_packed(
-                        packed, peak_state, params.peak_detect)
+                    if packed is not None:
+                        _, _, new_state = ops_peak.finish_from_packed(
+                            packed, peak_state, params.peak_detect)
+                    k1_tails += 1
                 else:
-                    img = color_map_stage(img, src_color, dst_color, params)
+                    stats = None
+                    if use_peak:
+                        avg_pq, max_pq, new_state = ops_peak.applied_stats(
+                            img, peak_state, params.peak_detect, src_max_pq)
+                        stats = (avg_pq, max_pq)
+                    img = color_map_stage(img, src_color, dst_color, params,
+                                          stats)
                     img = ops_color.delinearize(img, dst_color)
+                    plain_tails += 1
             elif use_linear:
                 img = ops_color.delinearize(img, src_color)
             if fused_tail is None:
@@ -500,27 +583,23 @@ class Renderer:
                 return None
             lut = ops_dither.dither_lut(dp, dither_phase)
         fused_peak = bool(use_peak and params.peak_detect.allow_delayed)
-        dst_min_pq, dst_max_pq = _dst_pq_range(dst_color)
-        need_gamut = (src_color.primaries != dst_color.primaries and
-                      params.gamut_mapping not in (None, "", "none"))
-        b_src, b_dst, _ = _boundaries(src_color, dst_color, params,
-                                      dst_min_pq, dst_max_pq, need_gamut)
-        plan = k1.plan_tail(params, dst_color, target, b_src, b_dst,
-                            dst_min_pq, dst_max_pq, fused_peak, lut)
+        chain = color_chain(src_color, dst_color, params, use_peak)
+        plan = k1.plan_tail(chain, params, dst_color, target, fused_peak,
+                            lut)
         if plan is None:
             return None
-        dev = self.device
-        lut_t = torch.from_numpy(plan.lut).to(dev) \
+        lut_t = torch.from_numpy(plan.lut).to(self.device) \
             if plan.lut is not None else None
-
-        def spline(peak_stats):
-            avg_pq, max_pq = peak_stats
-            return ops_tone.spline_vector(max_pq, avg_pq, dst_min_pq,
-                                          dst_max_pq, params.tone_constants)
+        fn = params.tone_mapping_function
 
         def run(img, peak_stats):
-            return k1.color_map_tail(img.contiguous(), plan,
-                                     spline(peak_stats), lut_t)
+            tone = None
+            if plan.tone:
+                avg_pq, max_pq = peak_stats
+                tone = ops_tone.tone_vector(
+                    fn, max_pq, avg_pq, chain.dst_min_pq, chain.dst_max_pq,
+                    params.tone_constants)
+            return k1.color_map_tail(img.contiguous(), plan, tone, lut_t)
         return run
 
     # -- public API ----------------------------------------------------

@@ -28,10 +28,10 @@ _TORCH_INTS = (np.uint8, np.int8, np.int16, np.int32, np.int64)
 
 def raw_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Upload integer texels as they are (unsigned types torch lacks
-    arithmetic for widen on the host first)."""
+    arithmetic for widen on the host first: 16-bit ones to int32)."""
     arr = np.ascontiguousarray(arr)
     if arr.dtype.type not in _TORCH_INTS:
-        arr = arr.astype(np.int64)
+        arr = arr.astype(np.int32 if arr.dtype.itemsize <= 2 else np.int64)
     return torch.from_numpy(arr).to(dev)
 
 

@@ -188,9 +188,8 @@ def test_tf32_is_off():
 @pytest.mark.parametrize("feature", [
     dict(deinterlace=object()), dict(distort=object()),
     dict(hooks=(object(),)), dict(antiringing_strength=0.5),
-    dict(contrast_recovery=0.3), dict(gamut_mapping="relative"),
-    dict(tone_mapping_function="bt2390"),
-    dict(peak_detect=lt.PeakDetectParams(allow_delayed=False))])
+    dict(contrast_recovery=0.3), dict(lut=object()),
+    dict(visualize_lut=True), dict(cone=object())])
 def test_outside_the_slice_raises(feature):
     """Every feature outside the ported slice raises NotImplementedError
     naming its ROADMAP item — none silently takes another path."""

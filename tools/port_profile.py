@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch/CUDA port's flagship or config-5 render on one GPU.
+"""Profile one of the PyTorch/CUDA port's renders on one GPU.
 
 Run from the root of a checkout:
-    python3 tools/port_profile.py [frames] [--config5]
+    python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
 Lanczos, K1 tail) or, with --config5, config 5 (the same frame carrying
 AV1 film grain, with deband (2 iterations), film grain and
 Floyd-Steinberg error diffusion: K1 without dither, K3, K2, K3; a new
-grain seed every frame, as an AV1 stream carries) after two warm-up
-frames, twice over:
+grain seed every frame, as an AV1 stream carries), with --config4
+config 4 (the same content at 10 bits with 1000-nit mastering metadata,
+bt2390 tone curve and softclip gamut map on K1), or with --config2
+config 2's color path (8-bit BT.709 BT.1886 -> sRGB with
+RenderParams(): sigmoidized separable Lanczos, K1's pass-through tail)
+after two warm-up frames, twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
@@ -18,8 +22,8 @@ The device busy share is the profiled kernel time over the unprofiled
 window (the profiler's own host cost lengthens its wall time, so that
 wall time is not the denominator).  Prints both, the table by kernel and
 the card's name and power limit; the lot is also written to
-chiprun_out/port_profile.txt (port_profile_config5.txt with
---config5).
+chiprun_out/port_profile.txt (port_profile_<config>.txt with a config
+flag).
 """
 import os
 import subprocess
@@ -38,8 +42,13 @@ def main() -> int:
     import libplacebo_tpu_torch as lt
     from torch.profiler import ProfilerActivity, profile
 
-    args = [a for a in sys.argv[1:] if a != "--config5"]
-    config5 = "--config5" in sys.argv[1:]
+    flags = [a for a in sys.argv[1:] if a.startswith("--")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    if flags and flags not in (["--config5"], ["--config4"], ["--config2"]):
+        print(f"port_profile: unknown options {flags}", file=sys.stderr)
+        return 2
+    config = flags[0][2:] if flags else "flagship"
+    config5 = config == "config5"
     n = int(args[0]) if args else 4
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -47,16 +56,31 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     H, W = 1080, 1920
     rng = np.random.default_rng(0)
-    y = (rng.random((H, W)) * 219 + 16).astype(np.uint8)
-    u = (rng.random((H // 2, W // 2)) * 224 + 16).astype(np.uint8)
-    v = (rng.random((H // 2, W // 2)) * 224 + 16).astype(np.uint8)
-    frame = lt.frame_from_yuv420p(
-        y, u, v, color=lt.CSP_BT2100_PQ,
-        repr=lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
-                          levels=lt.ColorLevels.LIMITED,
-                          bits=lt.BitEncoding(8, 8, 0)))
-    target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
+    bits = 10 if config == "config4" else 8
+    lo, span_y, span_c = (16, 219, 224) if bits == 8 else (64, 876, 896)
+    dt = np.uint8 if bits == 8 else np.uint16
+    y = (rng.random((H, W)) * span_y + lo).astype(dt)
+    u = (rng.random((H // 2, W // 2)) * span_c + lo).astype(dt)
+    v = (rng.random((H // 2, W // 2)) * span_c + lo).astype(dt)
+    color, system = lt.CSP_BT2100_PQ, lt.ColorSystem.BT_2020_NC
     params = lt.RenderParams(upscaler="ewa_lanczos")
+    if config == "config4":
+        color = lt.ColorSpace(lt.ColorPrimaries.BT_2020, lt.ColorTransfer.PQ,
+                              lt.HdrMetadata(min_luma=0.005,
+                                             max_luma=1000.0))
+        params = lt.RenderParams(upscaler="ewa_lanczos",
+                                 tone_mapping_function="bt2390",
+                                 gamut_mapping="softclip")
+    elif config == "config2":
+        color = lt.ColorSpace(lt.ColorPrimaries.BT_709,
+                              lt.ColorTransfer.BT_1886)
+        system = lt.ColorSystem.BT_709
+        params = lt.RenderParams()
+    frame = lt.frame_from_yuv420p(
+        y, u, v, color=color, bit_depth=bits,
+        repr=lt.ColorRepr(sys=system, levels=lt.ColorLevels.LIMITED,
+                          bits=lt.BitEncoding(bits, bits, 0)))
+    target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
     grains = [None] * (2 + 2 * n)
     if config5:
         from libplacebo_tpu_torch.core.film_grain import sample_grain
@@ -95,7 +119,7 @@ def main() -> int:
     dev_ms = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     table = events.table(sort_by="self_cuda_time_total", row_limit=30)
-    lines = [card, "config 5" if config5 else "flagship",
+    lines = [card, config,
              f"frames {n} back to back, unprofiled: {window_ms:.3f} ms "
              f"({window_ms / n:.3f} ms/frame)",
              f"device time under the profiler: {dev_ms:.3f} ms "
@@ -103,7 +127,8 @@ def main() -> int:
              f"{dev_ms / window_ms:.1%} of the unprofiled window",
              table]
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "port_profile_config5.txt" if config5 else "port_profile.txt"
+    name = "port_profile.txt" if config == "flagship" else \
+        f"port_profile_{config}.txt"
     with open(os.path.join("chiprun_out", name), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines))
