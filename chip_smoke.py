@@ -42,7 +42,18 @@ Phases (each runs uncaught: any failure exits non-zero):
     Lanczos, K1's pass-through instance), 3 chained frames each, counts
     read as before (K1 3 times each); hold each instance against its
     plain version on frame 2's input at 4K, and each GPU render against
-    the CPU render on a small input; time both renders and instances.
+    the CPU render on a small input; time both renders and instances;
+ 8. config 3, the scaling slice (config 2's frames, RenderParams(
+    upscaler="ewa_lanczos4sharpest", antiringing_strength=0.8): the EWA
+    on its phased path with anti-ringing inside sigmoidized light, K1's
+    pass-through instance), 3 chained frames, counts read as before (K1
+    3 times); hold the instance against its plain version on frame 2's
+    input at 4K and the GPU render against the CPU render on a small
+    input; time the render and the anti-ringing EWA alone on frame 2's
+    1080p input (`ewa_ar_ms`, its launches a call and its bound);
+ 9. K2 on a pattern outside the compiled ten (taps given at launch)
+    against its plain version on config 5's sheared frame at 4K: exact,
+    and timed beside the compiled Floyd-Steinberg instance.
 On every path the renderer must count K1 tails only (no plain tails).
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
@@ -178,6 +189,76 @@ def _k1_entry(k1, name, args, part, launches, max_abs_err, ms, plain_ms):
             "library_ms": None}
 
 
+def _k1_instance_table(lt, k1, trender, ops_dither, sass_of, npix, lanes,
+                       mhz, W, H, dev):
+    """Every K1 instance, with and without dither, at W x H: its
+    operations a pixel (`ops_per_pixel` of the plan its chain gets), its
+    byte and operation bounds, its pixel loop's SASS instructions and
+    the instruction floor at the SM clock `mhz`, and the kernel against
+    its plain version (checked and timed) on seeded linear light (to 30
+    for an HDR source, 1.2 for SDR; fixed stats avg 0.3, max 0.72 PQ).
+    The chains: SDR BT.709 (pass-through), SDR BT.2020 (no tone curve)
+    and the flagship's PQ source (each dynamic curve), to sRGB, gamut
+    clip / perceptual / softclip."""
+    import torch
+    from libplacebo_tpu_torch.core import colorspace as tcs
+    from libplacebo_tpu_torch.ops import tone_dynamic as ops_tone
+    sdr = {p: tcs.ColorSpace(p, tcs.ColorTransfer.BT_1886)
+           for p in (tcs.ColorPrimaries.BT_709, tcs.ColorPrimaries.BT_2020)}
+    chains = {(0, 0): (sdr[tcs.ColorPrimaries.BT_709], {}),
+              (0, 2): (sdr[tcs.ColorPrimaries.BT_2020],
+                       dict(gamut_mapping="perceptual")),
+              (0, 3): (sdr[tcs.ColorPrimaries.BT_2020],
+                       dict(gamut_mapping="softclip"))}
+    for t, name in enumerate(k1.TONES[1:], 1):
+        for g, op in ((1, "clip"), (2, "perceptual"), (3, "softclip")):
+            chains[(t, g)] = (tcs.CSP_BT2100_PQ,
+                              dict(tone_mapping_function=name,
+                                   gamut_mapping=op))
+    target = lt.Target(w=W, h=H, color=lt.CSP_SRGB, bit_depth=8)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    noise = torch.rand((3, H, W), device=dev, generator=gen)
+    stats = (torch.tensor(0.72, device=dev), torch.tensor(0.3, device=dev))
+    table = {}
+    for (tone, gamut), (src, kw) in sorted(chains.items()):
+        for dither in (True, False):
+            params = lt.RenderParams(**kw) if dither else \
+                lt.RenderParams(**kw, dither=None)
+            s, d = tcs.color_space_infer_map(src, tcs.CSP_SRGB)
+            lut = ops_dither.dither_lut(trender._dither_params(params, d),
+                                        0) if dither else None
+            chain = trender.color_chain(s, d, params, s.is_hdr())
+            plan = k1.plan_tail(chain, params, d, target, s.is_hdr(), lut)
+            assert (plan.tone, plan.gamut) == (tone, gamut), (tone, gamut)
+            args = (noise * (30.0 if s.is_hdr() else 1.2), plan,
+                    ops_tone.tone_vector(
+                        params.tone_mapping_function, *stats,
+                        chain.dst_min_pq, chain.dst_max_pq,
+                        params.tone_constants) if plan.tone else None,
+                    torch.from_numpy(lut).to(dev) if lut is not None
+                    else None)
+            err, frac, _ = _check_k1(k1, args)
+            ops = k1.ops_per_pixel(plan.consts, plan.instance)
+            nbytes = (2 * 3 * npix + plan.consts.size) * 4
+            if tone:
+                nbytes += (H // k1.pick_block_rows(H) * 8 * 128 + 16) * 4
+            if lut is not None:
+                nbytes += lut.size * 4
+            sass = sass_of(tone, k1.instance_name(tone, gamut, dither))
+            table[f"{tone},{gamut},{'dither' if dither else 'none'}"] = {
+                "ops_per_pixel": ops,
+                "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "ops_bound_ms": ops * npix / FP32_OPS_PER_S * 1e3,
+                "sass_per_pixel": sass,
+                "instruction_floor_ms": sass * npix / (lanes * mhz * 1e6)
+                * 1e3,
+                "max_abs_err": err, "differing_fraction": frac,
+                "ms": _cuda_ms(lambda: k1.color_map_tail(*args), 10),
+                "plain_ms": _cuda_ms(lambda: k1.color_map_plain(
+                    args[0], plan.consts, *args[2:], plan.instance), 2)}
+    return table
+
+
 def _gather_shear(x, w_out, s, W, H, forward):
     """K3's function as one torch.gather over the source with one zero
     column appended, its index built beforehand (set-up, not timed)."""
@@ -210,6 +291,7 @@ def main() -> int:
     from libplacebo_tpu_torch.core import film_grain as cfg
     from libplacebo_tpu_torch.core.common import RectF
     from libplacebo_tpu_torch.ops import deband as ops_deband
+    from libplacebo_tpu_torch.ops import dithering as ops_dither
     from libplacebo_tpu_torch.ops import film_grain as ops_fg
     from libplacebo_tpu_torch.ops import polar
     from libplacebo_tpu_torch.ops.cuda import color_map as k1
@@ -271,9 +353,10 @@ def main() -> int:
     params = lt.RenderParams(upscaler="ewa_lanczos")
     yuvs = _flagship_yuv(3, H, W)
     frames = [_frame(lt, f, dev) for f in yuvs]
-    captured = {"k1": [], "k2": [], "k3": []}
+    captured = {"k1": [], "k2": [], "k3": [], "ewa": []}
     real = {"k1": k1.color_map_tail, "k2": k2.wavefront,
-            "k3f": k3.shear_to_colmaj, "k3i": k3.unshear_from_colmaj}
+            "k3f": k3.shear_to_colmaj, "k3i": k3.unshear_from_colmaj,
+            "ewa": polar.sample_polar}
 
     def cap_k1(img, plan, tone, lut):
         captured["k1"].append((img.clone(), plan, tone.clone()
@@ -290,6 +373,11 @@ def main() -> int:
             return real["k3f" if forward else "k3i"](x, w_out, s, w, h)
         return run
 
+    def cap_ewa(img, cfg, dst_h, dst_w, rect=None, antiring=0.0):
+        captured["ewa"].append((img.clone(), cfg, dst_h, dst_w, rect,
+                                antiring))
+        return real["ewa"](img, cfg, dst_h, dst_w, rect, antiring)
+
     k1.color_map_tail = cap_k1
     k2.wavefront = cap_k2
     k3.shear_to_colmaj = cap_k3(True)
@@ -299,6 +387,8 @@ def main() -> int:
                               tone_mapping_function="bt2390",
                               gamut_mapping="softclip")
     params2 = lt.RenderParams()
+    params3 = lt.RenderParams(upscaler="ewa_lanczos4sharpest",
+                              antiringing_strength=0.8)
     yuvs4 = _flagship_yuv(3, H, W, bits=10)
     frames4 = [_frame(lt, f, dev, config="config4") for f in yuvs4]
     frames2 = [_frame(lt, f, dev, config="config2") for f in yuvs]
@@ -330,7 +420,15 @@ def main() -> int:
         outs2, c2_launches, c2_tails = _render_run(
             renderer2, frames2, target, params2, counters)
         c2_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        # 8. config 3: config 2's frames through the anti-ringing EWA
+        renderer3 = lt.Renderer(device=dev)
+        polar.sample_polar = cap_ewa
+        outs3, c3_launches, c3_tails = _render_run(
+            renderer3, frames2, target, params3, counters)
+        c3_k1, c3_ewa = captured["k1"][1], captured["ewa"][1]
     finally:
+        polar.sample_polar = real["ewa"]
         k1.color_map_tail = real["k1"]
         k2.wavefront = real["k2"]
         k3.shear_to_colmaj = real["k3f"]
@@ -339,14 +437,22 @@ def main() -> int:
     assert c5_launches == {"k1": 3, "k2": 3, "k3": 6}, c5_launches
     assert c4_launches == {"k1": 3, "k2": 0, "k3": 0}, c4_launches
     assert c2_launches == {"k1": 3, "k2": 0, "k3": 0}, c2_launches
+    assert c3_launches == {"k1": 3, "k2": 0, "k3": 0}, c3_launches
     # every tail of every path ran on K1
-    for tails in (flag_tails, c5_tails, c4_tails, c2_tails):
+    for tails in (flag_tails, c5_tails, c4_tails, c2_tails, c3_tails):
         assert tails == (3, 0), tails
     assert (c4_k1[1].tone, c4_k1[1].gamut) == (2, 3) and \
         c4_k1[1].flags == k1.FLAG_HUESHIFT and c4_k1[3] is not None
     assert (c2_k1[1].tone, c2_k1[1].gamut, c2_k1[1].flags) == (0, 0, 0) \
         and c2_k1[2] is None and c2_k1[3] is not None
-    for out in outs + outs5 + outs4 + outs2:
+    assert (c3_k1[1].tone, c3_k1[1].gamut, c3_k1[1].flags) == (0, 0, 0) \
+        and c3_k1[2] is None and c3_k1[3] is not None
+    # the main scaler ran the phased path with the strength asked for
+    ewa_key = (c3_ewa[1], H, W, 2 * H, 2 * W, RectF(0, 0, W, H), 0.8)
+    assert c3_ewa[1].name == "ewa_lanczos4sharpest" and c3_ewa[5] == 0.8
+    assert polar._route(polar.plan_polar(*ewa_key[:6]), 2 * H, 2 * W,
+                        0.8) == "phased"
+    for out in outs + outs5 + outs4 + outs2 + outs3:
         assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
         assert bool(torch.isfinite(out).all())
         assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
@@ -360,6 +466,7 @@ def main() -> int:
     assert np.isfinite(state5).all() and state5[1] > 0, state5
     assert np.isfinite(state4).all() and state4[1] > 0, state4
     assert not renderer2._peak_state.any()
+    assert not renderer3._peak_state.any()
 
     # 3a. K1 vs its plain version on frame 2's input at 4K (these
     # comparison launches do not count)
@@ -438,15 +545,18 @@ def main() -> int:
     # a small input (the flagship's gate)
     k1_4_err, k1_4_frac, k1_4_part = _check_k1(k1, c4_k1)
     k1_2_err, k1_2_frac, _ = _check_k1(k1, c2_k1)
+    k1_3_err, k1_3_frac, _ = _check_k1(k1, c3_k1)
     small42 = {}
-    for config, p in (("config4", params4), ("config2", params2)):
+    for config, source, p in (("config4", "config4", params4),
+                              ("config2", "config2", params2),
+                              ("config3", "config2", params3)):
         rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
         small42[config] = []
         bits = 10 if config == "config4" else 8
         for f in _flagship_yuv(2, 64, 128, seed=7, bits=bits):
-            g = rg.render(_frame(lt, f, dev, config=config), st,
+            g = rg.render(_frame(lt, f, dev, config=source), st,
                           p).cpu().numpy()
-            c = rc.render(_frame(lt, f, "cpu", config=config), st,
+            c = rc.render(_frame(lt, f, "cpu", config=source), st,
                           p).numpy()
             d = np.abs(g - c)
             small42[config].append({
@@ -486,6 +596,8 @@ def main() -> int:
         renderer4, [frames4[k % 3] for k in range(n_timed)], params4)
     c2_ms, c2_window_ms = frame_times(
         renderer2, [frames2[k % 3] for k in range(n_timed)], params2)
+    c3_ms, c3_window_ms = frame_times(
+        renderer3, [frames2[k % 3] for k in range(n_timed)], params3)
     timed5 = [_frame(lt, yuvs[k % 3], dev,
                      cfg.sample_grain(GRAIN_SEED + len(yuvs) + k))
               for k in range(n_timed)]
@@ -500,6 +612,9 @@ def main() -> int:
     k1_2_ms = _cuda_ms(lambda: k1.color_map_tail(*c2_k1), 20)
     k1_2_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
         c2_k1[0], c2_k1[1].consts, *c2_k1[2:], c2_k1[1].instance), 3)
+    k1_3_ms = _cuda_ms(lambda: k1.color_map_tail(*c3_k1), 20)
+    k1_3_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        c3_k1[0], c3_k1[1].consts, *c3_k1[2:], c3_k1[1].instance), 3)
     k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
         c5_k1[0], c5_k1[1].consts, *c5_k1[2:]), 3)
     # the SM clock while K1 runs: ~0.5-1 s of launches queued, read
@@ -516,6 +631,15 @@ def main() -> int:
     lanes = torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32
     k1_floor_ms = {v: m["per_iteration"] * npix / (lanes * k1_mhz * 1e6) * 1e3
                    for v, m in k1_sass.items() if "dither" in v}
+    # every instance's bounds and instruction floor at 4K
+    disasm = {}
+
+    def sass_of(tone, inst):
+        if tone not in disasm:
+            disasm[tone] = _sass.disassemble(k1_libs[tone]._name)
+        return _sass.loop_mix(disasm[tone], inst)["per_iteration"]
+    k1_instances = _k1_instance_table(lt, k1, trender, ops_dither, sass_of,
+                                      npix, lanes, k1_mhz, 2 * W, 2 * H, dev)
     ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
     k2_runs = []
     k2_ms = _cuda_ms(lambda: k2_runs.append(k2.wavefront(*ed_args)), 5)
@@ -552,6 +676,37 @@ def main() -> int:
     ewa_cfg = flt.find_filter_config("ewa_lanczos")
     ewa_ms = _cuda_ms(lambda: polar.sample_polar(
         lin, ewa_cfg, 2 * H, 2 * W, RectF(0, 0, W, H)), 5)
+    # config 3's scaler alone on frame 2's sigmoidized 1080p input: the
+    # phased EWA with anti-ringing, its launches a call (profiler) and its
+    # bound (the input read once, the 4K output written once; operations
+    # counted from the plan: a multiply-add a nonzero tap, and per
+    # main-lobe tap and channel the extremum tests (2), scaling (2) and
+    # both sides' softmax terms and sums (2 x 11), and 18 a pixel for the
+    # scale, the ratios and the blend)
+    ewa_ar_args = (c3_ewa[0],) + c3_ewa[1:]
+    ewa_ar_ms = _cuda_ms(lambda: polar.sample_polar(*ewa_ar_args), 10)
+    pp = polar._phase_plan(*ewa_key)
+    n_out = 3 * 4 * H * W
+    ewa_ar_ops = n_out * (2 * float(np.mean([(w != 0).sum() for w in pp.wk]))
+                          + 26 * pp.ar_w.shape[0] + 18)
+    ewa_ar_bytes = (c3_ewa[0].numel() + n_out) * 4
+    ewa_ar_bound, ewa_ar_by = _bound(ewa_ar_bytes, ewa_ar_ops)
+    # 9. K2 on a pattern outside the compiled ten, its taps given at
+    # launch, on config 5's sheared frame (the same shift): exact against
+    # the plain version, timed beside the compiled instance
+    custom = cdither.ErrorDiffusionKernel(
+        "custom-3row", "taps given at launch", ed_kernel.shift,
+        ((0, 0, 0, 5, 2), (0, 3, 4, 1, 0), (0, 0, 1, 0, 0)), 16)
+    assert custom not in cdither.ERROR_DIFFUSION_KERNELS
+    k2_custom = k2.wavefront(colmaj, custom, depth, ed_w, ed_h)
+    k2_custom_plain = k2.wavefront_plain(colmaj, custom, depth, ed_w, ed_h)
+    torch.cuda.synchronize()
+    assert torch.equal(k2_custom, k2_custom_plain), "K2 custom pattern"
+    k2_custom_err = float((k2_custom.float() -
+                           k2_custom_plain.float()).abs().max())
+    del k2_custom, k2_custom_plain
+    k2_custom_ms = _cuda_ms(
+        lambda: k2.wavefront(colmaj, custom, depth, ed_w, ed_h), 5)
     # deband and grain of one frame's three planes, as the renderer runs
     # them (tables drawn beforehand, as the render plan holds them)
     planes = [p.data for p in frames5[1].planes]
@@ -584,6 +739,15 @@ def main() -> int:
                                  p.shape[-1]))
         for p, tb, c in zip(planes, tables, cfgs)], 5)
 
+    # the anti-ringing EWA's launches a call, counted by the profiler
+    # last: its tracing slows the host's launches after it
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        polar.sample_polar(*ewa_ar_args)
+        torch.cuda.synchronize()
+    ewa_ar_launches = sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
     n_taps = len(k2.taps_for(ed_kernel))
     # what the function needs: the ed_w x C x ed_h pixels of the frame
     # read, their codes written (the zeros outside the sheared image
@@ -603,6 +767,8 @@ def main() -> int:
                   c4_launches["k1"], k1_4_err, k1_4_ms, k1_4_plain_ms),
         _k1_entry(k1, "k1_color_map_pass", c2_k1, None, c2_launches["k1"],
                   k1_2_err, k1_2_ms, k1_2_plain_ms),
+        _k1_entry(k1, "k1_color_map_pass_config3", c3_k1, None,
+                  c3_launches["k1"], k1_3_err, k1_3_ms, k1_3_plain_ms),
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -641,13 +807,22 @@ def main() -> int:
                                                      c4_k1[1].instance),
         "k1_config2_ops_per_pixel": k1.ops_per_pixel(c2_k1[1].consts,
                                                      c2_k1[1].instance),
-        "small_config4_config2_render": small42,
+        "config3_frame_ms_median": statistics.median(c3_ms),
+        "config3_frame_ms": c3_ms, "config3_window_ms": c3_window_ms,
+        "k1_config3_ms": k1_3_ms, "k1_config3_plain_ms": k1_3_plain_ms,
+        "k1_config3_differing_fraction": k1_3_frac,
+        "ewa_ar_ms": ewa_ar_ms, "ewa_ar_launches_per_call": ewa_ar_launches,
+        "ewa_ar_bound_ms": ewa_ar_bound, "ewa_ar_bound_by": ewa_ar_by,
+        "ewa_ar_bytes": ewa_ar_bytes, "ewa_ar_ops": ewa_ar_ops,
+        "k2_custom_ms": k2_custom_ms, "k2_custom_max_abs_err": k2_custom_err,
+        "small_config4_config2_config3_render": small42,
         "config4_peak_state": state4.tolist(),
         "k1_sass": {v: {k: m[k] for k in (
             "per_iteration", "classes", "static_instructions",
             "slow_path_instructions", "calls",
             "slow_path_calls")} for v, m in k1_sass.items()},
         "k1_ptxas": k1_ptxas, "k1_sm_clock_mhz": k1_mhz,
+        "k1_instances": k1_instances,
         "k1_instruction_floor_ms": k1_floor_ms,
         "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_bytes": k2_bytes,
         "k2_ops": k2_ops, "k2_columns": colmaj.shape[0],

@@ -24,6 +24,13 @@
 //   8) live in registers.  The kernel is a template over the pattern with
 //   the tap table compiled in (`pattern`), so every tap is one fmaf on a
 //   fixed register: no modulo, no shared memory, no local memory.
+// - Any other pattern runs on one more instance, `kCustom`, whose taps
+//   come with the launch (`CustomTaps`, a __grid_constant__ parameter:
+//   the constant bank, uniform over the warp).  Its window is
+//   kCustomSlots registers, and each slot takes the taps that land on it,
+//   row y's first, then y - 1's and y - 2's (at most one a row), each
+//   under a uniform test of the launch's bits: the same fmaf's in the
+//   same order as a compiled pattern, at a fixed register each.
 // - Rows y - 1 and y - 2 come by __shfl_up_sync.  Lanes 0 and 1 take the
 //   last two rows of the band above from a global boundary buffer: 2
 //   words a column, a group of kChunk = 16 columns written by the band
@@ -85,6 +92,8 @@ constexpr int kChunk = 16;          // columns a group, steps a chunk
 constexpr int kWords = 2 * kChunk;  // boundary words a chunk, one a lane
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kWords <= 32, "a chunk's words fit a warp");
+constexpr int kCustom = -1;         // the instance whose taps come at launch
+constexpr int kCustomSlots = 16;    // its window: sheared offsets 1 .. 16
 
 struct Pattern {
   int shift;
@@ -99,6 +108,15 @@ struct Pattern {
 // ops/cuda/error_diffusion.py::taps_for makes them, written by
 // tap_table_header there into the build directory at build time.
 #include "k2_taps.h"
+
+// A pattern given at launch: its shift, and for each pending slot (the
+// sheared column offset slot + 1) the weights of the taps from rows y,
+// y - 1 and y - 2 that land there, bit dy of `rows` set where one does.
+struct CustomTaps {
+  int shift;
+  int rows[kCustomSlots];
+  float w[kCustomSlots][3];
+};
 
 __host__ __device__ constexpr int max_off(const Pattern& t) {
   int m = 1;
@@ -231,9 +249,10 @@ template <int P, typename CodeT>
 __global__ void __launch_bounds__(32)
 k2_wavefront(const float* __restrict__ x, CodeT* __restrict__ codes,
              unsigned* __restrict__ scratch, int Wsp, int C, int Hp, int W,
-             int H, float scale, float minus_inv) {
-  constexpr int M = max_off(pattern(P));
-  constexpr int shift = pattern(P).shift;
+             int H, float scale, float minus_inv,
+             const __grid_constant__ CustomTaps custom) {
+  constexpr int M = P == kCustom ? kCustomSlots : max_off(pattern(P));
+  const int shift = P == kCustom ? custom.shift : pattern(P).shift;
   constexpr int E = 16 / sizeof(CodeT);     // codes in 16 bytes
   __shared__ __align__(16) float xring[kXRing * 32];
   __shared__ __align__(16) CodeT cbuf[kChunk * 32];
@@ -318,8 +337,18 @@ k2_wavefront(const float* __restrict__ x, CodeT* __restrict__ codes,
 #pragma unroll
       for (int m = 0; m + 1 < M; m++) p[m] = p[m + 1];
       p[M - 1] = 0.0f;
-      add_taps<P>(p, e0, e1, e2,
-                  std::make_integer_sequence<int, pattern(P).n>{});
+      if constexpr (P == kCustom) {
+#pragma unroll
+        for (int m = 0; m < M; m++) {
+          const int r = custom.rows[m];
+          if (r & 1) p[m] = fmaf(e0, custom.w[m][0], p[m]);
+          if (r & 2) p[m] = fmaf(e1, custom.w[m][1], p[m]);
+          if (r & 4) p[m] = fmaf(e2, custom.w[m][2], p[m]);
+        }
+      } else {
+        add_taps<P>(p, e0, e1, e2,
+                    std::make_integer_sequence<int, pattern(P).n>{});
+      }
     }
     __syncwarp();
     // publish the group's boundary words, then store its codes
@@ -350,6 +379,7 @@ struct Launch {
   unsigned* scratch;
   int Wsp, C, Hp, W, H;
   float scale, minus_inv;
+  CustomTaps custom;
   cudaStream_t st;
 };
 
@@ -359,12 +389,13 @@ template <int P, typename CodeT>
 int launch(const Launch& a) {
   k2_wavefront<P, CodeT><<<bands(a.C, a.Hp), 32, 0, a.st>>>(
       a.x, static_cast<CodeT*>(a.codes), a.scratch, a.Wsp, a.C, a.Hp, a.W,
-      a.H, a.scale, a.minus_inv);
+      a.H, a.scale, a.minus_inv, a.custom);
   return (int)cudaGetLastError();
 }
 
 template <typename CodeT, int... P>
 int dispatch(int p, const Launch& a, std::integer_sequence<int, P...>) {
+  if (p == kCustom) return launch<kCustom, CodeT>(a);
   int rc = (int)cudaErrorInvalidValue;
   ((p == P ? (rc = launch<P, CodeT>(a), 0) : 0), ...);
   return rc;
@@ -383,16 +414,21 @@ extern "C" void k2_geometry(int Wsp, int C, int Hp, long long* words,
 }
 
 // `index` names the pattern in core/dither.py::ERROR_DIFFUSION_KERNELS,
-// whose taps the kernel is compiled with.
+// whose taps the kernel is compiled with, or is -1 for the pattern in
+// `custom` (a host CustomTaps, read only for index -1).
 extern "C" int k2_wavefront_launch(const float* x, void* codes,
                                    void* scratch, int int32_codes,
                                    int index, int Wsp, int C, int Hp, int W,
                                    int H, float scale, float inv_scale,
-                                   void* stream) {
-  if (index < 0 || index >= kPatterns || Wsp < 1 || C < 1 || Hp < 1)
+                                   const void* custom, void* stream) {
+  if (index < kCustom || index >= kPatterns || Wsp < 1 || C < 1 || Hp < 1 ||
+      (index == kCustom && custom == nullptr))
     return (int)cudaErrorInvalidValue;
   const Launch a{x, codes, static_cast<unsigned*>(scratch), Wsp, C, Hp, W,
-                 H, scale, -inv_scale, (cudaStream_t)stream};
+                 H, scale, -inv_scale,
+                 index == kCustom ? *static_cast<const CustomTaps*>(custom)
+                                  : CustomTaps{},
+                 (cudaStream_t)stream};
   const auto all = std::make_integer_sequence<int, kPatterns>{};
   if (int32_codes) return dispatch<int32_t>(index, a, all);
   return dispatch<int16_t>(index, a, all);

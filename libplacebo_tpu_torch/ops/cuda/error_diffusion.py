@@ -24,8 +24,9 @@ operation for operation, so the two agree bit for bit.
 `wavefront` is the entry: a CPU tensor runs the plain version, a CUDA
 tensor launches the kernel (counted in `launches`) or raises.  The
 kernel is compiled for the patterns of `ERROR_DIFFUSION_KERNELS`, its
-tap tables generated from them (`tap_table_header`); another pattern
-runs on the CPU only and raises on the card.
+tap tables generated from them (`tap_table_header`); any other pattern
+whose taps reach at most `CUSTOM_SLOTS` sheared columns ahead runs on
+one more instance that takes its taps with the launch (`custom_taps`).
 """
 from __future__ import annotations
 
@@ -39,10 +40,13 @@ import torch
 from ...core.dither import ERROR_DIFFUSION_KERNELS, ErrorDiffusionKernel
 from ...core.fastmath import fma, rcp
 
-__all__ = ["taps_for", "tap_table_header", "code_dtype", "wavefront",
-           "wavefront_plain", "launches", "build", "build_spec", "geometry"]
+__all__ = ["taps_for", "tap_table_header", "custom_taps", "code_dtype",
+           "wavefront", "wavefront_plain", "launches", "build", "build_spec",
+           "geometry", "CUSTOM_SLOTS"]
 
 launches = 0
+# the custom-pattern instance's window (kCustomSlots in the kernel)
+CUSTOM_SLOTS = 16
 
 
 def taps_for(kernel: ErrorDiffusionKernel) -> List[Tuple[int, int, float]]:
@@ -76,6 +80,26 @@ def tap_table_header() -> str:
     lines += ["    default:", "      return {0, 0, {}, {}, {}};", "  }", "}",
               ""]
     return "\n".join(lines)
+
+
+def custom_taps(kernel: ErrorDiffusionKernel) -> np.ndarray:
+    """The kernel's `CustomTaps` launch parameter for `kernel`, as 32-bit
+    words: the shift, a bit mask a pending slot (bit dy: a tap from row
+    y - dy lands on sheared offset slot + 1), then each slot's three
+    float32 weights by dy.  Raises for a pattern that reaches outside
+    the window (an offset below 1 or above CUSTOM_SLOTS)."""
+    words = np.zeros(1 + CUSTOM_SLOTS * 4, np.uint32)
+    rows = words[1:1 + CUSTOM_SLOTS]
+    wgts = words[1 + CUSTOM_SLOTS:].view(np.float32).reshape(CUSTOM_SLOTS, 3)
+    words[0] = kernel.shift
+    for dy, off, w in taps_for(kernel):
+        if not 1 <= off <= CUSTOM_SLOTS:
+            raise ValueError(
+                f"K2: pattern {kernel.name!r} reaches sheared offset {off}; "
+                f"the kernel takes 1..{CUSTOM_SLOTS}")
+        rows[off - 1] |= 1 << dy
+        wgts[off - 1, dy] = w
+    return words
 
 
 def code_dtype(new_depth: int) -> torch.dtype:
@@ -133,7 +157,7 @@ def _kernel_lib():
     lib = load_shared(*build_spec())
     fn = lib.k2_wavefront_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
-        [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.k2_geometry.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
     lib.k2_geometry.restype = None
@@ -174,11 +198,11 @@ def wavefront(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
     Wsp, C, Hp = colmaj.shape
     if H > Hp or not 1 <= new_depth <= 16:
         raise ValueError(f"K2: {H} rows in {Hp}, depth {new_depth}")
-    if kernel not in ERROR_DIFFUSION_KERNELS:
-        raise ValueError(
-            f"K2: the kernel runs the patterns of ERROR_DIFFUSION_KERNELS "
-            f"({', '.join(k.name for k in ERROR_DIFFUSION_KERNELS)}), not "
-            f"{kernel.name!r}; another pattern runs on a CPU tensor only")
+    # a built-in pattern's compiled instance, else the custom one
+    if kernel in ERROR_DIFFUSION_KERNELS:
+        index, custom = ERROR_DIFFUSION_KERNELS.index(kernel), None
+    else:
+        index, custom = -1, custom_taps(kernel)
     scale = float((1 << new_depth) - 1)
     dt = code_dtype(new_depth)
     out = torch.empty((Wsp, C, Hp), dtype=dt, device=colmaj.device)
@@ -188,8 +212,8 @@ def wavefront(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
     lib = _kernel_lib()
     rc = lib.k2_wavefront_launch(
         colmaj.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        int(dt == torch.int32), ERROR_DIFFUSION_KERNELS.index(kernel), Wsp,
-        C, Hp, W, H, scale, rcp(scale),
+        int(dt == torch.int32), index, Wsp, C, Hp, W, H, scale, rcp(scale),
+        None if custom is None else custom.ctypes.data,
         torch.cuda.current_stream(colmaj.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("K2 launch failed: " +

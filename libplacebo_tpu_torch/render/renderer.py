@@ -4,7 +4,7 @@ Counterpart of libplacebo_tpu/render/renderer.py for the ported paths,
 keeping the reference package's stage order (`_trace_pipeline`): per
 plane deband and AV1 film grain -> merge planes (bilinear chroma
 alignment) -> decode -> linearize (and sigmoidize, for SDR sources) ->
-main scaler (EWA direct path or separable) -> desigmoidize -> the
+main scaler (EWA or separable, with anti-ringing) -> desigmoidize -> the
 color-map tail -> error diffusion (kernels K3, K2, K3) -> finish the
 peak state.  The tail runs on kernel K1 (tone + gamut + delinearize +
 encode, with the peak partials, and the ordered dither unless error
@@ -165,8 +165,6 @@ def _check_slice(params: RenderParams, target: Target, frame: Frame):
          "slice 3 item 21"),
         (params.visualize_lut, "tone-curve visualization",
          "slice 3 item 21"),
-        (params.antiringing_strength > 0, "anti-ringing",
-         "slice 1 items 5 and 7"),
         (any(3 in p.component_mapping for p in frame.planes),
          "alpha planes", "slice 3 item 21"),
     )
@@ -176,11 +174,11 @@ def _check_slice(params: RenderParams, target: Target, frame: Frame):
 
 
 def _find_scaler(name: str) -> flt.FilterConfig:
+    """The named filter config, as the reference resolves it
+    (`find_filter_config` with its default usage, every use allowed)."""
     cfg = flt.find_filter_config(name)
     if cfg is None:
-        raise NotImplementedError(
-            f"filter {name!r} is not ported (ROADMAP slice 1 item 2: the "
-            "remaining filter configs)")
+        raise ValueError(f"unknown filter: {name}")
     return cfg
 
 
@@ -384,12 +382,13 @@ class Renderer:
                 s0x = -sx * pw / W
                 s0y = -sy * ph / H
                 rect = RectF(s0x, s0y, s0x + pw, s0y + ph)
+                antiring = params.antiringing_strength or cfg.antiring
                 if cfg.polar:
                     data = ops_polar.sample_polar(data, cfg, H, W, rect,
-                                                  antiring=cfg.antiring)
+                                                  antiring=antiring)
                 else:
                     data = ops_sampling.resize_separable(
-                        data, H, W, cfg, rect, antiring=cfg.antiring)
+                        data, H, W, cfg, rect, antiring=antiring)
             for ci, ch in enumerate(mapping):
                 channels[ch] = data[..., ci, :, :]
         order = sorted(channels)
@@ -482,6 +481,7 @@ class Renderer:
             scaler = _find_scaler(params.upscaler if upscaling
                                   else params.downscaler)
             cfg_down = _find_scaler(params.downscaler)
+            antiring = params.antiringing_strength or scaler.antiring
         dp = _dither_params(params, dst_color) if params.dither else None
         quantize = target.bit_depth and (target.bit_depth < 16 or
                                          params.force_dither)
@@ -504,11 +504,11 @@ class Renderer:
             if scaler is not None:
                 if scaler.polar:
                     img = ops_polar.sample_polar(img, scaler, dst_h, dst_w,
-                                                 crop, antiring=scaler.antiring)
+                                                 crop, antiring=antiring)
                 else:
                     img = ops_sampling.resize_separable(
                         img, dst_h, dst_w, scaler, crop, cfg_down=cfg_down,
-                        antiring=scaler.antiring)
+                        antiring=antiring)
             if sig is not None:
                 img = ops_color.desigmoidize(img, sig)
             new_state = peak_state

@@ -325,6 +325,57 @@ def test_k2_compiled_tap_table_equals_taps_for(index):
                           np.float32([w for _, _, w in want]).view(np.uint32))
 
 
+# patterns outside ERROR_DIFFUSION_KERNELS: (name, shift, pattern,
+# divisor); "reach-16" puts a tap at the custom instance's last slot
+CUSTOM_PATTERNS = [
+    ("custom-3row", 2, ((0, 0, 0, 5, 2), (0, 3, 4, 1, 0), (0, 0, 1, 0, 0)),
+     16),
+    ("custom-wide", 3, ((0, 0, 0, 6, 3), (2, 3, 5, 3, 1), (1, 2, 3, 2, 1)),
+     32),
+    ("reach-16", 7, ((0, 0, 0, 2, 1), (0, 0, 1, 0, 0), (0, 0, 0, 0, 1)), 5),
+]
+
+
+def _custom(mod, case):
+    name, shift, pattern, divisor = case
+    return mod.ErrorDiffusionKernel(name, name, shift, pattern, divisor)
+
+
+@pytest.mark.parametrize("case", CUSTOM_PATTERNS, ids=lambda c: c[0])
+def test_custom_pattern_matches_scan(case):
+    """A pattern outside ERROR_DIFFUSION_KERNELS through the port's
+    error_diffusion (K3 -> K2 -> K3, plain versions) vs the JAX
+    error_diffusion_scan, 3 bits at (2, 40, 56): exact."""
+    img = np.random.default_rng(43).random((2, 40, 56)).astype(np.float32)
+    ref = np.asarray(jscan(jnp.asarray(img), 3, _custom(jdither, case)))
+    out = tdith.error_diffusion(torch.from_numpy(img), 3,
+                                _custom(tdither, case))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("case", CUSTOM_PATTERNS, ids=lambda c: c[0])
+def test_custom_taps_parameter_layout(case):
+    """custom_taps, K2's launch parameter for a custom pattern, holds the
+    shift, each slot's rows and float32 weights: decoded, the taps of
+    taps_for in the order K2 adds them (slot by slot, rows in order)."""
+    k = _custom(tdither, case)
+    words = k2.custom_taps(k)
+    assert words.dtype == np.uint32 and words.size == 1 + 4 * k2.CUSTOM_SLOTS
+    assert words[0] == k.shift
+    rows = words[1:1 + k2.CUSTOM_SLOTS]
+    wgts = words[1 + k2.CUSTOM_SLOTS:].view(np.float32).reshape(-1, 3)
+    got = [(dy, slot + 1, float(wgts[slot, dy]))
+           for slot in range(k2.CUSTOM_SLOTS) for dy in range(3)
+           if rows[slot] >> dy & 1]
+    assert sorted(got, key=lambda t: (t[0], t[1])) == \
+        sorted(k2.taps_for(k), key=lambda t: (t[0], t[1]))
+    too_far = tdither.ErrorDiffusionKernel(
+        "too-far", "", 8, ((0, 0, 0, 1, 0), (0, 0, 0, 0, 0),
+                           (0, 0, 0, 0, 1)), 2)
+    with pytest.raises(ValueError, match="offset 18"):
+        k2.custom_taps(too_far)
+
+
 # -- the slice end to end ------------------------------------------------
 
 def _yuv(seed, h=SRC_H, w=SRC_W):
@@ -510,6 +561,29 @@ def _k2_exact_on_card(cuda_device, shape, name, depth):
     assert torch.equal(out, k2.wavefront_plain(cm, k, depth, W, H))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("case", CUSTOM_PATTERNS, ids=lambda c: c[0])
+@pytest.mark.parametrize("shape", [(3, 70, 41), (2, 96, 160)])
+def test_k2_custom_pattern_on_card(cuda_device, shape, case, depth):
+    """A pattern outside ERROR_DIFFUSION_KERNELS runs on K2's custom
+    instance (taps given at launch): exact against the plain version,
+    across band boundaries, at 8 and 16 bits."""
+    k = _custom(tdither, case)
+    C, H, W = shape
+    x = torch.rand((C, H, W), device=cuda_device,
+                   generator=torch.Generator(device=cuda_device).manual_seed(
+                       H + W))
+    Ws = W + (H - 1) * k.shift
+    cm = k3.shear_plain(x.permute(2, 0, 1).contiguous(), Ws, k.shift, W, H,
+                        True)
+    before = k2.launches
+    out = k2.wavefront(cm, k, depth, W, H)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    assert torch.equal(out, k2.wavefront_plain(cm, k, depth, W, H))
+
+
 def _measure(n_frames=8):
     """Print the figures behind the end-to-end gate: per frame of a chain
     of `n_frames` config-5 frames (64x128 -> 128x256, a new input seed and
@@ -573,5 +647,109 @@ def _measure(n_frames=8):
               f"{np.abs(tail.numpy() - j_in).max():.2e}")
 
 
+def _bisect(n_frames=3):
+    """Print where the encoded frame's divergence enters (ROADMAP §3,
+    F1): per frame, the port against the JAX renderer at the input of
+    decode (deband, grain and chroma merge done), after decode, after
+    the PQ linearize, after the EWA and at the input of error diffusion
+    (the encoded frame); then the stages alone on the JAX stage's input;
+    then the encoded frame again with the JAX decode, and with the JAX
+    decode and EWA outputs, fed into the port's render."""
+    import os
+    import libplacebo_tpu.ops.color as jcol
+    import libplacebo_tpu.ops.dithering as jdith
+    import libplacebo_tpu.ops.polar as jpol
+    import libplacebo_tpu_torch.ops.color as tcol
+    import libplacebo_tpu_torch.ops.polar as tpol
+    from libplacebo_tpu_torch.core import colorspace as tcs
+    from libplacebo_tpu_torch.core import filters as tflt
+    from libplacebo_tpu_torch.core.common import RectF as TRectF
+    os.environ["LPTPU_FUSED_COLORMAP"] = "1"
+    seen = {}
+    stages = ((jcol, tcol, "decode_color", "decode"),
+              (jcol, tcol, "linearize", "lin"),
+              (jpol, tpol, "sample_polar", "ewa"),
+              (jdith, tdith, "error_diffusion", "enc"))
+    originals = {}
+
+    def wrap(mod, name, key, on_jax):
+        orig = originals[(mod, name)] = getattr(mod, name)
+
+        def put(k, x):
+            seen.setdefault(k, []).append(np.array(x))
+
+        def run(img, *args, **kw):
+            out = orig(img, *args, **kw)
+            for k, x in ((f"{key}_in", img), (key, out)):
+                if on_jax:
+                    jax.debug.callback(lambda v, k=k: put("j" + k, v), x)
+                else:
+                    put("t" + k, x.clone())
+            return out
+        setattr(mod, name, run)
+    for jm, tm, name, key in stages:
+        wrap(jm, name, key, True)
+        wrap(tm, name, key, False)
+
+    def report(label, a, b):
+        d = np.abs(a - b)
+        rel = d / np.maximum(np.abs(a), 1e-30)
+        print(f"{label:32s} differing {(d > 0).mean():.4f}, > 1e-5 "
+              f"{(d > 1e-5).mean():.4f}, max {d.max():.3e}, max relative "
+              f"{rel.max():.2e}")
+
+    jp = JParams(upscaler="ewa_lanczos",
+                 deband=jdeband.DebandParams(iterations=2), film_grain=True,
+                 error_diffusion="floyd-steinberg")
+    jt = JTarget(w=2 * SRC_W, h=2 * SRC_H, color=jcs.CSP_SRGB, bit_depth=8)
+    jr, tr = JRenderer(), lt.Renderer(device="cpu")
+    for i in range(n_frames):
+        yuv = _yuv(3 + i)
+        jf = j_frame(*yuv, color=jcs.CSP_BT2100_PQ,
+                     repr=jcs.ColorRepr(sys=jcs.ColorSystem.BT_2020_NC,
+                                        levels=jcs.ColorLevels.LIMITED,
+                                        bits=jcs.BitEncoding(8, 8, 0)))
+        jf.film_grain = dataclasses.replace(J_GRAIN, seed=7391 + i)
+        np.asarray(jr._render_once(jf, jt, jp))
+        tr.render(_port_frame(*yuv, _grain(7391 + i)), _T_TARGET, _T_PARAMS)
+        for key in ("decode_in", "decode", "lin", "ewa", "enc_in"):
+            report(f"frame {i} {key}", seen["j" + key][i], seen["t" + key][i])
+    for (mod, name), orig in originals.items():
+        setattr(mod, name, orig)
+    H, W = seen["jdecode"][0].shape[-2:]
+    for i in range(n_frames):
+        lin = tcol.linearize(torch.from_numpy(seen["jdecode"][i]),
+                             tcs.CSP_BT2100_PQ).numpy()
+        report(f"frame {i} linearize alone", seen["jlin"][i], lin)
+        ewa = tpol.sample_polar(torch.from_numpy(seen["jlin"][i]),
+                                tflt.find_filter_config("ewa_lanczos"),
+                                2 * H, 2 * W, TRectF(0, 0, W, H)).numpy()
+        report(f"frame {i} EWA alone", seen["jewa"][i], ewa)
+    # the port's render with the JAX stage outputs fed in
+    for fed in (("decode",), ("decode", "ewa")):
+        frame = {"i": 0}
+        saved = (tcol.decode_color, tpol.sample_polar)
+        if "decode" in fed:
+            tcol.decode_color = lambda img, repr: torch.from_numpy(
+                seen["jdecode"][frame["i"]])
+        if "ewa" in fed:
+            tpol.sample_polar = lambda img, *a, **kw: torch.from_numpy(
+                seen["jewa"][frame["i"]])
+        wrap(tdith, "error_diffusion", "fed", False)
+        fr = lt.Renderer(device="cpu")
+        try:
+            for i in range(n_frames):
+                frame["i"] = i
+                fr.render(_port_frame(*_yuv(3 + i), _grain(7391 + i)),
+                          _T_TARGET, _T_PARAMS)
+                report(f"frame {i} encoded, {'+'.join(fed)} fed",
+                       seen["jenc_in"][i], seen["tfed_in"][-1])
+        finally:
+            tcol.decode_color, tpol.sample_polar = saved
+            tdith.error_diffusion = originals[(tdith, "error_diffusion")]
+
+
 if __name__ == "__main__":
-    _measure()
+    import sys
+    _bisect() if sys.argv[1:] == ["bisect"] else _measure()
+

@@ -103,8 +103,32 @@ def test_fast_pq_coefficients_equal():
         np.testing.assert_array_equal(a, b)
 
 
+def _reference_blue_noise(shift: int) -> np.ndarray:
+    """pl_blue_noise of the JAX package's own source, native/dither.cc,
+    built by `_build.build_shared` (a temporary name, then a rename:
+    test workers never load a half-written library)."""
+    import ctypes
+    import libplacebo_tpu
+    from libplacebo_tpu_torch import _build
+    src = os.path.join(os.path.dirname(libplacebo_tpu.__file__), "native",
+                       "dither.cc")
+    lib = ctypes.CDLL(_build.build_shared(
+        "reference_dither", [src], os.environ.get("CXX", "g++"),
+        ["-O3", "-fPIC", "-std=c++17"]))
+    lib.pl_blue_noise.argtypes = [ctypes.c_int, np.ctypeslib.ndpointer(
+        np.float32, flags="C_CONTIGUOUS")]
+    lib.pl_blue_noise.restype = None
+    out = np.zeros((1 << shift, 1 << shift), np.float32)
+    lib.pl_blue_noise(shift, out)
+    return out
+
+
 def test_blue_noise_bit_identical():
-    np.testing.assert_array_equal(jdither.blue_noise(6),
+    """The port's blue noise against the reference's generator, built
+    from its source here (the JAX package's own loader compiles in place
+    and, when a parallel worker loads the file half-written, falls back
+    to a Python generator with another seed)."""
+    np.testing.assert_array_equal(_reference_blue_noise(6),
                                   tdither.blue_noise(6))
     np.testing.assert_array_equal(jdither.bayer_matrix(16),
                                   tdither.bayer_matrix(16))
@@ -187,7 +211,7 @@ def test_tf32_is_off():
 
 @pytest.mark.parametrize("feature", [
     dict(deinterlace=object()), dict(distort=object()),
-    dict(hooks=(object(),)), dict(antiringing_strength=0.5),
+    dict(hooks=(object(),)), dict(corner_rounding=0.5),
     dict(contrast_recovery=0.3), dict(lut=object()),
     dict(visualize_lut=True), dict(cone=object())])
 def test_outside_the_slice_raises(feature):

@@ -2,7 +2,8 @@
 """Profile one of the PyTorch/CUDA port's renders on one GPU.
 
 Run from the root of a checkout:
-    python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2]
+    python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2
+                                           | --config3]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
 Lanczos, K1 tail) or, with --config5, config 5 (the same frame carrying
@@ -12,8 +13,11 @@ grain seed every frame, as an AV1 stream carries), with --config4
 config 4 (the same content at 10 bits with 1000-nit mastering metadata,
 bt2390 tone curve and softclip gamut map on K1), or with --config2
 config 2's color path (8-bit BT.709 BT.1886 -> sRGB with
-RenderParams(): sigmoidized separable Lanczos, K1's pass-through tail)
-after two warm-up frames, twice over:
+RenderParams(): sigmoidized separable Lanczos, K1's pass-through tail),
+or with --config3 config 3 (config 2's frame with
+RenderParams(upscaler="ewa_lanczos4sharpest", antiringing_strength=0.8):
+the phased EWA with anti-ringing in sigmoidized light, K1's pass-through
+tail) after two warm-up frames, twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
@@ -44,7 +48,8 @@ def main() -> int:
 
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    if flags and flags not in (["--config5"], ["--config4"], ["--config2"]):
+    if flags and flags not in (["--config5"], ["--config4"], ["--config2"],
+                               ["--config3"]):
         print(f"port_profile: unknown options {flags}", file=sys.stderr)
         return 2
     config = flags[0][2:] if flags else "flagship"
@@ -71,11 +76,13 @@ def main() -> int:
         params = lt.RenderParams(upscaler="ewa_lanczos",
                                  tone_mapping_function="bt2390",
                                  gamut_mapping="softclip")
-    elif config == "config2":
+    elif config in ("config2", "config3"):
         color = lt.ColorSpace(lt.ColorPrimaries.BT_709,
                               lt.ColorTransfer.BT_1886)
         system = lt.ColorSystem.BT_709
-        params = lt.RenderParams()
+        params = lt.RenderParams() if config == "config2" else \
+            lt.RenderParams(upscaler="ewa_lanczos4sharpest",
+                            antiringing_strength=0.8)
     frame = lt.frame_from_yuv420p(
         y, u, v, color=color, bit_depth=bits,
         repr=lt.ColorRepr(sys=system, levels=lt.ColorLevels.LIMITED,
