@@ -53,8 +53,31 @@ Phases (each runs uncaught: any failure exits non-zero):
     1080p input (`ewa_ar_ms`, its launches a call and its bound);
  9. K2 on a pattern outside the compiled ten (taps given at launch)
     against its plain version on config 5's sheared frame at 4K: exact,
-    and timed beside the compiled Floyd-Steinberg instance.
-On every path the renderer must count K1 tails only (no plain tails).
+    and timed beside the compiled Floyd-Steinberg instance;
+10. path A, "HLG broadcast on an HDR10 display" (`path_cell`): config
+    4's 10-bit content as limited BT.2020-NC HLG -> 3840x2160 10-bit
+    full-range BT.2020 PQ at 600 nits, RenderParams(upscaler=
+    "ewa_lanczos", tone_mapping_function="bt2446a"): HLG's OOTF, the
+    EWA, and K1's generic instance (the reference adapts the HLG source
+    to the display's peak, so the tail is the pass-through chain into a
+    PQ target with 10-bit dither), 3 chained frames, counts read as
+    before (K1 3 times); the instance against its plain version on
+    frame 2's input at 4K (bit for bit) and the GPU render against the
+    CPU render on a small input; timed;
+11. path B, "SDR on a calibrated wide-gamut monitor": config 2's frames
+    -> 3840x2160 8-bit through a Display P3 gamma 2.2 ICC profile built
+    in code, with a 33^3 native LUT (its low-rank path at 1080p); the
+    tail is plain, as in the reference (an ICC target), so K1 never
+    launches; the same checks and timings, and the LUT and the ICC
+    encode alone;
+12. K1's generic instance on twelve more tails at 4K (`GENERIC_CASES`:
+    static curves, same-frame stats, the other gamut operators, HLG and
+    BT.1886 targets, YCbCr and ICtCp encodes, white noise,
+    show_clipping, 3-bit gamma dither), each bit for bit against its
+    plain version and timed (in `k1_instances`), and the host's draw
+    of a 4K white-noise bias (`white_noise_host_ms`).
+On every path but B the renderer must count K1 tails only (no plain
+tails); path B's tails count as ineligible (plain in the reference).
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -112,6 +135,11 @@ def _frame(lt, yuv, device, grain=None, config="flagship"):
     return f
 
 
+def _frame_cell(lt, yuv, device, color, repr, bits):
+    return lt.frame_from_yuv420p(*yuv, color=color, device=device,
+                                 bit_depth=bits, repr=repr)
+
+
 def _cuda_ms(fn, reps):
     import torch
     fn()
@@ -136,16 +164,18 @@ def _bound(nbytes, ops):
 def _render_run(renderer, frames, target, params, counters):
     """Render `frames` in a chain with every launch count, and the
     renderer's tail counts, set to 0 just before; returns the outputs,
-    the launch counts just after and the (K1, plain) tail counts."""
+    the launch counts just after and the (K1, plain, ineligible) tail
+    counts (ineligible: plain in the reference too, e.g. an ICC
+    target)."""
     import torch
     from libplacebo_tpu_torch.render import renderer as trender
     for mod in counters.values():
         mod.launches = 0
-    trender.k1_tails = trender.plain_tails = 0
+    trender.k1_tails = trender.plain_tails = trender.ineligible_tails = 0
     outs = [renderer.render(f, target, params) for f in frames]
     torch.cuda.synchronize()
     return outs, {name: mod.launches for name, mod in counters.items()}, \
-        (trender.k1_tails, trender.plain_tails)
+        (trender.k1_tails, trender.plain_tails, trender.ineligible_tails)
 
 
 def _check_k1(k1, args):
@@ -256,6 +286,209 @@ def _k1_instance_table(lt, k1, trender, ops_dither, sass_of, npix, lanes,
                 "ms": _cuda_ms(lambda: k1.color_map_tail(*args), 10),
                 "plain_ms": _cuda_ms(lambda: k1.color_map_plain(
                     args[0], plan.consts, *args[2:], plan.instance), 2)}
+    return table
+
+
+def display_p3_profile():
+    """A matrix/TRC display profile built in code: Display P3 primaries
+    (colorants adapted to the D50 PCS) and a gamma 2.2 TRC, in the byte
+    layout of tests/test_icc_h274.py::_make_profile."""
+    import struct
+    from libplacebo_tpu_torch.core import colorspace as tcs
+    p3 = tcs.primaries_get(tcs.ColorPrimaries.DISPLAY_P3)
+    m = tcs.adapt_white_matrix(p3.white, tcs.CIE_D50).m @ \
+        tcs.rgb_to_xyz_matrix(p3).m
+
+    def xyz_tag(v):
+        return b"XYZ " + b"\0" * 4 + struct.pack(
+            ">3i", *(int(round(x * 65536)) for x in v))
+
+    def curv(g):
+        return b"curv" + b"\0" * 4 + struct.pack(">I", 1) + \
+            struct.pack(">H", int(round(g * 256)))
+
+    tags = {b"rXYZ": xyz_tag(m[:, 0]), b"gXYZ": xyz_tag(m[:, 1]),
+            b"bXYZ": xyz_tag(m[:, 2]), b"rTRC": curv(2.2),
+            b"gTRC": curv(2.2), b"bTRC": curv(2.2),
+            b"wtpt": xyz_tag((0.9642, 1.0, 0.8249))}
+    header = bytearray(128)
+    header[8] = 4
+    header[16:20] = b"RGB "
+    header[20:24] = b"XYZ "
+    body = struct.pack(">I", len(tags))
+    offset = 132 + 12 * len(tags)
+    table = blob = b""
+    for sig, d in tags.items():
+        table += struct.pack(">4sII", sig, offset, len(d))
+        blob += d
+        offset += len(d)
+    out = bytes(header) + body + table + blob
+    return struct.pack(">I", len(out)) + out[4:]
+
+
+def creative_cube(n=33):
+    """A smooth creative 3D LUT as .cube text (contrast, a warm tint and
+    a cross term), n^3 entries."""
+    g = np.linspace(0.0, 1.0, n)
+    b, gg, r = np.meshgrid(g, g, g, indexing="ij")
+    rgb = np.stack([r, gg, b], axis=-1)
+    out = np.clip(0.92 * rgb + 0.06 * rgb[..., ::-1] ** 2 + 0.02, 0.0, 1.0)
+    return "\n".join([f"LUT_3D_SIZE {n}"] +
+                     [" ".join(f"{v:.6f}" for v in row)
+                      for row in out.reshape(-1, 3)])
+
+
+def path_cell(lt, path, W, H):
+    """(frame colorspace, repr, bits, target, params) of path A (HLG
+    broadcast on a 600-nit PQ display: 10-bit limited BT.2020-NC HLG ->
+    10-bit full-range BT.2020 PQ, EWA Lanczos, static bt2446a) or path B
+    (SDR on a calibrated wide-gamut monitor: config 2's 8-bit BT.709
+    frame -> 8 bits through a Display P3 gamma 2.2 ICC profile, with a
+    33^3 native LUT) at a W x H target."""
+    if path == "A":
+        color = lt.ColorSpace(lt.ColorPrimaries.BT_2020,
+                              lt.ColorTransfer.HLG)
+        target = lt.Target(w=W, h=H, bit_depth=10, color=lt.ColorSpace(
+            lt.ColorPrimaries.BT_2020, lt.ColorTransfer.PQ,
+            lt.HdrMetadata(max_luma=600.0)))
+        return (color, lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
+                                    levels=lt.ColorLevels.LIMITED,
+                                    bits=lt.BitEncoding(10, 10, 0)), 10,
+                target, lt.RenderParams(upscaler="ewa_lanczos",
+                                        tone_mapping_function="bt2446a"))
+    color = lt.ColorSpace(lt.ColorPrimaries.BT_709, lt.ColorTransfer.BT_1886)
+    target = lt.Target(w=W, h=H, bit_depth=8, icc=lt.parse_icc(
+        display_p3_profile()), color=lt.ColorSpace(
+            lt.ColorPrimaries.DISPLAY_P3, lt.ColorTransfer.GAMMA22))
+    return (color, lt.ColorRepr(sys=lt.ColorSystem.BT_709,
+                                levels=lt.ColorLevels.LIMITED,
+                                bits=lt.BitEncoding(8, 8, 0)), 8, target,
+            lt.RenderParams(lut=lt.parse_cube(creative_cube()),
+                            lut_type="native"))
+
+
+# the K1 tails chip_smoke holds on the generic instance beside path A's:
+# name -> (source (primaries, transfer, max nits or 0), target (primaries,
+# transfer, max nits or 0), RenderParams fields, bit depth, target
+# (system, levels) or None)
+GENERIC_CASES = {
+    "static_st2094_40": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+                         dict(tone_mapping_function="st2094-40",
+                              peak_detect=None), 8, None),
+    "static_hable": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+                     dict(tone_mapping_function="hable", peak_detect=None,
+                          gamut_mapping="clip"), 8, None),
+    "same_frame_bt2390_softclip": (
+        ("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+        dict(tone_mapping_function="bt2390", gamut_mapping="softclip",
+             peak_detect="same_frame"), 8, None),
+    "gamut_relative": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+                       dict(gamut_mapping="relative"), 8, None),
+    "gamut_absolute": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+                       dict(gamut_mapping="absolute"), 8, None),
+    "gamut_highlight": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+                        dict(gamut_mapping="highlight"), 8, None),
+    "target_hlg": (("bt.2020", "pq", 1000.0), ("bt.2020", "hlg", 0), {}, 10,
+                   None),
+    "target_bt1886_ycbcr": (("bt.2020", "pq", 1000.0),
+                            ("bt.709", "bt.1886", 0), {}, 10,
+                            ("bt.709", "limited")),
+    "encode_ictcp": (("bt.2020", "pq", 1000.0), ("bt.2020", "pq", 600.0),
+                     dict(tone_mapping_function="bt2446a"), 10,
+                     ("bt.2100-pq", "limited")),
+    "white_noise": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+                    dict(dither="white"), 8, None),
+    "show_clipping": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
+                      dict(show_clipping=True), 8, None),
+    "low_depth_gamma": (("bt.709", "bt.1886", 0), ("bt.709", "srgb", 0),
+                        {}, 3, None),
+}
+
+
+def _csp(lt, prim, trc, nits):
+    return lt.ColorSpace(lt.ColorPrimaries(prim), lt.ColorTransfer(trc),
+                         lt.HdrMetadata(min_luma=0.005, max_luma=nits)
+                         if nits else lt.HdrMetadata())
+
+
+def _generic_args(lt, k1, trender, case, W, H, dev, noise):
+    """(img, plan, tone, bias) of a generic case's K1 tail at W x H on
+    seeded linear light (to 30 for an HDR source, 1.2 for SDR)."""
+    import torch
+    from libplacebo_tpu_torch.core import colorspace as tcs
+    from libplacebo_tpu_torch.core.common import RectF
+    from libplacebo_tpu_torch.ops import tone_dynamic as ops_tone
+    src, dst, kw, bits, rep = GENERIC_CASES[case]
+    kw = dict(kw)
+    if kw.get("dither") == "white":
+        kw["dither"] = lt.DitherParams(method=lt.DitherMethod.WHITE_NOISE)
+    if kw.get("peak_detect") == "same_frame":
+        kw["peak_detect"] = lt.PeakDetectParams(allow_delayed=False)
+    params = lt.RenderParams(**kw)
+    s, d = tcs.color_space_infer_map(_csp(lt, *src), _csp(lt, *dst))
+    target = lt.Target(
+        w=W, h=H, color=_csp(lt, *dst), bit_depth=bits,
+        repr=lt.ColorRepr(sys=lt.ColorSystem(rep[0]),
+                          levels=lt.ColorLevels(rep[1])) if rep else
+        lt.Target(w=1, h=1).repr)
+    use_peak = (params.peak_detect is not None and s.is_hdr() and
+                params.tone_mapping_function in
+                ("spline", "bt2390", "st2094-40", "st2094-10"))
+    run = lt.Renderer(device=dev)._fused_tail(params, s, d, target, use_peak,
+                                              W, H, RectF(0, 0, W, H))
+    assert run is not None and run.plan.tone == k1.GENERIC, case
+    chain = trender.color_chain(s, d, params, use_peak)
+    tone = ops_tone.tone_vector(
+        params.tone_mapping_function, torch.tensor(0.72, device=dev),
+        torch.tensor(0.3, device=dev), chain.dst_min_pq, chain.dst_max_pq,
+        params.tone_constants) if run.plan.generic.dynamic else None
+    return (noise * (30.0 if s.is_hdr() else 1.2), run.plan, tone, run.lut)
+
+
+def _check_generic(k1, args):
+    """The generic instance vs its plain version (the port's stages):
+    bit for bit, partials' histograms equal, sums rtol 1e-5."""
+    import torch
+    out_k, part_k = k1.color_map_tail(*args)
+    out_p, part_p = k1.tail_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    assert torch.equal(out_k, out_p), err
+    assert (part_k is None) == (part_p is None)
+    if part_k is not None:
+        assert torch.equal(part_k[:, 0, :64], part_p[:, 0, :64])
+        torch.testing.assert_close(part_k[:, 1, :3], part_p[:, 1, :3],
+                                   rtol=1e-5, atol=0.0)
+    return err, part_k
+
+
+def _io_bytes(args, part):
+    img, plan, tone, lut = args
+    return (2 * 3 * img.shape[-2] * img.shape[-1] * 4 + plan.consts.nbytes +
+            (part.numel() * 4 if part is not None else 0) +
+            (tone.numel() * 4 if tone is not None else 0) +
+            (lut.numel() * 4 if lut is not None else 0))
+
+
+def _k1_generic_table(lt, k1, trender, W, H, dev):
+    """Every generic case at W x H: held against its plain version (bit
+    for bit), timed with it, its operations a pixel and its bounds."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(29)
+    noise = torch.rand((3, H, W), device=dev, generator=gen)
+    npix = W * H
+    table = {}
+    for case in GENERIC_CASES:
+        args = _generic_args(lt, k1, trender, case, W, H, dev, noise)
+        err, part = _check_generic(k1, args)
+        ops = k1.ops_per_pixel(args[1].consts, args[1].instance)
+        bound, by = _bound(_io_bytes(args, part), ops * npix)
+        table[case] = {
+            "mode": args[1].generic.mode._asdict(), "max_abs_err": err,
+            "ops_per_pixel": ops, "bound_ms": bound, "bound_by": by,
+            "ms": _cuda_ms(lambda: k1.color_map_tail(*args), 10),
+            "plain_ms": _cuda_ms(lambda: k1.tail_plain(*args), 2)}
+        del args
     return table
 
 
@@ -427,6 +660,27 @@ def main() -> int:
         outs3, c3_launches, c3_tails = _render_run(
             renderer3, frames2, target, params3, counters)
         c3_k1, c3_ewa = captured["k1"][1], captured["ewa"][1]
+        captured["k1"].clear()
+        polar.sample_polar = real["ewa"]
+        # 10. path A: HLG broadcast on a 600-nit PQ display (config 4's
+        # 10-bit content as HLG)
+        colA, repA, bitsA, targetA, paramsA = path_cell(lt, "A", 2 * W,
+                                                        2 * H)
+        framesA = [_frame_cell(lt, f, dev, colA, repA, bitsA)
+                   for f in yuvs4]
+        rendererA = lt.Renderer(device=dev)
+        outsA, pa_launches, pa_tails = _render_run(
+            rendererA, framesA, targetA, paramsA, counters)
+        pa_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        # 11. path B: config 2's SDR frames on a calibrated Display P3
+        # monitor (ICC profile) with a native 33^3 LUT
+        colB, repB, bitsB, targetB, paramsB = path_cell(lt, "B", 2 * W,
+                                                        2 * H)
+        framesB = [_frame_cell(lt, f, dev, colB, repB, bitsB) for f in yuvs]
+        rendererB = lt.Renderer(device=dev)
+        outsB, pb_launches, pb_tails = _render_run(
+            rendererB, framesB, targetB, paramsB, counters)
     finally:
         polar.sample_polar = real["ewa"]
         k1.color_map_tail = real["k1"]
@@ -438,9 +692,21 @@ def main() -> int:
     assert c4_launches == {"k1": 3, "k2": 0, "k3": 0}, c4_launches
     assert c2_launches == {"k1": 3, "k2": 0, "k3": 0}, c2_launches
     assert c3_launches == {"k1": 3, "k2": 0, "k3": 0}, c3_launches
-    # every tail of every path ran on K1
-    for tails in (flag_tails, c5_tails, c4_tails, c2_tails, c3_tails):
-        assert tails == (3, 0), tails
+    assert pa_launches == {"k1": 3, "k2": 0, "k3": 0}, pa_launches
+    assert pb_launches == {"k1": 0, "k2": 0, "k3": 0}, pb_launches
+    # every tail of every path ran on K1, but path B's, which the
+    # reference runs plain too (an ICC target)
+    for tails in (flag_tails, c5_tails, c4_tails, c2_tails, c3_tails,
+                  pa_tails):
+        assert tails == (3, 0, 0), tails
+    assert pb_tails == (0, 0, 3), pb_tails
+    # path A as the reference plans it: the HLG source adapts to the
+    # display's peak (color_space_infer_map), so no tone curve runs and
+    # the tail is the pass-through chain into a PQ target
+    pa_mode = pa_k1[1].generic.mode
+    assert pa_k1[1].tone == k1.GENERIC and pa_mode.kind == 0 and \
+        pa_mode.tone_kind == 0 and k1.G_TRCS[pa_mode.trc] == "pq" and \
+        k1.G_DITHER[pa_mode.dither] == "lut" and pa_k1[2] is None
     assert (c4_k1[1].tone, c4_k1[1].gamut) == (2, 3) and \
         c4_k1[1].flags == k1.FLAG_HUESHIFT and c4_k1[3] is not None
     assert (c2_k1[1].tone, c2_k1[1].gamut, c2_k1[1].flags) == (0, 0, 0) \
@@ -452,13 +718,16 @@ def main() -> int:
     assert c3_ewa[1].name == "ewa_lanczos4sharpest" and c3_ewa[5] == 0.8
     assert polar._route(polar.plan_polar(*ewa_key[:6]), 2 * H, 2 * W,
                         0.8) == "phased"
-    for out in outs + outs5 + outs4 + outs2 + outs3:
+    for out in outs + outs5 + outs4 + outs2 + outs3 + outsA + outsB:
         assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
         assert bool(torch.isfinite(out).all())
         assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
     for out in outs5:
         codes = out * 255.0
         assert float((codes - torch.round(codes)).abs().max()) <= 255e-6
+    for out in outsA:
+        codes = out * 1023.0
+        assert float((codes - torch.round(codes)).abs().max()) <= 1023e-6
     state = renderer._peak_state.cpu().numpy()
     state5 = renderer5._peak_state.cpu().numpy()
     state4 = renderer4._peak_state.cpu().numpy()
@@ -567,24 +836,47 @@ def main() -> int:
         np.testing.assert_allclose(rg._peak_state.cpu().numpy(),
                                    rc._peak_state.numpy(), atol=1e-5)
 
+    # 10b/11b. path A's generic K1 case vs its plain version on frame
+    # 2's input at 4K (bit for bit), and both paths' GPU renders vs their
+    # CPU renders on a small input (the gate of configs 2-4, in LSB of
+    # each target's depth)
+    pa_err, pa_part = _check_generic(k1, pa_k1)
+    small_paths = {}
+    for path, yuv_bits in (("A", 10), ("B", 8)):
+        col, rep, bits, tgt, p = path_cell(lt, path, 256, 128)
+        lsb = 1.0 / ((1 << tgt.bit_depth) - 1)
+        rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+        small_paths[path] = []
+        for f in _flagship_yuv(2, 64, 128, seed=7, bits=yuv_bits):
+            g = rg.render(_frame_cell(lt, f, dev, col, rep, bits), tgt,
+                          p).cpu().numpy()
+            c = rc.render(_frame_cell(lt, f, "cpu", col, rep, bits), tgt,
+                          p).numpy()
+            d = np.abs(g - c)
+            small_paths[path].append({
+                "max": float(d.max()), "mean": float(d.mean()),
+                "above_1lsb": float((d > lsb + 1e-5).mean())})
+            assert d.mean() < 1e-4 and (d > lsb + 1e-5).mean() <= 5e-4, \
+                (path, small_paths[path][-1])
+
     # 6. timings (their launches are not counted).  Config 5's frames
     # carry a new grain seed each, as an AV1 stream's do, so every frame
     # generates and uploads its grain tables
-    def frame_times(r, fs, p):
+    def frame_times(r, fs, p, tgt=target):
         """Host-clocked renders of fs[:8], each synchronized, then the
         mean frame of fs[8:] rendered back to back (CUDA events)."""
         samples = []
         for f in fs[:8]:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            r.render(f, target, p)
+            r.render(f, tgt, p)
             torch.cuda.synchronize()
             samples.append((time.perf_counter() - t) * 1e3)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for f in fs[8:]:
-            r.render(f, target, p)
+            r.render(f, tgt, p)
         end.record()
         torch.cuda.synchronize()
         return samples, start.elapsed_time(end) / len(fs[8:])
@@ -602,6 +894,43 @@ def main() -> int:
                      cfg.sample_grain(GRAIN_SEED + len(yuvs) + k))
               for k in range(n_timed)]
     c5_ms, c5_window_ms = frame_times(renderer5, timed5, params5)
+    pa_ms, pa_window_ms = frame_times(
+        rendererA, [framesA[k % 3] for k in range(n_timed)], paramsA,
+        targetA)
+    pb_ms, pb_window_ms = frame_times(
+        rendererB, [framesB[k % 3] for k in range(n_timed)], paramsB,
+        targetB)
+    k1_pa_ms = _cuda_ms(lambda: k1.color_map_tail(*pa_k1), 20)
+    k1_pa_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pa_k1), 3)
+    # path B's stages alone: the native LUT on a 1080p frame (the
+    # low-rank path at >= 1M pixels), the ICC encode of a 4K frame
+    from libplacebo_tpu_torch.ops import icc as ops_icc
+    from libplacebo_tpu_torch.ops import lut as ops_lut
+    from libplacebo_tpu_torch.core import colorspace as tcs
+    gen = torch.Generator(device=dev).manual_seed(31)
+    sig1080 = torch.rand((3, H, W), device=dev, generator=gen)
+    lut_ms = _cuda_ms(lambda: ops_lut.apply_lut(sig1080, paramsB.lut), 5)
+    lut_rank = len(ops_lut._cp_plan(paramsB.lut)[0][0][0][0])
+    lin4k = torch.rand((3, 2 * H, 2 * W), device=dev, generator=gen)
+    p3 = tcs.primaries_get(tcs.ColorPrimaries.DISPLAY_P3)
+    icc_ms = _cuda_ms(lambda: ops_icc.encode_profile(lin4k, targetB.icc,
+                                                     p3), 5)
+    del sig1080, lin4k
+    # white noise: the reference's host draw of a 4K bias frame and its
+    # upload (once a render plan: the bias is part of the plan)
+    wn = lt.DitherParams(method=lt.DitherMethod.WHITE_NOISE)
+    white_noise_host_ms = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.from_numpy(ops_dither.bias_matrix(wn, 2 * H, 2 * W, k)).to(dev)
+        torch.cuda.synchronize()
+        white_noise_host_ms.append((time.perf_counter() - t) * 1e3)
+    gen_lib = k1_libs[k1.GENERIC]
+    k1_generic_sass = _sass.loop_mix(_sass.disassemble(gen_lib._name),
+                                     "k1_generic")
+    k1_generic_ptxas = [v for n, v in _sass.ptxas_report(
+        build_log(gen_lib)).items() if "k1_generic" in n]
     k1_ms = _cuda_ms(lambda: k1.color_map_tail(*flag_k1), 20)
     k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
         flag_k1[0], flag_k1[1].consts, *flag_k1[2:]), 3)
@@ -640,6 +969,9 @@ def main() -> int:
         return _sass.loop_mix(disasm[tone], inst)["per_iteration"]
     k1_instances = _k1_instance_table(lt, k1, trender, ops_dither, sass_of,
                                       npix, lanes, k1_mhz, 2 * W, 2 * H, dev)
+    k1_instances.update({
+        f"generic,{case}": v for case, v in
+        _k1_generic_table(lt, k1, trender, 2 * W, 2 * H, dev).items()})
     ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
     k2_runs = []
     k2_ms = _cuda_ms(lambda: k2_runs.append(k2.wavefront(*ed_args)), 5)
@@ -769,6 +1101,8 @@ def main() -> int:
                   k1_2_err, k1_2_ms, k1_2_plain_ms),
         _k1_entry(k1, "k1_color_map_pass_config3", c3_k1, None,
                   c3_launches["k1"], k1_3_err, k1_3_ms, k1_3_plain_ms),
+        _k1_entry(k1, "k1_color_map_generic_path_a", pa_k1, pa_part,
+                  pa_launches["k1"], pa_err, k1_pa_ms, k1_pa_plain_ms),
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -815,6 +1149,22 @@ def main() -> int:
         "ewa_ar_bound_ms": ewa_ar_bound, "ewa_ar_bound_by": ewa_ar_by,
         "ewa_ar_bytes": ewa_ar_bytes, "ewa_ar_ops": ewa_ar_ops,
         "k2_custom_ms": k2_custom_ms, "k2_custom_max_abs_err": k2_custom_err,
+        "path_a_frame_ms_median": statistics.median(pa_ms),
+        "path_a_frame_ms": pa_ms, "path_a_window_ms": pa_window_ms,
+        "path_b_frame_ms_median": statistics.median(pb_ms),
+        "path_b_frame_ms": pb_ms, "path_b_window_ms": pb_window_ms,
+        "path_a_tails": pa_tails, "path_b_tails": pb_tails,
+        "k1_path_a_ms": k1_pa_ms, "k1_path_a_plain_ms": k1_pa_plain_ms,
+        "k1_path_a_ops_per_pixel": k1.ops_per_pixel(pa_k1[1].consts,
+                                                    pa_k1[1].instance),
+        "path_b_lut_1080p_ms": lut_ms, "path_b_lut_rank": lut_rank,
+        "path_b_icc_encode_4k_ms": icc_ms,
+        "white_noise_host_ms": white_noise_host_ms,
+        "small_path_render": small_paths,
+        "k1_generic_sass": {k: k1_generic_sass[k] for k in (
+            "per_iteration", "classes", "static_instructions", "calls",
+            "inner_loops")},
+        "k1_generic_ptxas": k1_generic_ptxas,
         "small_config4_config2_config3_render": small42,
         "config4_peak_state": state4.tolist(),
         "k1_sass": {v: {k: m[k] for k in (

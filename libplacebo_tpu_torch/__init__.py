@@ -20,7 +20,10 @@ from .core.colorspace import (BitEncoding, ColorLevels, ColorPrimaries,  # noqa:
                               ColorRepr, ColorSpace, ColorSystem,
                               ColorTransfer, CSP_BT2100_PQ, CSP_SRGB,
                               HdrMetadata)
+from .core.dither import DitherMethod  # noqa: E402
 from .core.film_grain import AV1GrainData, FilmGrainData  # noqa: E402
+from .core.icc import IccProfile, parse_icc  # noqa: E402
+from .core.lut import CustomLut, parse_cube  # noqa: E402
 from .ops.deband import DebandParams  # noqa: E402
 from .ops.dithering import DitherParams  # noqa: E402
 from .ops.peak_detect import PeakDetectParams  # noqa: E402
@@ -29,7 +32,9 @@ from .render.renderer import (RenderParams, Renderer, Target,  # noqa: E402
                               render_image)
 
 __all__ = ["Renderer", "render_image", "RenderParams", "Target", "Frame",
-           "Plane", "frame_from_yuv420p", "DitherParams", "DebandParams",
+           "Plane", "frame_from_yuv420p", "DitherParams", "DitherMethod",
+           "DebandParams", "CustomLut", "parse_cube", "IccProfile",
+           "parse_icc",
            "FilmGrainData", "AV1GrainData",
            "PeakDetectParams", "BitEncoding", "ColorLevels",
            "ColorPrimaries", "ColorRepr", "ColorSpace", "ColorSystem",

@@ -26,6 +26,7 @@ __all__ = [
     "color_space_infer_map", "rgb_to_xyz_matrix", "adapt_white_matrix",
     "color_mapping_matrix", "primaries_compatible", "primaries_clip",
     "color_repr_decode", "luma_coeffs", "transfer_is_hdr",
+    "ictcp_matrices", "xyz_to_rgb_matrix",
     "transfer_nominal_peak", "levels_guess", "system_is_ycbcr_like",
 ]
 
@@ -440,28 +441,71 @@ def _ycbcr_matrix(kr: float, kb: float) -> np.ndarray:
     return np.linalg.inv(to_ycbcr)
 
 
-# systems whose decode is one affine matrix (the port's slice)
+# ICtCp (BT.2100): BT.2020 linear RGB -> LMS, and L'M'S' -> ICtCp for
+# the PQ and the HLG variant
+_RGB2020_TO_LMS = np.array([
+    [1688.0, 2146.0, 262.0],
+    [683.0, 2951.0, 462.0],
+    [99.0, 309.0, 3688.0],
+]) / 4096.0
+_ICTCP_PQ_LMS = np.array([
+    [2048.0, 2048.0, 0.0],
+    [6610.0, -13613.0, 7003.0],
+    [17933.0, -17390.0, -543.0],
+]) / 4096.0
+_ICTCP_HLG_LMS = np.array([
+    [2048.0, 2048.0, 0.0],
+    [3625.0, -7465.0, 3840.0],
+    [9500.0, -9212.0, -288.0],
+]) / 4096.0
+
+
+def ictcp_matrices(variant: ColorSystem) -> Tuple[np.ndarray, np.ndarray]:
+    """(rgb2020 -> LMS, L'M'S' -> ICtCp) of the PQ or HLG variant."""
+    if variant == ColorSystem.BT_2100_PQ:
+        return _RGB2020_TO_LMS, _ICTCP_PQ_LMS
+    if variant == ColorSystem.BT_2100_HLG:
+        return _RGB2020_TO_LMS, _ICTCP_HLG_LMS
+    raise ValueError(variant)
+
+
+# the systems color_repr_decode builds a transform for: the affine
+# matrix systems, and the linear pre-matrix of the non-linear ones
+# (ICtCp, BT.2020-C, XYZ), whose non-linear steps ops/color.py applies
 MATRIX_SYSTEMS = (ColorSystem.RGB, ColorSystem.BT_601, ColorSystem.BT_709,
                   ColorSystem.SMPTE_240M, ColorSystem.BT_2020_NC,
                   ColorSystem.YCGCO, ColorSystem.YCGCO_RE,
-                  ColorSystem.YCGCO_RO)
+                  ColorSystem.YCGCO_RO, ColorSystem.BT_2020_C,
+                  ColorSystem.BT_2100_PQ, ColorSystem.BT_2100_HLG,
+                  ColorSystem.XYZ)
 
 
 def color_repr_decode(repr: ColorRepr) -> Tuple[Transform3x3, ColorRepr]:
     """Affine transform taking sampled (normalized) texture values to
-    full-range RGB, for the matrix systems (reference
-    pl_color_repr_decode, colorspace.c:1717)."""
+    full-range RGB — for the non-linear systems, their linear pre-matrix
+    (reference pl_color_repr_decode, colorspace.c:1717)."""
     sys = repr.sys if repr.sys != ColorSystem.UNKNOWN else ColorSystem.RGB
     if sys not in MATRIX_SYSTEMS:
         raise NotImplementedError(
-            f"color system {sys.value} is not ported (ROADMAP slice 3: "
-            "the non-linear decode systems)")
+            f"color system {sys.value} is not ported (ROADMAP slice 3 "
+            "item 17: Dolby Vision)")
     levels = levels_guess(repr)
     scale, norm_repr = color_repr_normalize(repr)
     depth = norm_repr.bits.sample_depth or 8
 
-    if sys == ColorSystem.RGB:
+    if sys in (ColorSystem.RGB, ColorSystem.XYZ, ColorSystem.BT_2020_C):
+        # BT.2020-C: only the range expands here (identity matrix)
         M = np.eye(3)
+    elif sys == ColorSystem.BT_2100_PQ:
+        # ICtCp -> L'M'S': the published inverse (H-series Supplement
+        # 18), as the reference hard-codes it
+        M = np.array([[1.0, 0.008609, 0.111029625],
+                      [1.0, -0.008609, -0.111029625],
+                      [1.0, 0.560031, -0.320627]])
+    elif sys == ColorSystem.BT_2100_HLG:
+        M = np.array([[1.0, 0.01571858011, 0.2095810681],
+                      [1.0, -0.01571858011, -0.2095810681],
+                      [1.0, 1.02127108, -0.605274491]])
     elif sys == ColorSystem.YCGCO:
         M = np.array([[1.0, -1.0, 1.0], [1.0, 1.0, 0.0], [1.0, -1.0, -1.0]])
     elif sys in (ColorSystem.YCGCO_RE, ColorSystem.YCGCO_RO):

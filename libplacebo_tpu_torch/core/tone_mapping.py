@@ -44,9 +44,13 @@ def _mix(a, b, t):
 
 
 def _bt1886_eotf(x, lo, hi, xp=np):
+    """((lw - lb) x + lb) ** 2.4, its base floored at 0: a base that
+    rounds below 0 (on the card, where PyTorch divides by a host float
+    through its reciprocal, `_bt1886_oetf` of the input's lower end can)
+    would give NaN."""
     lb = lo ** (1 / 2.4)
     lw = hi ** (1 / 2.4)
-    return ((lw - lb) * x + lb) ** 2.4
+    return xp.maximum((lw - lb) * x + lb, 0.0) ** 2.4
 
 
 def _bt1886_oetf(x, lo, hi, xp=np):
@@ -289,8 +293,8 @@ def _st2094_intercept(N, Kx, Ky):
     return min(slope / N, 1.0)
 
 
-def _map_st2094_40(x, p, xp=np):
-    """SMPTE ST 2094-40 Annex B (HDR10+ OOTF bezier), tone_mapping.c:409."""
+def _st2094_40_knots(p):
+    """The bezier's host constants (Kx, Ky, P[0..N]) of ST 2094-40."""
     D = p.output_max
     ootf = p.hdr.ootf
     if ootf is not None and len(ootf.anchors) > 0:
@@ -329,7 +333,13 @@ def _map_st2094_40(x, p, xp=np):
         anchors_lin = np.arange(2, N) / N
         P[2:N] = _mix(anchors_lin, P[2:N], w)
         P[1] = _mix(_st2094_intercept(N, Kx, Ky), P[1], w)
+    return Kx, Ky, P
 
+
+def _map_st2094_40(x, p, xp=np):
+    """SMPTE ST 2094-40 Annex B (HDR10+ OOTF bezier), tone_mapping.c:409."""
+    Kx, Ky, P = _st2094_40_knots(p)
+    N = len(P) - 1
     x = xp.asarray(x)
     x = _bt1886_oetf(x, p.input_min, p.input_max, xp)
     x = _bt1886_eotf(x, 0.0, 1.0, xp)
@@ -350,8 +360,8 @@ def _map_st2094_40(x, p, xp=np):
     return y
 
 
-def _map_st2094_10(x, p, xp=np):
-    """SMPTE ST 2094-10 Annex B.2 rational curve, tone_mapping.c:451."""
+def _st2094_10_coefs(p):
+    """(c1, c2, c3) of the ST 2094-10 rational curve."""
     src_knee, dst_knee = _st2094_pick_knee(p)
     x1, x2, x3 = p.input_min, src_knee, p.input_max
     y1, y2, y3 = p.output_min, dst_knee, p.output_max
@@ -362,13 +372,18 @@ def _map_st2094_10(x, p, xp=np):
     ])
     coeffs = cmat @ np.array([y1, y2, y3])
     k = 1.0 / (x3 * y3 * (x1 - x2) + x2 * y2 * (x3 - x1) + x1 * y1 * (x2 - x3))
-    c1, c2, c3 = (float(v) for v in k * coeffs)
+    return tuple(float(v) for v in k * coeffs)
+
+
+def _map_st2094_10(x, p, xp=np):
+    """SMPTE ST 2094-10 Annex B.2 rational curve, tone_mapping.c:451."""
+    c1, c2, c3 = _st2094_10_coefs(p)
     x = xp.asarray(x)
     return (c1 + c2 * x) / (1 + c3 * x)
 
 
-def _map_bt2390(x, p, xp=np):
-    """BT.2390 EETF hermite spline (PQ domain), tone_mapping.c:496."""
+def _bt2390_consts(p):
+    """(minLum, maxLum, ks, bp, gain) of the BT.2390 EETF."""
     minLum = float(_rescale_in(p.output_min, p))
     maxLum = float(_rescale_in(p.output_max, p))
     offset = p.constants.knee_offset
@@ -376,7 +391,12 @@ def _map_bt2390(x, p, xp=np):
     bp = min(1 / minLum, 4) if minLum > 0 else 4.0
     gain_inv = 1 + minLum / maxLum * (1 - maxLum) ** bp
     gain = 1 / gain_inv if maxLum < 1 else 1.0
+    return minLum, maxLum, ks, bp, gain
 
+
+def _map_bt2390(x, p, xp=np):
+    """BT.2390 EETF hermite spline (PQ domain), tone_mapping.c:496."""
+    minLum, maxLum, ks, bp, gain = _bt2390_consts(p)
     x = _rescale_in(xp.asarray(x), p)
     if ks < 1:
         tb = (x - ks) / (1 - ks)
@@ -392,10 +412,15 @@ def _map_bt2390(x, p, xp=np):
     return x * (p.input_max - p.input_min) + p.input_min
 
 
+def _bt2446a_consts(p):
+    """(phdr, psdr) of BT.2446 method A."""
+    return (1 + 32 * (p.input_max / 10000.0) ** (1 / 2.4),
+            1 + 32 * (p.output_max / 10000.0) ** (1 / 2.4))
+
+
 def _map_bt2446a(x, p, xp=np):
     """BT.2446 Method A (nits domain), tone_mapping.c:544."""
-    phdr = 1 + 32 * (p.input_max / 10000.0) ** (1 / 2.4)
-    psdr = 1 + 32 * (p.output_max / 10000.0) ** (1 / 2.4)
+    phdr, psdr = _bt2446a_consts(p)
     x = xp.asarray(x)
     y = xp.maximum(_rescale_in(x, p), 0.0) ** (1 / 2.4)
     y = xp.log1p((phdr - 1) * y) / math.log(phdr)
@@ -416,9 +441,8 @@ def _map_bt2446a_inv(x, p, xp=np):
     return _rescale_out(y, p)
 
 
-def _map_spline(x, p, xp=np):
-    """Single-pivot polynomial spline (default op; PQ domain),
-    tone_mapping.c:601."""
+def _spline_consts(p):
+    """(src_pivot, dst_pivot, Pa, Pb, Qa, Qb, Qc) of the spline."""
     src_pivot, dst_pivot = _st2094_pick_knee(p)
     slope = (dst_pivot - p.output_min) / (src_pivot - p.input_min)
     ratio = p.input_max / p.output_max - 1.0
@@ -438,7 +462,13 @@ def _map_spline(x, p, xp=np):
     Qa = (slope * in_max - out_max) / (in_max * t)
     Qb = -3 * (slope * in_max - out_max) / t
     Qc = slope
+    return src_pivot, dst_pivot, Pa, Pb, Qa, Qb, Qc
 
+
+def _map_spline(x, p, xp=np):
+    """Single-pivot polynomial spline (default op; PQ domain),
+    tone_mapping.c:601."""
+    src_pivot, dst_pivot, Pa, Pb, Qa, Qb, Qc = _spline_consts(p)
     x = xp.asarray(x) - src_pivot
     y = xp.where(x > 0,
                  ((Qa * x + Qb) * x + Qc) * x,
@@ -446,21 +476,31 @@ def _map_spline(x, p, xp=np):
     return y + dst_pivot
 
 
-def _map_reinhard(x, p, xp=np):
+def _reinhard_consts(p):
+    """(offset, scale) of Reinhard."""
     peak = float(_rescale(p.input_max, p))
     contrast = p.constants.reinhard_contrast
     offset = (1.0 - contrast) / contrast
-    scale = (peak + offset) / peak
+    return offset, (peak + offset) / peak
+
+
+def _map_reinhard(x, p, xp=np):
+    offset, scale = _reinhard_consts(p)
     x = _rescale(xp.asarray(x), p)
     return _rescale_out(scale * x / (x + offset), p)
 
 
-def _map_mobius(x, p, xp=np):
+def _mobius_consts(p):
+    """(j, a, b, scale) of Mobius."""
     peak = float(_rescale(p.input_max, p))
     j = p.constants.linear_knee
     a = -j * j * (peak - 1.0) / (j * j - 2.0 * j + peak)
     b = (j * j - 2.0 * j * peak + peak) / max(1e-6, peak - 1.0)
-    scale = (b * b + 2.0 * b * j + j * j) / (b - a)
+    return j, a, b, (b * b + 2.0 * b * j + j * j) / (b - a)
+
+
+def _map_mobius(x, p, xp=np):
+    j, a, b, scale = _mobius_consts(p)
     x = _rescale(xp.asarray(x), p)
     y = xp.where(x <= j, x, scale * (x + a) / (x + b))
     return _rescale_out(y, p)
@@ -471,9 +511,14 @@ def _hable(x):
     return ((x * (A * x + C * B) + D * E) / (x * (A * x + B) + D * F)) - E / F
 
 
-def _map_hable(x, p, xp=np):
+def _hable_consts(p):
+    """(peak, scale) of Hable's filmic curve."""
     peak = p.input_max / p.output_max
-    scale = 1.0 / _hable(peak)
+    return peak, 1.0 / _hable(peak)
+
+
+def _map_hable(x, p, xp=np):
+    peak, scale = _hable_consts(p)
     x = xp.asarray(x)
     y = _bt1886_oetf(x, p.input_min, p.input_max, xp)
     y = _bt1886_eotf(y, 0.0, peak, xp)
@@ -482,10 +527,15 @@ def _map_hable(x, p, xp=np):
     return _bt1886_eotf(y, p.output_min, p.output_max, xp)
 
 
-def _map_gamma(x, p, xp=np):
+def _gamma_consts(p):
+    """(peak, cutoff, gamma) of the knee gamma curve."""
     peak = float(_rescale(p.input_max, p))
     cutoff = p.constants.linear_knee
-    gamma = math.log(cutoff) / math.log(cutoff / peak)
+    return peak, cutoff, math.log(cutoff) / math.log(cutoff / peak)
+
+
+def _map_gamma(x, p, xp=np):
+    peak, cutoff, gamma = _gamma_consts(p)
     x = _rescale(xp.asarray(x), p)
     y = xp.where(x > cutoff, xp.maximum(x / peak, 1e-9) ** gamma, x)
     return _rescale_out(y, p)

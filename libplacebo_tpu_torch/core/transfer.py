@@ -15,8 +15,9 @@ from .colorspace import COLOR_SDR_WHITE, ColorTransfer
 from .fastmath import fma, rcp, sqrt
 
 __all__ = ["pow_pos", "pq_eotf", "pq_oetf", "pq_eotf_fast",
-           "pq_oetf_fast", "srgb_eotf", "srgb_oetf", "linearize",
-           "delinearize"]
+           "pq_oetf_fast", "hlg_oetf", "hlg_oetf_inv", "srgb_eotf",
+           "srgb_oetf", "linearize", "delinearize", "LOG10",
+           "ST428_SCALE"]
 
 
 def pow_pos(x, p):
@@ -48,6 +49,28 @@ def pq_oetf(y):
     return pow_pos(fma(p, PQ_C2, PQ_C1) / fma(p, PQ_C3, 1.0), PQ_M2)
 
 
+# HLG (ARIB STD-B67 / BT.2100): scene-referred, 0..12
+HLG_A = 0.17883277
+HLG_B = 0.28466892
+HLG_C = 0.55991073
+
+
+def hlg_oetf_inv(x):
+    """HLG signal [0, 1] -> scene-linear [0, 12]."""
+    x = torch.clamp_min(x, 0.0)
+    lo = (x * 4.0) * x
+    hi = torch.exp((x - HLG_C) * rcp(HLG_A)) + HLG_B
+    return torch.where(x <= 0.5, lo, hi)
+
+
+def hlg_oetf(y):
+    """Scene-linear [0, 12] -> HLG signal [0, 1]."""
+    y = torch.clamp_min(y, 0.0)
+    lo = sqrt(y) * 0.5
+    hi = fma(torch.log(torch.clamp_min(y - HLG_B, 1e-9)), HLG_A, HLG_C)
+    return torch.where(y <= 1.0, lo, hi)
+
+
 def srgb_eotf(x):
     return torch.where(
         x < 0.04045, x * rcp(12.92),
@@ -61,6 +84,75 @@ def srgb_oetf(y):
             -0.055))
 
 
+def prophoto_eotf(x):
+    return torch.where(x < 0.03125, x * rcp(16.0),
+                       pow_pos(torch.clamp_min(x, 0.03125), 1.8))
+
+
+def prophoto_oetf(y):
+    return torch.where(y < 0.001953125, y * 16.0,
+                       pow_pos(torch.clamp_min(y, 0.001953125), 1.0 / 1.8))
+
+
+# 10**t is exp(t * ln 10) (the reference's pow_pos with a constant base,
+# whose log XLA folds); log10(x) is log(x) / ln 10, a constant divisor
+LOG10 = float(np.float32(np.log(10.0)))
+_RCP_LOG10 = rcp(LOG10)
+VLOG_B = 0.00873
+VLOG_C = 0.241514
+VLOG_D = 0.598206
+
+
+def _exp10(t):
+    return torch.exp(t * LOG10)
+
+
+def _log10(x):
+    return torch.log(x) * _RCP_LOG10
+
+
+def vlog_eotf(x):
+    lo = (x - 0.125) * rcp(5.6)
+    hi = _exp10((x - VLOG_D) * rcp(VLOG_C)) - VLOG_B
+    return torch.where(x < 0.181, lo, hi)
+
+
+def vlog_oetf(y):
+    lo = fma(y, 5.6, 0.125)
+    hi = fma(_log10(torch.clamp_min(y + VLOG_B, 1e-9)), VLOG_C, VLOG_D)
+    return torch.where(y < 0.01, lo, hi)
+
+
+def _slog_exp(x):
+    return _exp10(((x - 0.616596) - 0.03) * rcp(0.432699))
+
+
+def slog1_eotf(x):
+    return _slog_exp(x) - 0.037584
+
+
+def slog1_oetf(y):
+    return fma(_log10(torch.clamp_min(y + 0.037584, 1e-9)), 0.432699,
+               0.616596) + 0.03
+
+
+_SLOG2_LO = 0.030001222851889303
+_SLOG2_SLOPE = 3.53881278538813
+
+
+def slog2_eotf(x):
+    lo = (x - _SLOG2_LO) * rcp(_SLOG2_SLOPE)
+    hi = ((_slog_exp(x) - 0.037584) * 219.0) * rcp(155.0)
+    return torch.where(x < _SLOG2_LO, lo, hi)
+
+
+def slog2_oetf(y):
+    lo = fma(y, _SLOG2_SLOPE, _SLOG2_LO)
+    hi = fma(_log10(torch.clamp_min(fma(y * 155.0, rcp(219.0), 0.037584),
+                                    1e-9)), 0.432699, 0.616596) + 0.03
+    return torch.where(y < 0.0, lo, hi)
+
+
 _PURE_GAMMA = {
     ColorTransfer.GAMMA18: 1.8,
     ColorTransfer.GAMMA20: 2.0,
@@ -70,17 +162,14 @@ _PURE_GAMMA = {
     ColorTransfer.GAMMA28: 2.8,
 }
 _PQ_SCALE = 10000.0 / COLOR_SDR_WHITE
-
-
-def _unported(trc):
-    return NotImplementedError(
-        f"transfer {trc.value} is not ported (ROADMAP slice 3: the "
-        "remaining transfer curves)")
+ST428_SCALE = 52.37 / 48.0          # DCDM constant (SMPTE ST 428-1)
+_HLG_PEAK = 12.0 / 3.17955025       # transfer_nominal_peak(HLG)
 
 
 def linearize(x, trc: ColorTransfer):
     """Signal -> linear light (NORM), without black-point scaling."""
-    if trc in (ColorTransfer.LINEAR, ColorTransfer.UNKNOWN):
+    if trc in (ColorTransfer.LINEAR, ColorTransfer.UNKNOWN,
+               ColorTransfer.SCRGB):
         return x
     if trc == ColorTransfer.SRGB:
         return srgb_eotf(x)
@@ -88,14 +177,27 @@ def linearize(x, trc: ColorTransfer):
         return pow_pos(torch.clamp_min(x, 0.0), 2.4)
     if trc in _PURE_GAMMA:
         return pow_pos(torch.clamp_min(x, 0.0), _PURE_GAMMA[trc])
+    if trc == ColorTransfer.PRO_PHOTO:
+        return prophoto_eotf(x)
+    if trc == ColorTransfer.ST428:
+        return pow_pos(torch.clamp_min(x, 0.0), 2.6) * ST428_SCALE
     if trc == ColorTransfer.PQ:
         return pq_eotf(x) * _PQ_SCALE
-    raise _unported(trc)
+    if trc == ColorTransfer.HLG:
+        return hlg_oetf_inv(x) * (_HLG_PEAK / 12.0)
+    if trc == ColorTransfer.V_LOG:
+        return vlog_eotf(x)
+    if trc == ColorTransfer.S_LOG1:
+        return slog1_eotf(x)
+    if trc == ColorTransfer.S_LOG2:
+        return slog2_eotf(x)
+    raise ValueError(f"unsupported transfer {trc}")
 
 
 def delinearize(y, trc: ColorTransfer):
     """Linear light (NORM) -> signal; inverse of `linearize`."""
-    if trc in (ColorTransfer.LINEAR, ColorTransfer.UNKNOWN):
+    if trc in (ColorTransfer.LINEAR, ColorTransfer.UNKNOWN,
+               ColorTransfer.SCRGB):
         return y
     if trc == ColorTransfer.SRGB:
         return srgb_oetf(y)
@@ -103,9 +205,22 @@ def delinearize(y, trc: ColorTransfer):
         return pow_pos(torch.clamp_min(y, 0.0), 1.0 / 2.4)
     if trc in _PURE_GAMMA:
         return pow_pos(torch.clamp_min(y, 0.0), 1.0 / _PURE_GAMMA[trc])
+    if trc == ColorTransfer.PRO_PHOTO:
+        return prophoto_oetf(y)
+    if trc == ColorTransfer.ST428:
+        return pow_pos(torch.clamp_min(y, 0.0) * rcp(ST428_SCALE),
+                       1.0 / 2.6)
     if trc == ColorTransfer.PQ:
         return pq_oetf(y * rcp(_PQ_SCALE))
-    raise _unported(trc)
+    if trc == ColorTransfer.HLG:
+        return hlg_oetf(y * (12.0 / _HLG_PEAK))
+    if trc == ColorTransfer.V_LOG:
+        return vlog_oetf(y)
+    if trc == ColorTransfer.S_LOG1:
+        return slog1_oetf(y)
+    if trc == ColorTransfer.S_LOG2:
+        return slog2_oetf(y)
+    raise ValueError(f"unsupported transfer {trc}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """Color decoding/encoding & (de)linearization on (C, H, W) tensors.
 
-Counterpart of libplacebo_tpu/ops/color.py for the matrix color systems
-and the transfer curves of the main path.  Channel mixes are unrolled
-per-channel multiply-adds with float32 weights and zero weights skipped
-— the reference's `mat_pointwise` — rounding where XLA rounds the
-reference's (core/fastmath.py), so every mix sums like the reference
-and like the hand-written kernel.
+Counterpart of libplacebo_tpu/ops/color.py: the matrix color systems,
+the non-linear ones (ICtCp PQ/HLG, BT.2020 constant luminance, XYZ),
+and every transfer curve (HLG with its OOTF, the scene-referred camera
+curves without display scaling, scRGB keeping negatives).  Channel
+mixes are unrolled per-channel multiply-adds with float32 weights and
+zero weights skipped — the reference's `mat_pointwise` — rounding where
+XLA rounds the reference's (core/fastmath.py), so every mix sums like
+the reference and like the hand-written kernel.
 """
 from __future__ import annotations
 
@@ -18,12 +20,15 @@ import torch
 
 from ..core import transfer as tf
 from ..core.fastmath import fma, mix, rcp
-from ..core.colorspace import (COLOR_SDR_WHITE, ColorRepr, ColorSpace,
-                               ColorTransfer, color_repr_decode)
+from ..core.colorspace import (COLOR_SDR_WHITE, ColorPrimaries, ColorRepr,
+                               ColorSpace, ColorSystem, ColorTransfer,
+                               color_repr_decode, ictcp_matrices,
+                               luma_coeffs, primaries_get,
+                               rgb_to_xyz_matrix, xyz_to_rgb_matrix)
 
 __all__ = ["mat_pointwise", "decode_color",
            "encode_color", "linearize", "delinearize", "nominal_luma_norm",
-           "SigmoidParams", "sigmoidize", "desigmoidize"]
+           "hlg_constants", "SigmoidParams", "sigmoidize", "desigmoidize"]
 
 
 def mat_pointwise(img, mat, bias=None):
@@ -50,29 +55,121 @@ def nominal_luma_norm(csp: ColorSpace) -> Tuple[float, float]:
             inf.hdr.max_luma / COLOR_SDR_WHITE)
 
 
-def decode_color(img, repr: ColorRepr):
-    """Encoded (sampled, normalized) planes -> full-range RGB."""
+# ---------------------------------------------------------------------------
+# Decode / encode (reference pl_shader_decode_color / encode_color)
+# ---------------------------------------------------------------------------
+
+# Rec. BT.2020-2 OETF constants (the constant-luminance system's gamma
+# round trip)
+_B2020_A = 1.0993
+_B2020_B = 0.0181
+
+
+def _bt2020_oetf(lin):
+    lin = torch.clamp_min(lin, 0.0)
+    return torch.where(lin < _B2020_B, lin * 4.5,
+                       fma(tf.pow_pos(lin, 0.45), _B2020_A,
+                           -(_B2020_A - 1.0)))
+
+
+def _bt2020_eotf(e):
+    e = torch.clamp_min(e, 0.0)
+    return torch.where(e < 4.5 * _B2020_B, e * rcp(4.5),
+                       tf.pow_pos(((e + _B2020_A) - 1.0) * rcp(_B2020_A),
+                                  1.0 / 0.45))
+
+
+def _pick(cond, a: float, b: float):
+    return torch.where(cond, torch.full_like(cond, a, dtype=torch.float32),
+                       torch.full_like(cond, b, dtype=torch.float32))
+
+
+def decode_color(img, repr: ColorRepr,
+                 prim: ColorPrimaries = ColorPrimaries.UNKNOWN):
+    """Encoded (sampled, normalized) planes -> full-range RGB, with the
+    non-linear steps of ICtCp, BT.2020-C and XYZ (reference
+    pl_shader_decode_color, shaders/colorspace.c:275).  ICtCp runs the
+    exact PQ curves, as the reference's container transforms do."""
+    sys = repr.sys
     tr, _ = color_repr_decode(repr)
-    return mat_pointwise(img, tr.mat.m, tr.c)
+    img = mat_pointwise(img, tr.mat.m, tr.c)
+    if sys == ColorSystem.XYZ:
+        # ST 428 linearization, XYZ -> RGB, back to a 2.6 gamma signal
+        img = tf.pow_pos(torch.clamp_min(img, 0.0), 2.6) * tf.ST428_SCALE
+        img = mat_pointwise(img, xyz_to_rgb_matrix(primaries_get(prim)).m)
+        return tf.pow_pos(torch.clamp_min(img * rcp(tf.ST428_SCALE), 0.0),
+                          1 / 2.6)
+    if sys in (ColorSystem.BT_2100_PQ, ColorSystem.BT_2100_HLG):
+        rgb2lms, _ = ictcp_matrices(sys)
+        lms2rgb = np.linalg.inv(rgb2lms)
+        if sys == ColorSystem.BT_2100_PQ:
+            rgb = mat_pointwise(tf.pq_eotf(img), lms2rgb)
+            return tf.pq_oetf(torch.clamp_min(rgb, 0.0))
+        rgb = mat_pointwise(tf.hlg_oetf_inv(img) * rcp(12.0), lms2rgb)
+        return tf.hlg_oetf(torch.clamp_min(rgb, 0.0) * 12.0)
+    if sys == ColorSystem.BT_2020_C:
+        # constant luminance (Rec. BT.2020-2 table 4): B' and R' around
+        # gamma luma with the piecewise chroma denominators, G through
+        # linear light
+        yp, cb, cr = img[..., 0, :, :], img[..., 1, :, :], img[..., 2, :, :]
+        bp = fma(cb, _pick(cb <= 0, 1.9404, 1.5816), yp)
+        rp = fma(cr, _pick(cr <= 0, 1.7184, 0.9936), yp)
+        yl, bl, rl = _bt2020_eotf(yp), _bt2020_eotf(bp), _bt2020_eotf(rp)
+        gl = fma(bl, -0.0593, fma(rl, -0.2627, yl)) * rcp(0.6780)
+        return torch.stack([rp, _bt2020_oetf(gl), bp], dim=-3)
+    return img
 
 
-def encode_color(img, repr: ColorRepr):
-    """Full-range RGB -> encoded representation (inverse decode)."""
+def encode_color(img, repr: ColorRepr,
+                 prim: ColorPrimaries = ColorPrimaries.UNKNOWN):
+    """Full-range RGB -> encoded representation (inverse of
+    decode_color; reference pl_shader_encode_color)."""
+    sys = repr.sys
     tr, _ = color_repr_decode(repr)
     inv = tr.invert()
+    if sys in (ColorSystem.BT_2100_PQ, ColorSystem.BT_2100_HLG):
+        rgb2lms, _ = ictcp_matrices(sys)
+        if sys == ColorSystem.BT_2100_PQ:
+            lms = mat_pointwise(tf.pq_eotf(img), rgb2lms)
+            img = tf.pq_oetf(torch.clamp_min(lms, 0.0))
+        else:
+            lms = mat_pointwise(tf.hlg_oetf_inv(img) * rcp(12.0), rgb2lms)
+            img = tf.hlg_oetf(torch.clamp_min(lms, 0.0) * 12.0)
+    elif sys == ColorSystem.XYZ:
+        lin = tf.pow_pos(torch.clamp_min(img, 0.0), 2.6) * tf.ST428_SCALE
+        xyz = mat_pointwise(lin, rgb_to_xyz_matrix(primaries_get(prim)).m)
+        img = tf.pow_pos(torch.clamp_min(xyz * rcp(tf.ST428_SCALE), 0.0),
+                         1 / 2.6)
+    elif sys == ColorSystem.BT_2020_C:
+        r, g, b = img[..., 0, :, :], img[..., 1, :, :], img[..., 2, :, :]
+        yl = mix([_bt2020_eotf(r), _bt2020_eotf(g), _bt2020_eotf(b)],
+                 [0.2627, 0.6780, 0.0593])
+        yp = _bt2020_oetf(yl)
+        db, dr = b - yp, r - yp
+        img = torch.stack([yp, db / _pick(db <= 0, 1.9404, 1.5816),
+                           dr / _pick(dr <= 0, 1.7184, 0.9936)], dim=-3)
     return mat_pointwise(img, inv.mat.m, inv.c)
 
 
+# ---------------------------------------------------------------------------
+# Linearize / delinearize (reference pl_shader_linearize:589)
+# ---------------------------------------------------------------------------
+
 _SCENE_REFERRED = (ColorTransfer.V_LOG, ColorTransfer.S_LOG1,
                    ColorTransfer.S_LOG2)
-_UNPORTED = (ColorTransfer.HLG, ColorTransfer.SCRGB) + _SCENE_REFERRED
+_HLG_REF = 1000.0 / COLOR_SDR_WHITE
+_SCRGB_WHITE = 80.0 / COLOR_SDR_WHITE
 
 
-def _check_trc(trc):
-    if trc in _UNPORTED:
-        raise NotImplementedError(
-            f"transfer {trc.value} is not ported (ROADMAP slice 3: the "
-            "remaining transfer curves)")
+def hlg_constants(csp: ColorSpace):
+    """HLG's (system gamma y, black lift b, float32 luma weights) for the
+    colorspace's display range (reference: BT.2100's OOTF with the
+    1.111^log2(Lw/1000) gamma adjustment)."""
+    lo, hi = nominal_luma_norm(csp)
+    y = 1.2 * math.pow(1.111, math.log2(hi / _HLG_REF))
+    b = math.sqrt(3 * math.pow(lo / hi, 1 / y))
+    lw = luma_coeffs(primaries_get(csp.infer().primaries)).astype(np.float32)
+    return y, b, [float(w) for w in lw]
 
 
 def linearize(img, csp: ColorSpace):
@@ -81,9 +178,9 @@ def linearize(img, csp: ColorSpace):
     trc = csp.infer().transfer
     if trc == ColorTransfer.LINEAR:
         return img
-    _check_trc(trc)
     lo, hi = nominal_luma_norm(csp)
-    img = torch.clamp_min(img, 0.0)
+    if trc != ColorTransfer.SCRGB:
+        img = torch.clamp_min(img, 0.0)
     if trc == ColorTransfer.BT_1886:
         lb = lo ** (1 / 2.4)
         lw = hi ** (1 / 2.4)
@@ -92,7 +189,18 @@ def linearize(img, csp: ColorSpace):
         return a * tf.pow_pos(img + b, 2.4)
     if trc == ColorTransfer.PQ:
         return tf.pq_eotf_fast(img) * (10000.0 / COLOR_SDR_WHITE)
+    if trc == ColorTransfer.HLG:
+        y, b, lw = hlg_constants(csp)
+        scene = tf.hlg_oetf_inv(fma(img, 1 - b, b)) * rcp(12.0)
+        luma = mix([scene[..., c, :, :] for c in range(3)], lw)
+        return (scene * hi) * tf.pow_pos(
+            torch.clamp_min(luma, 0.0), y - 1)[..., None, :, :]
+    if trc == ColorTransfer.SCRGB:
+        return img * _SCRGB_WHITE
     lin = tf.linearize(img, trc)
+    # the camera curves are scene-referred: no display scaling
+    if trc in _SCENE_REFERRED:
+        return lin
     if hi != 1.0 or lo != 0.0:
         lin = fma(lin, hi - lo, lo)
     return lin
@@ -103,12 +211,13 @@ def delinearize(img, csp: ColorSpace):
     trc = csp.infer().transfer
     if trc == ColorTransfer.LINEAR:
         return img
-    _check_trc(trc)
     lo, hi = nominal_luma_norm(csp)
-    if trc not in (ColorTransfer.PQ, ColorTransfer.BT_1886):
+    if trc not in (ColorTransfer.PQ, ColorTransfer.HLG, ColorTransfer.SCRGB,
+                   ColorTransfer.BT_1886) + _SCENE_REFERRED:
         if hi != 1.0 or lo != 0.0:
             img = (img - lo) * rcp(hi - lo)
-    img = torch.clamp_min(img, 0.0)
+    if trc != ColorTransfer.SCRGB:
+        img = torch.clamp_min(img, 0.0)
     if trc == ColorTransfer.BT_1886:
         lb = lo ** (1 / 2.4)
         lw = hi ** (1 / 2.4)
@@ -118,6 +227,15 @@ def delinearize(img, csp: ColorSpace):
                           1 / 2.4) - b
     if trc == ColorTransfer.PQ:
         return tf.pq_oetf_fast(img * (COLOR_SDR_WHITE / 10000.0))
+    if trc == ColorTransfer.HLG:
+        y, b, lw = hlg_constants(csp)
+        disp = img * rcp(hi)
+        luma = mix([disp[..., c, :, :] for c in range(3)], lw)
+        scene = (disp * 12.0) * tf.pow_pos(
+            torch.clamp_min(luma, 1e-6), (1 - y) / y)[..., None, :, :]
+        return (tf.hlg_oetf(scene) - b) * rcp(1 - b)
+    if trc == ColorTransfer.SCRGB:
+        return img * rcp(_SCRGB_WHITE)
     return tf.delinearize(img, trc)
 
 

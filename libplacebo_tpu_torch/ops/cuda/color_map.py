@@ -2,32 +2,38 @@
 its plain PyTorch version beside it.
 
 Replaces libplacebo_tpu/ops/pallas/color_map.py::fused_pointwise for
-the chains `Renderer._fused_tail` builds: `color_map_stage` (a dynamic
-tone curve — spline, bt2390, st2094-40, st2094-10 — or none, and the
-gamut operator clip, perceptual or softclip through one IPT round trip,
-or the pass-through fast path), sRGB delinearize, identity RGB encode,
-ordered dither, and with a dynamic tone curve the per-stripe peak
-partials.  The Pallas kernel traces whatever tail it is given; a
-hand-written kernel cannot, so the tone function and the gamut operator
-are template parameters of the kernel and `plan_tail` says which
-chains the built instances cover (None for any other: the renderer
-then runs the plain stages, as the reference does when its tail is not
-eligible).
+every tail `Renderer._fused_tail` admits.  The Pallas kernel traces
+whatever tail it is given; a hand-written kernel cannot, so K1 comes in
+two kinds:
+- templated instances, a template over (tone, gamut operator, dither),
+  for the chains of the main paths: `color_map_stage` (a dynamic tone
+  curve — spline, bt2390, st2094-40, st2094-10 — measured in the same
+  pass, or none, and the gamut operator clip, perceptual or softclip
+  through one IPT round trip, or the pass-through fast path), sRGB
+  delinearize, identity RGB encode, ordered dither, and with a tone
+  curve the per-stripe peak partials (`plan_tail`, `INSTANCES`);
+- one generic instance for every other tail (`plan_generic`): a static
+  curve or a dynamic one with same-frame stats, all nine gamut
+  operators, every target transfer, non-identity encodes, show_clipping
+  and white-noise or low-depth gamma dither, its parts chosen by ids
+  uniform across a launch (`GenericMode`).  Its plain version is the
+  port's own stages (`GenericSpec.plain`, built by the renderer).
 
 Everything static is planned on the host in float64 and packed once
 into one float32 vector (`LAYOUT`), kept in host memory: each launch
 copies it into the kernel's parameters, where the kernel reads every
 coefficient at a compile-time offset, with no staging in shared memory.  The per-frame tone-curve
 scalars form a second, 16-long vector on the device
-(ops/tone_dynamic.py::tone_vector).  The kernel
-(csrc/color_map.cu) and the plain version (`color_map_plain`) both read
-those two vectors, so they cannot compute their constants apart.  The
-plain version repeats the kernel's arithmetic operation for operation.
+(ops/tone_dynamic.py::tone_vector).  The templated instances
+(csrc/color_map.cu) and their plain version (`color_map_plain`) both
+read those two vectors, so they cannot compute their constants apart;
+that plain version repeats the kernel's arithmetic operation for
+operation.
 
 `color_map_tail` is the entry: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel (and counts the launch in `launches`)
-or raises.  The kernel is built with nvcc at first use; see
-csrc/color_map.cu for what bounds it on the card.
+or raises.  The kernels are built with nvcc at first use; see
+csrc/color_map.cu for what bounds them on the card.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from ...core import transfer as tf
 from ...core.fastmath import f32_mul, fma, mix, rcp, sqrt
 from ...core.colorspace import (COLOR_SDR_WHITE, ColorTransfer,
                                 color_repr_decode)
+from ...core.dither import DitherMethod
 from ...core.gamut_mapping import IPT2LMS, LMS2IPT
 from .. import tone_dynamic as ops_tone
 from ..color import nominal_luma_norm
@@ -97,6 +104,10 @@ LAYOUT = (
     ("src_peak_c", _NFOURIER), ("dst_peak_c", _NFOURIER),
     ("pass_mat", 9), ("pass_lo", 1), ("pass_hi", 1),
     ("pq_inv_m2", 1), ("pq_inv_m1", 1), ("pq_m1", 1), ("pq_m2", 1),
+    # appended for the generic instance (`plan_generic`)
+    ("g_tone", 56), ("g_trc", 16), ("g_enc", 12), ("g_enc_pre", 9),
+    ("g_clip", 4), ("dst_peak_i", 2 * HARMONICS + 1), ("g_gam", 4),
+    ("g_abs", 9), ("g_dith", 1), ("dst_rgb2lms", 9), ("g_mix", 27),
 )
 _OFF: Dict[str, int] = {}
 _n = 0
@@ -214,10 +225,15 @@ class TailPlan:
     tone: int = 1
     gamut: int = 2
     flags: int = 0
+    generic: Optional[GenericSpec] = None
     rows: RowMasks = field(init=False)
 
     def __post_init__(self):
-        if (self.tone, self.gamut) not in INSTANCES:
+        if self.tone == GENERIC:
+            if self.generic is None or self.gamut != GENERIC:
+                raise ValueError("K1's generic instance needs its "
+                                 "GenericSpec")
+        elif (self.tone, self.gamut) not in INSTANCES:
             raise ValueError(f"K1 has no instance for tone {self.tone}, "
                              f"gamut {self.gamut}")
         consts = np.array(self.consts, np.float32)
@@ -228,7 +244,10 @@ class TailPlan:
     @property
     def instance(self):
         """(tone, gamut, flags): what the plain version and the
-        operation count need beside the constants."""
+        operation count need beside the constants (the generic
+        instance's flags are its GenericMode)."""
+        if self.tone == GENERIC:
+            return (GENERIC, GENERIC, self.generic.mode)
         return (self.tone, self.gamut, self.flags)
 
 
@@ -240,8 +259,8 @@ def _fit_or_zeros(b: GamutBoundary) -> np.ndarray:
 def pack_constants(b_src: GamutBoundary, b_dst: GamutBoundary,
                    dst_min_pq: float, dst_max_pq: float, gamut_constants,
                    dst_color, bit_depth: int, black_cutoff: float,
-                   hue_coefs=None, pass_matrix=None, pass_clamp=None
-                   ) -> np.ndarray:
+                   hue_coefs=None, pass_matrix=None, pass_clamp=None,
+                   extra=None) -> np.ndarray:
     """Every static constant of the chain, derived in float64 exactly as
     the reference's stage functions derive them, then rounded once to
     float32 in LAYOUT order (what a chain does not read is zero, or the
@@ -289,8 +308,11 @@ def pack_constants(b_src: GamutBoundary, b_dst: GamutBoundary,
         pass_hi=pass_clamp[1] if pass_clamp else 0.0,
         pq_inv_m2=1.0 / tf.PQ_M2, pq_inv_m1=1.0 / tf.PQ_M1,
         pq_m1=tf.PQ_M1, pq_m2=tf.PQ_M2)
+    vals.update(extra or {})
     out = np.zeros(NCONST, np.float32)
     for name, n in LAYOUT:
+        if name not in vals:
+            continue        # a generic constant this chain does not read
         v = np.asarray(vals[name], np.float64).ravel()
         assert v.size == n, (name, v.size, n)
         out[_OFF[name]:_OFF[name] + n] = v.astype(np.float32)
@@ -376,6 +398,424 @@ def plan_tail(chain, params, dst_color, target, fused_peak: bool,
     return TailPlan(consts, dither_lut, tone=tone, gamut=gamut, flags=flags)
 
 
+# ---------------------------------------------------------------------------
+# The generic instance: every other tail the reference's kernel runs
+# ---------------------------------------------------------------------------
+#
+# One more kernel (csrc/color_map.cu, built with -DK1_TONE=-1) takes the
+# chain's parts as ids that are uniform across a launch: the static tone
+# curve or a dynamic one (its stats measured in the same pass or the
+# frame before), every gamut operator, every target transfer, the encode
+# (a matrix, or the non-linear systems), show_clipping, and an ordered,
+# white-noise or low-depth gamma dither.  Its plain version is the
+# port's own stages (`GenericSpec.plain`, built by the renderer); the
+# kernel repeats their arithmetic as PyTorch runs it on the card.
+
+GENERIC = -1
+# ids shared with csrc/color_map.cu (passed as -DK1G_* macros)
+G_GAMUTS = ("clamp", "perceptual", "softclip", "relative", "desaturate",
+            "linear", "darken", "absolute", "highlight")
+G_STATIC = ("clip", "st2094-40", "st2094-10", "bt2390", "bt2446a",
+            "spline", "reinhard", "mobius", "hable", "gamma", "linear",
+            "bt2446a_inv")
+G_SCALINGS = ("norm", "pq", "nits")
+G_TRCS = ("linear", "bt1886", "pq", "hlg", "scrgb", "srgb", "gamma",
+          "prophoto", "st428", "vlog", "slog1", "slog2")
+G_ENCODES = ("none", "matrix", "ictcp_pq", "ictcp_hlg", "xyz", "bt2020c")
+G_DITHER = ("none", "lut", "table")
+
+
+class GenericMode(NamedTuple):
+    """The generic instance's launch-uniform ids (csrc: K1Mode)."""
+    kind: int = 1          # 0 the pass-through chain, 1 the IPT round trip
+    gamut: int = 0         # G_GAMUTS
+    tone_kind: int = 0     # 0 none, 1 dynamic (TONES), 2 static (G_STATIC)
+    curve: int = 0
+    scaling: int = 1       # the static curve's native scaling (G_SCALINGS)
+    flags: int = 0         # FLAG_* (pass matrix / clamp, hue shift) and
+    #                        GFLAG_* below
+    trc: int = 0           # G_TRCS
+    encode: int = 0        # G_ENCODES
+    dither: int = 0        # G_DITHER
+
+
+# generic flags, beside FLAG_PASS_MATRIX / FLAG_PASS_CLAMP / FLAG_HUESHIFT
+GFLAG_SHOW_CLIP, GFLAG_PEAK, GFLAG_DITHER_GAMMA = 8, 16, 32
+
+
+@dataclass(frozen=True)
+class GenericSpec:
+    """The generic instance's plan beyond its constants: the ids, the
+    dynamic curve's name (the tone vector's), and the plain version
+    plain(img, tone, bias) -> (out, partials or None)."""
+    mode: GenericMode
+    dynamic: Optional[str] = None
+    plain: Optional[object] = field(default=None, compare=False)
+
+
+def _g_trc(dst_color):
+    """(G_TRCS id, its constants) of the target transfer, as
+    ops/color.py::delinearize reads them."""
+    from ..color import hlg_constants
+    trc = dst_color.infer().transfer
+    lo, hi = nominal_luma_norm(dst_color)
+    c = np.zeros(16)
+    T = ColorTransfer
+    exempt = (T.PQ, T.HLG, T.SCRGB, T.BT_1886, T.V_LOG, T.S_LOG1, T.S_LOG2)
+    if trc not in exempt and (hi != 1.0 or lo != 0.0):
+        c[0], c[1], c[2] = 1.0, lo, rcp(hi - lo)
+    gammas = {T.GAMMA18: 1.8, T.GAMMA20: 2.0, T.GAMMA22: 2.2,
+              T.GAMMA24: 2.4, T.GAMMA26: 2.6, T.GAMMA28: 2.8}
+    if trc in (T.LINEAR, T.UNKNOWN):
+        name = "linear"
+    elif trc == T.BT_1886:
+        lb, lw = lo ** (1 / 2.4), hi ** (1 / 2.4)
+        name = "bt1886"
+        c[3], c[4], c[5] = rcp((lw - lb) ** 2.4), 1 / 2.4, lb / (lw - lb)
+    elif trc == T.PQ:
+        name = "pq"
+        c[3] = COLOR_SDR_WHITE / 10000.0
+    elif trc == T.HLG:
+        y, b, lw = hlg_constants(dst_color)
+        name = "hlg"
+        c[3], c[4], c[5], c[6] = rcp(hi), lw[0], lw[1], lw[2]
+        c[7], c[8], c[9] = (1 - y) / y, b, rcp(1 - b)
+    elif trc == T.SCRGB:
+        name = "scrgb"
+        c[3] = rcp(80.0 / COLOR_SDR_WHITE)
+    elif trc == T.SRGB:
+        name = "srgb"
+    elif trc in gammas:
+        name = "gamma"
+        c[3] = 1.0 / gammas[trc]
+    elif trc == T.PRO_PHOTO:
+        name = "prophoto"
+        c[3] = 1.0 / 1.8
+    elif trc == T.ST428:
+        name = "st428"
+        c[3], c[4] = rcp(tf.ST428_SCALE), 1 / 2.6
+    else:
+        name = {T.V_LOG: "vlog", T.S_LOG1: "slog1", T.S_LOG2: "slog2"}[trc]
+        c[3] = rcp(tf.LOG10)
+        c[4], c[5], c[6] = tf.VLOG_B, tf.VLOG_C, tf.VLOG_D
+        c[7], c[8] = rcp(219.0), tf._SLOG2_SLOPE
+        c[9] = tf._SLOG2_LO
+    return G_TRCS.index(name), c
+
+
+def _g_encode(repr, prim):
+    """(G_ENCODES id, the 3x4 [matrix | offset], the pre-matrix) of
+    ops/color.py::encode_color."""
+    from ...core.colorspace import (ColorSystem, ictcp_matrices,
+                                    primaries_get, rgb_to_xyz_matrix)
+    tr, _ = color_repr_decode(repr)
+    inv = tr.invert()
+    enc = np.concatenate([np.ravel(inv.mat.m), np.ravel(inv.c)])
+    pre = np.ravel(np.eye(3))
+    sys = repr.sys
+    if sys in (ColorSystem.BT_2100_PQ, ColorSystem.BT_2100_HLG):
+        pre = np.ravel(ictcp_matrices(sys)[0])
+        name = "ictcp_pq" if sys == ColorSystem.BT_2100_PQ else "ictcp_hlg"
+    elif sys == ColorSystem.XYZ:
+        pre = np.ravel(rgb_to_xyz_matrix(primaries_get(prim)).m)
+        name = "xyz"
+    elif sys == ColorSystem.BT_2020_C:
+        name = "bt2020c"
+    elif np.array_equal(inv.mat.m, np.eye(3)) and not inv.c.any():
+        name = "none"
+    else:
+        name = "matrix"
+    return G_ENCODES.index(name), enc, pre
+
+
+def _mix_code(row, bias: float = 0.0) -> int:
+    """How core/fastmath.py::mix sums one matrix row (ops/color.py::
+    mat_pointwise skips its zero weights), decided on the float64
+    weights: bit k a nonzero weight, bit 3 + k a weight of 1, bit 6 the
+    first pair's swapped fusing order (its pending weight < 0 < the
+    next, which is not 1), bit 7 a nonzero bias."""
+    row = [float(w) for w in np.ravel(row)]
+    ks = [k for k, w in enumerate(row) if w != 0.0]
+    swap = len(ks) >= 2 and row[ks[0]] != 1.0 and row[ks[1]] != 1.0 and \
+        row[ks[0]] < 0.0 < row[ks[1]]
+    return (sum(1 << k for k in ks) +
+            sum(1 << (3 + k) for k, w in enumerate(row) if w == 1.0) +
+            (int(swap) << 6) + (int(float(bias) != 0.0) << 7))
+
+
+def _mix_codes(*mats_biases) -> list:
+    """The mix codes of every row of the given (matrix, bias) pairs."""
+    out = []
+    for m, b in mats_biases:
+        m = np.asarray(m, np.float64).reshape(3, 3)
+        b = np.zeros(3) if b is None else np.ravel(b)
+        out += [_mix_code(m[i], b[i]) for i in range(3)]
+    return out
+
+
+def _trcp(c: float) -> float:
+    """What PyTorch's CUDA `x / c` multiplies by for a host float c: the
+    float64 reciprocal rounded to float32 (not core/fastmath.py::rcp,
+    the float32 reciprocal of float32(c), which the port's own stages
+    write out).  The static curves' shared numpy/PyTorch code divides by
+    host floats."""
+    return float(np.float32(1.0 / c))
+
+
+def _bt1886_pair(lo, hi):
+    """(lb, lw - lb) of the static curves' BT.1886 helpers."""
+    lb, lw = lo ** (1 / 2.4), hi ** (1 / 2.4)
+    return lb, lw - lb
+
+
+def _g_static_tone(tp):
+    """(G_STATIC id, G_SCALINGS id, the 56 constants) of the static curve
+    core/tone_mapping.py::apply_device evaluates for `tp`: the input
+    clamp, the native scaling, the curve's host constants (its
+    `_*_consts`), the output clamp."""
+    from ...core import tone_mapping as tm
+    fixed = tm._fix_params(tp)
+    fun = fixed.function
+    inverse = fixed.output_max > fixed.input_max + 1e-4
+    name = fun.name
+    if name == "linearlight":
+        name = "linear"
+    if inverse and name == "bt2446a":
+        name = "bt2446a_inv"
+    c = [tp.input_min, tp.input_max, fixed.output_min, fixed.output_max,
+         rcp(COLOR_SDR_WHITE), rcp(10000.0)]
+    lo_i, hi_i = fixed.input_min, fixed.input_max
+    lo_o, hi_o = fixed.output_min, fixed.output_max
+    if name == "st2094-40":
+        from math import comb
+        Kx, Ky, P = tm._st2094_40_knots(fixed)
+        N = len(P) - 1
+        lb, span = _bt1886_pair(lo_i, hi_i)
+        lbo, spano = _bt1886_pair(lo_o, hi_o)
+        c += [lb, _trcp(span), Kx, _trcp(max(1 - Kx, 1e-9)), Ky, 1 - Ky,
+              Ky / Kx if Kx else 0.0, 1.0 if Kx > 0 else 0.0, spano, lbo, N]
+        c += [comb(N, i) for i in range(17)][:N + 1] + [0.0] * (16 - N)
+        c += [float(v) for v in P] + [0.0] * (16 - N)
+    elif name == "st2094-10":
+        c += list(tm._st2094_10_coefs(fixed))
+    elif name == "bt2390":
+        minLum, maxLum, ks, bp, gain = tm._bt2390_consts(fixed)
+        c += [lo_i, _trcp(hi_i - lo_i), ks, _trcp(1 - ks), maxLum, minLum, bp,
+              gain, hi_i - lo_i, 1.0 if ks < 1 else 0.0, 1 - ks]
+    elif name == "bt2446a":
+        phdr, psdr = tm._bt2446a_consts(fixed)
+        lbo, spano = _bt1886_pair(lo_o, hi_o)
+        c += [lo_i, _trcp(hi_i - lo_i), phdr - 1, _trcp(np.log(phdr)), psdr,
+              _trcp(psdr - 1), spano, lbo]
+    elif name == "bt2446a_inv":
+        lb, span = _bt1886_pair(lo_i, hi_i)
+        c += [lb, _trcp(span), hi_o - lo_o, lo_o, _trcp(1000.0)]
+    elif name == "spline":
+        c += list(tm._spline_consts(fixed))
+    elif name == "reinhard":
+        offset, scale = tm._reinhard_consts(fixed)
+        c += [lo_i, _trcp(hi_o - lo_o), offset, scale, hi_o - lo_o, lo_o]
+    elif name == "mobius":
+        j, a, b, scale = tm._mobius_consts(fixed)
+        c += [lo_i, _trcp(hi_o - lo_o), j, a, b, scale, hi_o - lo_o, lo_o]
+    elif name == "hable":
+        peak, scale = tm._hable_consts(fixed)
+        lb, span = _bt1886_pair(lo_i, hi_i)
+        lbo, spano = _bt1886_pair(lo_o, hi_o)
+        A, B, C, D, E, F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+        c += [lb, _trcp(span), _bt1886_pair(0.0, peak)[1], scale, A, C * B,
+              D * E, B, D * F, E / F, spano, lbo]
+    elif name == "gamma":
+        peak, cutoff, gamma = tm._gamma_consts(fixed)
+        c += [lo_i, _trcp(hi_o - lo_o), cutoff, _trcp(peak), gamma,
+              hi_o - lo_o, lo_o]
+    elif name == "linear":
+        c += [lo_i, _trcp(hi_i - lo_i), fixed.constants.exposure,
+              hi_o - lo_o, lo_o]
+    c += [0.0] * (56 - len(c))
+    return (G_STATIC.index(name), G_SCALINGS.index(fun.scaling.value), c)
+
+
+def plan_generic(chain, params, src_color, dst_color, target,
+                 fused_peak: bool, dither, plain, static_tone=None,
+                 show_bounds=None) -> Optional[TailPlan]:
+    """The generic instance's plan for a tail no templated instance runs:
+    `dither` is None or (DitherParams, bias, low-depth gamma path) with
+    the bias a square LUT (ordered) or the (H, W) frame (white noise);
+    `static_tone` the static curve's ToneMapParams; `show_bounds` the
+    (hi_lin + eps, in_max_pq + eps, lo_lin - eps, in_min_pq - eps)
+    thresholds of show_clipping; `plain` the stages' closure.  None
+    where a boundary fit has a row the kernel cannot sum like `mix` (a
+    coefficient of exactly 0 or 1 in a kept row), or the luma ranges of
+    the two fits differ."""
+    from ...core.colorspace import adapt_white_matrix
+    from ..dithering import _APPROX_GAMMA
+    bit_depth = target.bit_depth if dither is not None else 0
+    black_cutoff = params.peak_detect.black_cutoff \
+        if params.peak_detect is not None else 0.0
+    gc = params.gamut_constants.fixed()
+    trc, trc_c = _g_trc(dst_color)
+    enc, enc_m, enc_pre = _g_encode(target.repr, dst_color.primaries)
+    dmode, dgamma = 0, 1.0
+    flags = 0
+    if dither is not None:
+        dp, bias, gamma_path = dither
+        dmode = 2 if dp.method == DitherMethod.WHITE_NOISE else 1
+        if gamma_path:
+            flags |= GFLAG_DITHER_GAMMA
+            dgamma = _APPROX_GAMMA.get(dp.transfer, 1.0)
+    extra = dict(g_trc=trc_c, g_enc=enc_m, g_enc_pre=enc_pre,
+                 g_dith=dgamma)
+    from ...core.colorspace import primaries_get
+    if chain.kind == "pass":
+        matrix = chain.matrix
+        if matrix is not None and not np.array_equal(matrix, np.eye(3)):
+            flags |= FLAG_PASS_MATRIX
+        if chain.clamp is not None:
+            flags |= FLAG_PASS_CLAMP
+        from ..gamut import ipt_space
+        b = ipt_space(primaries_get(dst_color.primaries), chain.dst_min_pq,
+                      chain.dst_max_pq)
+        extra["g_mix"] = _mix_codes(
+            (matrix if matrix is not None else np.eye(3), None)) + \
+            [0] * 15 + _mix_codes((enc_m[:9], enc_m[9:]), (enc_pre, None),
+                                  (np.eye(3), None))
+        consts = pack_constants(b, b, chain.dst_min_pq, chain.dst_max_pq,
+                                params.gamut_constants, dst_color,
+                                bit_depth, black_cutoff, pass_matrix=matrix,
+                                pass_clamp=chain.clamp, extra=extra)
+        mode = GenericMode(kind=0, flags=flags, trc=trc, encode=enc,
+                           dither=dmode)
+        return TailPlan(consts, dither[1] if dither else None, tone=GENERIC,
+                        gamut=GENERIC, generic=GenericSpec(mode, None, plain))
+    b_src, b_dst = chain.b_src, chain.b_dst
+    gamut = G_GAMUTS.index(chain.gamut if chain.gamut not in
+                           (None, "clip", "saturation") else "clamp")
+    hue = None
+    if b_dst.coefs is not None:
+        if b_src.coefs is not None and (b_src.min_luma, b_src.max_luma) != \
+                (b_dst.min_luma, b_dst.max_luma):
+            return None
+        for bb in (b_src, b_dst):
+            if bb.coefs is None:
+                continue
+            rows = boundary_rows(bb)
+            if not all((r == 0).all() or ((r != 0) & (r != 1)).all()
+                       for r in rows):
+                return None
+        if chain.gamut == "softclip":
+            hue = hueshift_fourier(b_src, b_dst)
+            if hue is not None:
+                flags |= FLAG_HUESHIFT
+    tone_kind = curve = 0
+    scaling = 1
+    dynamic = None
+    if chain.tone == "dynamic":
+        tone_kind, dynamic = 1, params.tone_mapping_function
+        curve = TONES.index(dynamic)
+        if fused_peak:
+            flags |= GFLAG_PEAK
+    elif chain.tone == "static":
+        tone_kind = 2
+        curve, scaling, extra["g_tone"] = _g_static_tone(static_tone)
+    if show_bounds is not None:
+        flags |= GFLAG_SHOW_CLIP
+        extra["g_clip"] = show_bounds
+    if b_dst.peak_i is not None:
+        extra["dst_peak_i"] = b_dst.peak_i
+    gains = [gc.colorimetric_gamma, 1.0, 1.0, b_dst.max_luma]
+    if chain.gamut == "linear":
+        from ..gamut import _linear_gain
+        gains[1] = _linear_gain(b_src, b_dst)
+    elif chain.gamut == "darken":
+        from ..gamut import _darken_gain
+        gains[2] = _darken_gain(b_src, b_dst)
+    extra["g_gam"] = gains
+    if chain.gamut == "absolute" and b_src.prim is not None and \
+            b_dst.prim is not None:
+        extra["g_abs"] = np.ravel(np.asarray(adapt_white_matrix(
+            b_dst.prim.white, b_src.prim.white).m, np.float32))
+    else:
+        extra["g_abs"] = np.ravel(np.eye(3))
+    extra["dst_rgb2lms"] = np.ravel(b_dst.rgb2lms)
+    extra["g_mix"] = _mix_codes(
+        (np.eye(3), None), (b_src.rgb2lms, None), (LMS2IPT, None),
+        (IPT2LMS, None), (b_dst.lms2rgb, None), (b_dst.rgb2lms, None),
+        (enc_m[:9], enc_m[9:]), (enc_pre, None), (extra["g_abs"], None))
+    consts = pack_constants(b_src, b_dst, chain.dst_min_pq, chain.dst_max_pq,
+                            params.gamut_constants, dst_color, bit_depth,
+                            black_cutoff, hue_coefs=hue, extra=extra)
+    mode = GenericMode(kind=1, gamut=gamut, tone_kind=tone_kind, curve=curve,
+                       scaling=scaling, flags=flags, trc=trc, encode=enc,
+                       dither=dmode)
+    return TailPlan(consts, dither[1] if dither else None, tone=GENERIC,
+                    gamut=GENERIC, generic=GenericSpec(mode, dynamic, plain))
+
+
+# FP32 operations a pixel of the generic instance's parts, counted from
+# csrc/color_map.cu as above (a pow, exp, log or log1p counts 1): each
+# static curve (st2094-40 adds 6 a Bernstein term), its conversions into
+# and out of its scaling (an exact PQ curve 15), each gamut operator
+# beyond the RGB -> ICh -> RGB round trip, each target transfer's
+# delinearize (three channels), each encode, and the low-depth dither
+_G_OPS_STATIC = {"clip": 0, "st2094-40": 26, "st2094-10": 5, "bt2390": 42,
+                 "bt2446a": 25, "bt2446a_inv": 22, "spline": 12,
+                 "reinhard": 7, "mobius": 10, "hable": 27, "gamma": 9,
+                 "linear": 5}
+_G_OPS_SCALING = {"norm": 2 + 17 + 19, "pq": 2, "nits": 2 + 16 + 18}
+_G_OPS_GAMUT = {"relative": 55 + 64 + 20, "desaturate": 55 + 1,
+                "linear": 1, "darken": 3,
+                "absolute": 15 + 190 + 55 + 64 + 20, "highlight": 205 + 18}
+_G_OPS_TRC = {"linear": 0, "bt1886": 24, "pq": 153, "hlg": 50, "scrgb": 3,
+              "srgb": 36, "gamma": 15, "prophoto": 24, "st428": 18,
+              "vlog": 24, "slog1": 21, "slog2": 27}
+_G_OPS_ENC = {"none": 0, "matrix": 18, "ictcp_pq": 144, "ictcp_hlg": 66,
+              "xyz": 66, "bt2020c": 50}
+_G_OPS_SHOW_CLIP, _G_OPS_DITHER_GAMMA = 53, 3 * 14
+
+
+def _generic_ops(consts, mode: GenericMode) -> int:
+    """FP32 operations a pixel of the generic instance's chain (an
+    estimate from the source's parts, as ops_per_pixel's)."""
+    c = np.asarray(consts)
+    ops = _G_OPS_TRC[G_TRCS[mode.trc]] + _G_OPS_ENC[G_ENCODES[mode.encode]]
+    if mode.kind == 0:
+        ops += _OPS_PASS_MIX * bool(mode.flags & FLAG_PASS_MATRIX) + \
+            _OPS_PASS_CLAMP * bool(mode.flags & FLAG_PASS_CLAMP)
+    else:
+        ops += 3 + _OPS_TO_ICH + _OPS_TO_RGB
+        if mode.flags & GFLAG_PEAK:
+            ops += _OPS_PEAK
+        if mode.tone_kind == 1:
+            ops += _OPS_TONE[TONES[mode.curve]] + _OPS_HULL
+        elif mode.tone_kind == 2:
+            name = G_STATIC[mode.curve]
+            ops += _OPS_HULL + _G_OPS_STATIC[name] + \
+                _G_OPS_SCALING[G_SCALINGS[mode.scaling]]
+            if name == "st2094-40":
+                ops += 6 * (int(c[_OFF["g_tone"] + 16]) + 1)
+        gamut = G_GAMUTS[mode.gamut]
+        if gamut in ("perceptual", "softclip"):
+            fits = 2 if mode.flags & FLAG_HUESHIFT else 1
+            ops += _OPS_BASIS + _OPS_RGB_CLIP
+            ops += _OPS_HUE if fits == 2 else _OPS_CHROMA[gamut]
+            for kept in row_masks(c)[:2]:
+                ops += fits * (_OPS_ROW0 * (kept & 1) + _OPS_FLOOR +
+                               _OPS_ROW * bin(kept >> 1).count("1"))
+        else:
+            ops += _OPS_CLAMP + _G_OPS_GAMUT.get(gamut, 0)
+            if gamut in ("relative", "desaturate", "absolute"):
+                kept = row_masks(c).dst_kept
+                ops += _OPS_ROW0 * (kept & 1) + _OPS_FLOOR + \
+                    _OPS_ROW * bin(kept >> 1).count("1")
+        if mode.flags & GFLAG_SHOW_CLIP:
+            ops += _G_OPS_SHOW_CLIP
+    if mode.dither:
+        ops += _G_OPS_DITHER_GAMMA if mode.flags & GFLAG_DITHER_GAMMA \
+            else _OPS_DITHER
+    return ops
+
+
 def ops_per_pixel(consts, instance=FLAGSHIP) -> int:
     """FP32 operations the kernel runs per pixel for these packed
     constants and instance (TailPlan.instance): the parts of its chain,
@@ -385,6 +825,8 @@ def ops_per_pixel(consts, instance=FLAGSHIP) -> int:
     scale)."""
     c = np.asarray(consts)
     tone, gamut, flags = instance
+    if tone == GENERIC:
+        return _generic_ops(c, flags)
     ops = _OPS_OUT
     if gamut == 0:
         ops += _OPS_PASS_MIX * bool(flags & FLAG_PASS_MATRIX) + \
@@ -557,6 +999,27 @@ def _softclip_chroma(k, C, cos_h, sin_h, pw, flags):
                       chroma), ch2, sh2)
 
 
+def _partials(k, img):
+    """The per-stripe peak partials of the linear input."""
+    r, g, b = img[0], img[1], img[2]
+    maxrgb = torch.clamp_min(torch.maximum(torch.maximum(r, g), b), 0.0)
+    pq = torch.clamp(_pq_oetf(k, maxrgb * k["peak_norm"]), 0.0, 1.0)
+    pq14 = torch.round(pq * 16383.0).to(torch.int32)
+    active = pq > k["black_cutoff"]
+    bins = torch.clamp((pq14 >> 7) - 64, 0, 63)
+    return stripe_partials(pq, active, bins, pick_block_rows(img.shape[-2]))
+
+
+def tail_plain(img, plan, tone, lut=None):
+    """K1's plain version for any plan: (out, partials or None)."""
+    if plan.tone == GENERIC:
+        out = plan.generic.plain(img, tone, lut)
+        partials = _partials(_unpack(plan.consts), img) \
+            if plan.generic.mode.flags & GFLAG_PEAK else None
+        return out, partials
+    return color_map_plain(img, plan.consts, tone, lut, plan.instance)
+
+
 def color_map_plain(img, consts, tone, lut=None, instance=FLAGSHIP):
     """The kernel's function in plain PyTorch, on any device: (3, H, W)
     linear light in -> ((3, H, W) dithered signal, (G, 8, 128) peak
@@ -579,13 +1042,7 @@ def color_map_plain(img, consts, tone, lut=None, instance=FLAGSHIP):
         lin = rgb
     else:
         if tone_i:
-            maxrgb = torch.clamp_min(torch.maximum(torch.maximum(r, g), b),
-                                     0.0)
-            pq = torch.clamp(_pq_oetf(k, maxrgb * k["peak_norm"]), 0.0, 1.0)
-            pq14 = torch.round(pq * 16383.0).to(torch.int32)
-            active = pq > k["black_cutoff"]
-            bins = torch.clamp((pq14 >> 7) - 64, 0, 63)
-            partials = stripe_partials(pq, active, bins, pick_block_rows(H))
+            partials = _partials(k, img)
 
         lms = _mat3(k["src_rgb2lms"], [r * k["to_norm"], g * k["to_norm"],
                                        b * k["to_norm"]])
@@ -680,7 +1137,15 @@ def kernel_flags():
              f"-DK1_N_OETF_T={len(tf.OETF_T_COEF)}",
              f"-DK1_N_EOTF_P={len(tf.EOTF_P_COEF)}",
              f"-DK1_N_EOTF_T={len(tf.EOTF_T_COEF)}"] + \
-        [f"-DK1_OFF_{name}={off}" for name, off in _OFF.items()]
+        [f"-DK1_OFF_{name}={off}" for name, off in _OFF.items()] + \
+        [f"-DK1G_{prefix}_{name.upper().replace('-', '_')}={i}"
+         for prefix, names in (("GAMUT", G_GAMUTS), ("STATIC", G_STATIC),
+                               ("SCALING", G_SCALINGS), ("TRC", G_TRCS),
+                               ("ENC", G_ENCODES), ("DITHER", G_DITHER))
+         for i, name in enumerate(names)] + \
+        [f"-DK1G_FLAG_{n}={v}" for n, v in (
+            ("SHOW_CLIP", GFLAG_SHOW_CLIP), ("PEAK", GFLAG_PEAK),
+            ("DITHER_GAMMA", GFLAG_DITHER_GAMMA))]
 
 
 def instance_name(tone: int, gamut: int, dither: bool) -> str:
@@ -694,8 +1159,9 @@ def build_specs():
     a tone curve, holding that curve's (gamut, dither) instances, so the
     compilers run side by side."""
     from ..._build import nvcc_path
-    tones = sorted({t for t, _ in INSTANCES})
-    return [(f"k1_color_map_t{t}", ["csrc/color_map.cu"], nvcc_path(),
+    tones = sorted({t for t, _ in INSTANCES}) + [GENERIC]
+    return [(f"k1_color_map_t{t}" if t >= 0 else "k1_color_map_generic",
+             ["csrc/color_map.cu"], nvcc_path(),
              kernel_flags() + [f"-DK1_TONE={t}"]) for t in tones]
 
 
@@ -705,11 +1171,22 @@ def _kernel_lib(tone: int = 1):
     first use; looked up once, since finding the compiler costs more
     than a launch)."""
     from ..._build import load_shared
-    spec, = [sp for sp in build_specs() if sp[0].endswith(f"_t{tone}")]
+    suffix = f"_t{tone}" if tone >= 0 else "_generic"
+    spec, = [sp for sp in build_specs() if sp[0].endswith(suffix)]
     lib = load_shared(*spec)
-    fn = lib.k1_color_map_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
+    if tone >= 0:
+        fn = lib.k1_color_map_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+    else:
+        fn = lib.k1_generic_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
+            [ctypes.c_int] * len(GenericMode._fields) + [ctypes.c_void_p]
+        st = lib.k1_static_tone_launch
+        st.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        st.restype = ctypes.c_int
     fn.restype = ctypes.c_int
     lib.k1_sqrt_check_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.k1_sqrt_check_launch.restype = ctypes.c_int
@@ -722,7 +1199,8 @@ def libraries():
     """Every K1 library, built and loaded: {tone index: library}."""
     from ..._build import build_all
     build_all(build_specs())
-    return {t: _kernel_lib(t) for t in sorted({t for t, _ in INSTANCES})}
+    return {t: _kernel_lib(t)
+            for t in sorted({t for t, _ in INSTANCES}) + [GENERIC]}
 
 
 def build():
@@ -768,14 +1246,18 @@ def color_map_tail(img, plan, tone, lut):
     if not isinstance(plan, TailPlan) or plan.consts.shape != (NCONST,):
         raise ValueError(f"K1: plan must be a TailPlan of {NCONST} "
                          f"constants")
-    if (tone is None) != (plan.tone == 0):
-        raise ValueError("K1: a tone vector goes with a tone curve, and "
-                         "only with one")
+    wants_tone = plan.generic.mode.tone_kind == 1 if plan.generic \
+        else plan.tone != 0
+    if (tone is None) == wants_tone:
+        raise ValueError("K1: a tone vector goes with a dynamic tone "
+                         "curve, and only with one")
     consts = plan.consts
     if img.device.type == "cpu":
-        return color_map_plain(img, consts, tone, lut, plan.instance)
+        return tail_plain(img, plan, tone, lut)
     if img.device.type != "cuda":
         raise ValueError(f"K1: unsupported device {img.device}")
+    if plan.tone == GENERIC:
+        return _launch_generic(img, plan, tone, lut)
     C, H, W = img.shape
     _check(img, "img", (3, H, W))
     if tone is not None:
@@ -814,3 +1296,71 @@ def color_map_tail(img, plan, tone, lut):
                            lib.k1_error_string(rc).decode())
     launches += 1
     return out, partials
+
+
+def _launch_generic(img, plan, tone, bias):
+    """Launch the generic instance (csrc: k1_generic_launch); `bias` is
+    the square dither LUT, the (H, W) white-noise frame or None."""
+    global launches
+    C, H, W = img.shape
+    _check(img, "img", (3, H, W))
+    mode = plan.generic.mode
+    if tone is not None:
+        _check(tone, "tone", (ops_tone.TONE_VECTOR_LEN,))
+    n = 0
+    if mode.dither == 1:
+        n = bias.shape[0]
+        _check(bias, "lut", (n, n))
+        if n & (n - 1):
+            raise ValueError(f"K1: dither LUT size {n} is not a power of 2")
+    elif mode.dither == 2:
+        _check(bias, "bias", (H, W))
+    elif bias is not None:
+        raise ValueError("K1: a dither bias without a dither mode")
+    bh = pick_block_rows(H)
+    if H % bh or W % _COLS:
+        raise ValueError(f"K1: a {H}x{W} frame does not split into "
+                         f"{bh}-row stripes of {_COLS}-column blocks")
+    stripes = H // bh
+    out = torch.empty_like(img)
+    sub = partials = None
+    if mode.flags & GFLAG_PEAK:
+        sub = torch.empty((stripes, W // _COLS, _SUB), dtype=torch.float32,
+                          device=img.device)
+        partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
+                               device=img.device)
+    lib = _kernel_lib(GENERIC)
+    rows = plan.rows
+    rc = lib.k1_generic_launch(
+        img.data_ptr(), out.data_ptr(),
+        sub.data_ptr() if sub is not None else None,
+        partials.data_ptr() if partials is not None else None,
+        plan.consts.ctypes.data,
+        tone.data_ptr() if tone is not None else None,
+        bias.data_ptr() if bias is not None else None,
+        n, H, W, bh, rows.src_kept, rows.dst_kept, rows.src_swap,
+        rows.dst_swap, *mode, torch.cuda.current_stream(img.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("K1 launch failed: " +
+                           lib.k1_error_string(rc).decode())
+    launches += 1
+    return out, partials
+
+
+def static_tone_on_card(x, plan):
+    """The generic instance's static curve alone on a 1D CUDA tensor of
+    PQ values (a test hook for `plan`'s static tone)."""
+    mode = plan.generic.mode
+    if mode.tone_kind != 2:
+        raise ValueError("K1: the plan has no static tone curve")
+    _check(x, "x")
+    y = torch.empty_like(x)
+    lib = _kernel_lib(GENERIC)
+    rc = lib.k1_static_tone_launch(
+        x.data_ptr(), y.data_ptr(), x.numel(), plan.consts.ctypes.data,
+        mode.curve, mode.scaling,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("K1 launch failed: " +
+                           lib.k1_error_string(rc).decode())
+    return y

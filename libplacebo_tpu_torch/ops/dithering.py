@@ -51,10 +51,11 @@ _APPROX_GAMMA = {
 
 def dither_lut(params: DitherParams, frame_index: int = 0) -> np.ndarray:
     """The square dither LUT for this frame (temporal rotation/mirroring
-    every frame, dithering.c:185-204)."""
+    every frame, dithering.c:185-204); white noise has none (its bias is
+    a whole frame, `bias_matrix`)."""
     if params.method == DitherMethod.WHITE_NOISE:
-        raise NotImplementedError(
-            "white-noise dither is not ported (ROADMAP slice 3)")
+        raise ValueError("white-noise dither has no square LUT: its bias "
+                         "is bias_matrix's whole frame")
     if params.method == DitherMethod.ORDERED_FIXED:
         lut = dth.bayer_matrix(16)
     elif params.method == DitherMethod.ORDERED_LUT:
@@ -71,7 +72,13 @@ def dither_lut(params: DitherParams, frame_index: int = 0) -> np.ndarray:
 
 def bias_matrix(params: DitherParams, h: int, w: int,
                 frame_index: int = 0) -> np.ndarray:
-    """(h, w) bias in [0,1): the dither LUT tiled over the image."""
+    """(h, w) bias in [0,1): the dither LUT tiled over the image, or for
+    white noise the reference's host draw, the same numpy call and seed
+    (libplacebo_tpu/ops/dithering.py::_bias_matrix), so bit for bit the
+    same frame."""
+    if params.method == DitherMethod.WHITE_NOISE:
+        rng = np.random.default_rng(0x9E3779B9 ^ frame_index)
+        return rng.random((h, w), dtype=np.float32)
     lut = dither_lut(params, frame_index)
     size = lut.shape[0]
     reps = (h + size - 1) // size, (w + size - 1) // size

@@ -18,7 +18,7 @@ from ..core.common import RectF
 from ..core.film_grain import FilmGrainData
 from ..utils.device import raw_to_device, resolve_device
 
-__all__ = ["Plane", "Frame", "frame_from_yuv420p"]
+__all__ = ["Plane", "Frame", "frame_from_yuv420p", "icc_key"]
 
 
 @dataclass
@@ -50,6 +50,9 @@ class Frame:
     # film grain metadata (reference pl_frame.film_grain); the seed may
     # change every frame without a new render plan
     film_grain: Optional[FilmGrainData] = None
+    # image ICC profile (core.icc.IccProfile): when set, the renderer
+    # linearizes through it instead of the nominal transfer
+    icc: Optional[object] = None
     # outside the ported slice: the renderer raises when these are set
     rotation: int = 0
     overlays: list = field(default_factory=list)
@@ -99,7 +102,16 @@ class Frame:
                    p.shift_y) for p in self.planes),
             self.repr.sys, self.repr.levels, self.repr.alpha,
             self.repr.bits, self.color.primaries, self.color.transfer,
-            self.color.hdr, self.get_crop(), str(self.device), grain_static)
+            self.color.hdr, self.get_crop(), str(self.device), grain_static,
+            icc_key(self.icc))
+
+
+def icc_key(icc) -> Optional[int]:
+    """A profile's plan-cache key: its content signature (crc32 of its
+    bytes), else its identity."""
+    if icc is None:
+        return None
+    return getattr(icc, "signature", 0) or id(icc)
 
 
 def frame_from_yuv420p(y: np.ndarray, u: np.ndarray, v: np.ndarray,

@@ -6,12 +6,15 @@ plane deband and AV1 film grain -> merge planes (bilinear chroma
 alignment) -> decode -> linearize (and sigmoidize, for SDR sources) ->
 main scaler (EWA or separable, with anti-ringing) -> desigmoidize -> the
 color-map tail -> error diffusion (kernels K3, K2, K3) -> finish the
-peak state.  The tail runs on kernel K1 (tone + gamut + delinearize +
-encode, with the peak partials, and the ordered dither unless error
-diffusion quantizes) for the chains `ops/cuda/color_map.plan_tail`
-admits, and as plain stages otherwise (with same-frame peak detection
-where the tone map needs it); `k1_tails` and `plain_tails` count which
-ran.  Planning (color inference, boundary
+peak state, with a native custom LUT after the decode and, with ICC
+profiles, the frame's decoding the source and the target's encoding
+the output.  The tail runs on kernel K1 (tone + gamut + delinearize +
+encode, with the peak partials, and the dither unless error diffusion
+quantizes) wherever the reference's kernel would run it (a templated
+instance or the generic one, `ops/cuda/color_map.py`), and as plain
+stages where the reference runs it plain too (an ICC target, a
+conversion LUT); `k1_tails`, `plain_tails` and `ineligible_tails`
+count which ran.  Planning (color inference, boundary
 fits, filter weights, K1's packed constants, deband's random tables)
 happens once per signature on the host and is cached; the grain tables
 are per frame (their seed changes): generated on the host (cached by
@@ -39,12 +42,15 @@ from ..core.common import RectF
 from ..core.dither import find_error_diffusion_kernel
 from ..core.gamut_mapping import GamutMapConstants
 from ..core import tone_mapping as tm
+from ..core import transfer as tf
 from ..core.tone_mapping import ToneMapConstants
 from ..ops import color as ops_color
 from ..ops import deband as ops_deband
 from ..ops import dithering as ops_dither
 from ..ops import film_grain as ops_fg
 from ..ops import gamut as ops_gamut
+from ..ops import icc as ops_icc
+from ..ops import lut as ops_lut
 from ..ops import peak_detect as ops_peak
 from ..ops import polar as ops_polar
 from ..ops import sampling as ops_sampling
@@ -54,18 +60,22 @@ from ..ops.deband import DebandParams
 from ..ops.dithering import DitherParams
 from ..ops.peak_detect import PeakDetectParams
 from ..utils.device import resolve_device
-from .frame import Frame
+from .frame import Frame, icc_key
 
 __all__ = ["RenderParams", "Target", "Renderer", "render_image",
            "ColorChain", "color_chain", "color_map_stage", "k1_tails",
-           "plain_tails"]
+           "plain_tails", "ineligible_tails"]
 
 _MAX_CACHED_PIPELINES = 64
 
-# color-map tails run, per frame: through kernel K1, and as plain stages
-# (what a caller reads to see which path a render took)
+# color-map tails run, per frame: through kernel K1; as plain stages
+# where the reference's kernel would have run them (a gap of the port);
+# and as plain stages where the reference runs them plain too (an ICC
+# target, a conversion LUT, ...: `_tail_eligible`).  What a caller reads
+# to see which path a render took.
 k1_tails = 0
 plain_tails = 0
+ineligible_tails = 0
 
 
 @dataclass(frozen=True)
@@ -78,6 +88,8 @@ class Target:
     color: ColorSpace = field(default_factory=ColorSpace)
     bit_depth: int = 0           # 0 = no dither/quantization
     crop: Optional[RectF] = None
+    # display ICC profile (core.icc.IccProfile): when set, the output is
+    # encoded through it instead of the nominal transfer
     icc: Optional[object] = None
     data: Optional[object] = field(default=None, compare=False)
     overlays: tuple = field(default=(), compare=False)
@@ -85,7 +97,8 @@ class Target:
     def meta_key(self):
         return (self.w, self.h, self.repr.sys, self.repr.levels,
                 self.repr.bits, self.color.primaries, self.color.transfer,
-                self.color.hdr, self.bit_depth, self.crop)
+                self.color.hdr, self.bit_depth, self.crop,
+                icc_key(self.icc))
 
 
 @dataclass(frozen=True)
@@ -126,15 +139,17 @@ class RenderParams:
     color_adjustment: Optional[object] = None
     corner_rounding: float = 0.0
     hooks: Tuple = ()
-    lut: Optional[object] = None
-    lut_type: str = "conversion"
+    lut: Optional[object] = None          # core.lut.CustomLut
+    lut_type: str = "conversion"          # native | conversion
+    ignore_icc_profiles: bool = False
     force_dither: bool = False
     disable_linear_scaling: bool = False
     disable_fused_colormap: bool = False
 
     def key(self):
         return tuple(getattr(self, f) for f in self.__dataclass_fields__
-                     if f not in ("hooks", "lut"))
+                     if f not in ("hooks", "lut")) + (
+            self.lut.signature if self.lut is not None else None,)
 
 
 def _outside(what: str, item: str):
@@ -146,8 +161,6 @@ def _check_slice(params: RenderParams, target: Target, frame: Frame):
     """Raise for every requested feature outside the ported slice."""
     checks = (
         (params.hooks, "user hooks", "slice 3 item 22"),
-        (params.lut is not None, "custom LUTs", "slice 3 item 15"),
-        (target.icc is not None, "ICC profiles", "slice 3 item 16"),
         (params.deinterlace is not None, "deinterlacing", "slice 3 item 19"),
         (params.distort is not None, "distortion", "slice 3 item 20"),
         (params.cone is not None, "cone distortion", "slice 3 item 21"),
@@ -263,6 +276,52 @@ def color_chain(src: ColorSpace, dst: ColorSpace, params: RenderParams,
                       gamut=gamut_fn, b_src=b_src, b_dst=b_dst)
 
 
+def _static_tone_params(src: ColorSpace, params: RenderParams,
+                        chain: ColorChain) -> tm.ToneMapParams:
+    """The static (metadata) curve's parameters, in PQ both ways."""
+    def to_pq(nits):
+        return hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, nits)
+    src_inf = src.infer()
+    src_min_n, src_max_n, src_avg_n = src_inf.nominal_luma(
+        params.tone_map_metadata)
+    fun = tm.find_tone_map_function(params.tone_mapping_function) \
+        or tm.TONE_MAP_SPLINE
+    return tm.ToneMapParams(
+        function=fun, input_scaling=HdrScaling.PQ,
+        output_scaling=HdrScaling.PQ, lut_size=256,
+        constants=params.tone_constants, input_min=to_pq(src_min_n),
+        input_max=to_pq(src_max_n),
+        input_avg=to_pq(src_avg_n) if src_avg_n else 0.0,
+        output_min=chain.dst_min_pq, output_max=chain.dst_max_pq,
+        hdr=src_inf.hdr)
+
+
+def _show_bounds(src: ColorSpace, params: RenderParams):
+    """show_clipping's (in_min_pq, in_max_pq), or None."""
+    if not params.show_clipping:
+        return None
+    src_inf = src.infer()
+    return (hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, src_inf.hdr.min_luma),
+            hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, src_inf.hdr.max_luma))
+
+
+def _map_chain(img, chain: ColorChain, tone_fn, params: RenderParams,
+               show_bounds):
+    """Run a planned chain with the tone curve `tone_fn` (PQ -> PQ, or
+    None)."""
+    if chain.kind == "pass":
+        if chain.matrix is not None:
+            img = ops_color.mat_pointwise(img, chain.matrix)
+        if chain.clamp is not None:
+            img = torch.clamp(img, *chain.clamp)
+        return img
+    return ops_gamut.color_map_ipt(img, tone_fn, chain.gamut, chain.b_src,
+                                   chain.b_dst,
+                                   to_norm=COLOR_SDR_WHITE / 10000.0,
+                                   constants=params.gamut_constants,
+                                   show_clip_bounds=show_bounds)
+
+
 def color_map_stage(img, src: ColorSpace, dst: ColorSpace,
                     params: RenderParams, peak_stats=None):
     """Linear-light conversion: tone + gamut mapping through one IPT
@@ -271,46 +330,17 @@ def color_map_stage(img, src: ColorSpace, dst: ColorSpace,
     without them the curve is the static one from the metadata
     (core/tone_mapping.apply_device)."""
     chain = color_chain(src, dst, params, peak_stats is not None)
-    if chain.kind == "pass":
-        if chain.matrix is not None:
-            img = ops_color.mat_pointwise(img, chain.matrix)
-        if chain.clamp is not None:
-            img = torch.clamp(img, *chain.clamp)
-        return img
-    dst_min_pq, dst_max_pq = chain.dst_min_pq, chain.dst_max_pq
-    src_inf = src.infer()
     tone_fn = None
     if chain.tone == "dynamic":
         avg_pq, max_pq = peak_stats
         tone_fn = lambda x: ops_tone.tone_map_dynamic(  # noqa: E731
             x, params.tone_mapping_function, src_max=max_pq,
-            src_avg=avg_pq, dst_min=dst_min_pq, dst_max=dst_max_pq,
-            constants=params.tone_constants)
+            src_avg=avg_pq, dst_min=chain.dst_min_pq,
+            dst_max=chain.dst_max_pq, constants=params.tone_constants)
     elif chain.tone == "static":
-        def to_pq(nits):
-            return hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, nits)
-        src_min_n, src_max_n, src_avg_n = src_inf.nominal_luma(
-            params.tone_map_metadata)
-        fun = tm.find_tone_map_function(params.tone_mapping_function) \
-            or tm.TONE_MAP_SPLINE
-        tp = tm.ToneMapParams(
-            function=fun, input_scaling=HdrScaling.PQ,
-            output_scaling=HdrScaling.PQ, lut_size=256,
-            constants=params.tone_constants, input_min=to_pq(src_min_n),
-            input_max=to_pq(src_max_n),
-            input_avg=to_pq(src_avg_n) if src_avg_n else 0.0,
-            output_min=dst_min_pq, output_max=dst_max_pq, hdr=src_inf.hdr)
+        tp = _static_tone_params(src, params, chain)
         tone_fn = lambda x: tm.apply_device(x, tp)  # noqa: E731
-    show_bounds = None
-    if params.show_clipping:
-        show_bounds = (
-            hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, src_inf.hdr.min_luma),
-            hdr_rescale(HdrScaling.NITS, HdrScaling.PQ, src_inf.hdr.max_luma))
-    return ops_gamut.color_map_ipt(img, tone_fn, chain.gamut, chain.b_src,
-                                   chain.b_dst,
-                                   to_norm=COLOR_SDR_WHITE / 10000.0,
-                                   constants=params.gamut_constants,
-                                   show_clip_bounds=show_bounds)
+    return _map_chain(img, chain, tone_fn, params, _show_bounds(src, params))
 
 
 def _dither_params(params: RenderParams, dst_color: ColorSpace):
@@ -319,6 +349,21 @@ def _dither_params(params: RenderParams, dst_color: ColorSpace):
     if params.disable_dither_gamma_correction:
         dp = replace(dp, transfer=ColorTransfer.LINEAR)
     return dp
+
+
+def _tail_eligible(params: RenderParams, target: Target, dst_w, dst_h,
+                   dst_crop) -> bool:
+    """The reference's gates for its fused tail (renderer.py:1565-1574):
+    a pointwise tail over the whole target."""
+    return (not params.disable_fused_colormap
+            and not params.hooks and target.icc is None
+            and params.distort is None and not params.visualize_lut
+            and (params.lut is None or params.lut_type != "conversion")
+            and (dst_w, dst_h) == (target.w, target.h)
+            and int(round(dst_crop.x0)) == 0 == int(round(dst_crop.y0))
+            and params.corner_rounding <= 0
+            and params.contrast_recovery == 0.0
+            and dst_w % 128 == 0)
 
 
 class Renderer:
@@ -416,10 +461,15 @@ class Renderer:
     def _trace_pipeline(self, frame_meta_key, target: Target,
                         params: RenderParams, frame_repr: ColorRepr,
                         frame_color: ColorSpace, crop: RectF,
-                        frame_grain=None, dither_phase: int = 0):
+                        frame_grain=None, dither_phase: int = 0,
+                        frame_icc=None):
         """Plan one signature on the host and return the per-frame stage
         function pipeline(peak_state, grain_tables, *planes) -> (image,
         new_state)."""
+        if params.ignore_icc_profiles:
+            # both ends fall back to their colorimetric metadata
+            frame_icc = None
+            target = replace(target, icc=None)
         plane_metas = frame_meta_key[0]
         dst_raw = target.color
         if dst_raw.primaries == ColorPrimaries.UNKNOWN:
@@ -467,8 +517,31 @@ class Renderer:
         sig = ops_color.SigmoidParams(*params.sigmoid) \
             if use_linear and params.sigmoid is not None and \
             not src_color.is_hdr() else None
+        # ICC profiles replace the nominal transfer on their side, so
+        # they force the conversion even between equal colorspaces
         need_color_map = (src_color.primaries != dst_color.primaries or
-                          src_color.transfer != dst_color.transfer)
+                          src_color.transfer != dst_color.transfer or
+                          target.icc is not None or frame_icc is not None)
+        icc_kw = ops_icc.params_kwargs(params)
+        icc_enc_kw = ops_icc.params_kwargs(params, encode=True)
+
+        def linearize_src(x):
+            """Source signal -> linear light, through the frame's ICC
+            profile when it has one (pl_icc_decode)."""
+            if frame_icc is not None:
+                return ops_icc.decode_profile(
+                    x, frame_icc, primaries_get(src_color.primaries),
+                    **icc_kw)
+            return ops_color.linearize(x, src_color)
+
+        def delinearize_to(x, csp):
+            """Linear light -> the target signal, through the target's ICC
+            profile when it has one (pl_icc_encode)."""
+            if target.icc is not None:
+                return ops_icc.encode_profile(
+                    x, target.icc, primaries_get(csp.primaries),
+                    **icc_enc_kw)
+            return ops_color.delinearize(x, csp)
         fused_tail = None
         if need_color_map:
             fused_tail = self._fused_tail(params, src_color, dst_color,
@@ -490,15 +563,21 @@ class Renderer:
         ed_kernel = find_error_diffusion_kernel(params.error_diffusion) \
             if params.error_diffusion else None
 
+        tail_eligible = need_color_map and _tail_eligible(
+            params, target, dst_w, dst_h, dst_crop)
+
         def pipeline(peak_state, grain_tables, *planes):
-            global k1_tails, plain_tails
+            global k1_tails, plain_tails, ineligible_tails
             grain = (grain_cfgs, grain_tables, scaling_shift) \
                 if grain_cfgs is not None else None
             img = self._merge_planes(planes, plane_metas, params, deband,
                                      grain)
-            img = ops_color.decode_color(img, frame_repr)
+            img = ops_color.decode_color(img, frame_repr,
+                                         src_color.primaries)
+            if params.lut is not None and params.lut_type == "native":
+                img = ops_lut.apply_lut(img, params.lut)
             if use_linear:
-                img = ops_color.linearize(img, src_color)
+                img = linearize_src(img)
                 if sig is not None:
                     img = ops_color.sigmoidize(img, sig)
             if scaler is not None:
@@ -514,12 +593,19 @@ class Renderer:
             new_state = peak_state
             if need_color_map:
                 if not use_linear:
-                    img = ops_color.linearize(img, src_color)
+                    img = linearize_src(img)
                 if fused_tail is not None:
-                    # K1 measures this frame's peak partials while it
-                    # tone-maps with the previous frames' stats
-                    stats = ops_peak.delayed_stats(peak_state, src_max_pq) \
-                        if use_peak else None
+                    # with allow_delayed, K1 measures this frame's peak
+                    # partials while it tone-maps with the previous
+                    # frames' stats; else the stats are this frame's
+                    stats = None
+                    if use_peak and fused_tail.fused_peak:
+                        stats = ops_peak.delayed_stats(peak_state,
+                                                       src_max_pq)
+                    elif use_peak:
+                        avg_pq, max_pq, new_state = ops_peak.applied_stats(
+                            img, peak_state, params.peak_detect, src_max_pq)
+                        stats = (avg_pq, max_pq)
                     img, packed = fused_tail(img, stats)
                     if packed is not None:
                         _, _, new_state = ops_peak.finish_from_packed(
@@ -533,12 +619,19 @@ class Renderer:
                         stats = (avg_pq, max_pq)
                     img = color_map_stage(img, src_color, dst_color, params,
                                           stats)
-                    img = ops_color.delinearize(img, dst_color)
-                    plain_tails += 1
+                    img = delinearize_to(img, dst_color)
+                    if tail_eligible:
+                        plain_tails += 1
+                    else:
+                        ineligible_tails += 1
             elif use_linear:
-                img = ops_color.delinearize(img, src_color)
+                img = delinearize_to(img, src_color)
             if fused_tail is None:
-                img = ops_color.encode_color(img, target.repr)
+                if params.lut is not None and \
+                        params.lut_type == "conversion":
+                    img = ops_lut.apply_lut(img, params.lut)
+                img = ops_color.encode_color(img, target.repr,
+                                             dst_color.primaries)
             # error diffusion needs the whole encoded frame, so it runs
             # after the tail, which then leaves out the ordered dither
             if quantize and (fused_tail is None or params.error_diffusion):
@@ -557,49 +650,87 @@ class Renderer:
                     dither_phase=0):
         """The fused color tail — kernel K1 — or None when the tail is
         not eligible, in which case the plain stages run.  The gates are
-        the reference's (renderer.py:1565-1574) plus K1's own chain
-        (ops/cuda/color_map.py::plan_tail)."""
-        if params.disable_fused_colormap:
+        the reference's (renderer.py:1565-1574); an eligible tail runs
+        a templated K1 instance where one exists (ops/cuda/color_map.py::
+        plan_tail), else the generic one (plan_generic), whose plain
+        version is the stages composed here as the reference's tail_fn
+        composes them."""
+        if not _tail_eligible(params, target, dst_w, dst_h, dst_crop):
             return None
-        eligible = (not params.hooks and target.icc is None
-                    and params.distort is None and not params.visualize_lut
-                    and (params.lut is None or params.lut_type != "conversion")
-                    and (dst_w, dst_h) == (target.w, target.h)
-                    and int(round(dst_crop.x0)) == 0 == int(round(dst_crop.y0))
-                    and params.corner_rounding <= 0
-                    and params.contrast_recovery == 0.0
-                    and dst_w % 128 == 0)
-        if not eligible:
-            return None
-        lut = None
+        lut = dither = None
         bit_depth = target.bit_depth
         if bit_depth and params.dither is not None and \
                 params.error_diffusion is None and \
                 (bit_depth < 16 or params.force_dither):
             dp = _dither_params(params, dst_color)
-            if dp.method == ops_dither.DitherMethod.WHITE_NOISE or \
-                    (bit_depth <= 4 and
-                     ops_dither._APPROX_GAMMA.get(dp.transfer, 1.0) != 1.0):
-                return None
-            lut = ops_dither.dither_lut(dp, dither_phase)
+            gamma_path = bit_depth <= 4 and \
+                ops_dither._APPROX_GAMMA.get(dp.transfer, 1.0) != 1.0
+            if dp.method == ops_dither.DitherMethod.WHITE_NOISE:
+                bias = ops_dither.bias_matrix(dp, dst_h, dst_w, dither_phase)
+            else:
+                bias = ops_dither.dither_lut(dp, dither_phase)
+                if not gamma_path:
+                    lut = bias
+            dither = (dp, bias, gamma_path)
         fused_peak = bool(use_peak and params.peak_detect.allow_delayed)
         chain = color_chain(src_color, dst_color, params, use_peak)
-        plan = k1.plan_tail(chain, params, dst_color, target, fused_peak,
-                            lut)
+        fn = params.tone_mapping_function
+        plan = None
+        if dither is None or lut is not None:
+            plan = k1.plan_tail(chain, params, dst_color, target, fused_peak,
+                                lut)
+        if plan is None:
+            static_tp = _static_tone_params(src_color, params, chain) \
+                if chain.tone == "static" else None
+            show = _show_bounds(src_color, params)
+            thresholds = None
+            if show is not None and chain.kind == "ipt":
+                lo_lin, hi_lin = (float(tf.pq_eotf_fast(torch.tensor(
+                    v, dtype=torch.float32))) for v in show)
+                thresholds = (hi_lin + 1e-6, show[1] + 1e-6,
+                              lo_lin - 1e-6, show[0] - 1e-6)
+
+            def plain(img, tone, bias_t):
+                tone_fn = None
+                if chain.tone == "dynamic":
+                    vals = list(tone[:len(ops_tone.TONE_KEYS[fn])])
+                    tone_fn = lambda x: ops_tone.tone_apply(  # noqa: E731
+                        fn, x, vals, chain.dst_min_pq, chain.dst_max_pq)
+                elif chain.tone == "static":
+                    tone_fn = lambda x: tm.apply_device(  # noqa: E731
+                        x, static_tp)
+                y = _map_chain(img, chain, tone_fn, params, show)
+                y = ops_color.delinearize(y, dst_color)
+                y = ops_color.encode_color(y, target.repr,
+                                           dst_color.primaries)
+                if dither is not None:
+                    h, w = y.shape[-2], y.shape[-1]
+                    n = bias_t.shape[0]
+                    full = bias_t if dither[0].method == \
+                        ops_dither.DitherMethod.WHITE_NOISE else \
+                        bias_t.tile((-(-h // n), -(-w // n)))[:h, :w]
+                    y = ops_dither.dither(y, bit_depth, dither[0], bias=full)
+                return y
+            plan = k1.plan_generic(chain, params, src_color, dst_color,
+                                   target, fused_peak, dither, plain,
+                                   static_tone=static_tp,
+                                   show_bounds=thresholds)
         if plan is None:
             return None
         lut_t = torch.from_numpy(plan.lut).to(self.device) \
             if plan.lut is not None else None
-        fn = params.tone_mapping_function
+        dyn = chain.tone == "dynamic"
 
         def run(img, peak_stats):
             tone = None
-            if plan.tone:
+            if dyn:
                 avg_pq, max_pq = peak_stats
                 tone = ops_tone.tone_vector(
                     fn, max_pq, avg_pq, chain.dst_min_pq, chain.dst_max_pq,
                     params.tone_constants)
             return k1.color_map_tail(img.contiguous(), plan, tone, lut_t)
+        run.fused_peak = fused_peak
+        run.plan, run.lut = plan, lut_t
         return run
 
     # -- public API ----------------------------------------------------
@@ -629,7 +760,8 @@ class Renderer:
             fn = self._trace_pipeline(frame.meta_key(), target, params,
                                       frame.repr, frame.color,
                                       frame.get_crop(), frame.film_grain,
-                                      dither_phase=dither_phase)
+                                      dither_phase=dither_phase,
+                                      frame_icc=frame.icc)
         self._cache[key] = fn
         while len(self._cache) > _MAX_CACHED_PIPELINES:
             self._cache.pop(next(iter(self._cache)))

@@ -356,9 +356,11 @@ def test_k1_plain_is_the_plain_stages(monkeypatch, key):
 
 
 def test_k1_plan_refuses_what_no_instance_runs():
-    """plan_tail admits a chain only where an instance exists: the
-    static curve, same-frame stats, other gamut operators and non-sRGB
-    targets run the plain stages (None)."""
+    """plan_tail admits a chain only where a templated instance exists:
+    the static curve, same-frame stats, other gamut operators,
+    show_clipping and non-sRGB targets get none, and the renderer runs
+    those tails on K1's generic instance instead; a tail the reference
+    runs plain (an ICC target, a conversion LUT) gets no K1 tail."""
     h, w = 8, 128
     ts, td = tcs.color_space_infer_map(tcs.CSP_BT2100_PQ, tcs.CSP_SRGB)
     r = lt.Renderer(device="cpu")
@@ -367,20 +369,39 @@ def test_k1_plan_refuses_what_no_instance_runs():
     def tail(params, use_peak=True, target=tt, dst=td):
         return r._fused_tail(params, ts, dst, target, use_peak, w, h,
                              TRectF(0, 0, w, h))
-    assert tail(lt.RenderParams(upscaler="ewa_lanczos")) is not None
-    assert tail(lt.RenderParams(), use_peak=False) is None
-    assert tail(lt.RenderParams(peak_detect=lt.PeakDetectParams(
-        allow_delayed=False))) is None
-    assert tail(lt.RenderParams(gamut_mapping="relative")) is None
-    assert tail(lt.RenderParams(show_clipping=True)) is None
+    assert tail(lt.RenderParams(upscaler="ewa_lanczos")).plan.tone == 1
     _, bt709 = tcs.color_space_infer_map(tcs.CSP_BT2100_PQ,
                                          tcs.ColorSpace(
                                              tcs.ColorPrimaries.BT_709,
                                              tcs.ColorTransfer.BT_1886))
-    assert tail(lt.RenderParams(), dst=bt709) is None
+    for kw, use_peak, dst in (
+            ({}, False, td),
+            (dict(peak_detect=lt.PeakDetectParams(allow_delayed=False)),
+             True, td),
+            (dict(gamut_mapping="relative"), True, td),
+            (dict(show_clipping=True), True, td),
+            ({}, True, bt709)):
+        run = tail(lt.RenderParams(**kw), use_peak=use_peak, dst=dst)
+        assert run.plan.tone == k1.GENERIC, kw
+        params = lt.RenderParams(**kw)
+        chain = trender.color_chain(ts, dst, params, use_peak)
+        fused = use_peak and params.peak_detect.allow_delayed
+        assert k1.plan_tail(chain, params, dst, tt, fused, tdith.dither_lut(
+            tdith.DitherParams(), 0)) is None, kw
+    from libplacebo_tpu_torch.core import icc as ticc
+    from test_icc_h274 import _make_profile
+    icc_target = lt.Target(w=w, h=h, color=lt.CSP_SRGB, bit_depth=8,
+                           icc=ticc.parse_icc(_make_profile()))
+    assert tail(lt.RenderParams(), target=icc_target) is None
+    lut = lt.parse_cube("LUT_1D_SIZE 2\n0 0 0\n1 1 1")
+    assert tail(lt.RenderParams(lut=lut, lut_type="conversion")) is None
+    assert tail(lt.RenderParams(lut=lut, lut_type="native")) is not None
     assert len(k1.INSTANCES) == 15
     with pytest.raises(ValueError):
         k1.TailPlan(np.zeros(k1.NCONST, np.float32), tone=1, gamut=0)
+    with pytest.raises(ValueError):
+        k1.TailPlan(np.zeros(k1.NCONST, np.float32), tone=k1.GENERIC,
+                    gamut=k1.GENERIC)
 
 
 def test_k1_ops_per_pixel_per_instance(monkeypatch):

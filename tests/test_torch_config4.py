@@ -69,7 +69,8 @@ def _spaces(mod, case):
 
 
 # case -> RenderParams fields; config4_same_frame and config4_static run
-# the plain stages (same-frame detect_peak; the static metadata curve)
+# K1's generic instance (same-frame detect_peak; the static metadata
+# curve)
 CASES = {
     "config4": dict(upscaler="ewa_lanczos", tone_mapping_function="bt2390",
                     gamut_mapping="softclip"),
@@ -129,8 +130,9 @@ def _gate(out, ref):
 def test_render_three_frames(monkeypatch, case):
     """Three chained frames 64x128 -> 128x256 against the reference's
     renderer: mean |diff| < 1e-4, > 1 LSB on <= 5e-4 of values, PSNR
-    >= 45 dB, peak state atol 1e-5; config 4 and config 2 run every tail
-    on K1 (its plain version here), the other two on plain stages."""
+    >= 45 dB, peak state atol 1e-5; every tail runs on K1 (its plain
+    version here): config 4 and config 2 on templated instances, the
+    same-frame and static cases on the generic instance."""
     monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
     res, (k1_tails, plain_tails) = render_pair(case)
     for out, ref, state, jstate in res:
@@ -139,10 +141,9 @@ def test_render_three_frames(monkeypatch, case):
         assert mean < 1e-4 and above <= 5e-4 and psnr >= 45.0, \
             (mean, above, psnr)
         np.testing.assert_allclose(state, jstate, atol=1e-5)
-    if case in K1_CASES:
-        assert (k1_tails, plain_tails) == (3, 0)
-    else:
-        assert (k1_tails, plain_tails) == (0, 3)
+    # every tail runs on K1: config 4 and config 2 on templated
+    # instances, the same-frame and static cases on the generic one
+    assert (k1_tails, plain_tails) == (3, 0)
     if case.startswith("config4") and CASES[case].get("peak_detect", 1):
         assert res[-1][2][1] > 0
 

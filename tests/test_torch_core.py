@@ -212,7 +212,7 @@ def test_tf32_is_off():
 @pytest.mark.parametrize("feature", [
     dict(deinterlace=object()), dict(distort=object()),
     dict(hooks=(object(),)), dict(corner_rounding=0.5),
-    dict(contrast_recovery=0.3), dict(lut=object()),
+    dict(contrast_recovery=0.3), dict(color_adjustment=object()),
     dict(visualize_lut=True), dict(cone=object())])
 def test_outside_the_slice_raises(feature):
     """Every feature outside the ported slice raises NotImplementedError

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
     python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2
-                                           | --config3]
+                                           | --config3 | --pathA | --pathB]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
 Lanczos, K1 tail) or, with --config5, config 5 (the same frame carrying
@@ -17,7 +17,12 @@ RenderParams(): sigmoidized separable Lanczos, K1's pass-through tail),
 or with --config3 config 3 (config 2's frame with
 RenderParams(upscaler="ewa_lanczos4sharpest", antiringing_strength=0.8):
 the phased EWA with anti-ringing in sigmoidized light, K1's pass-through
-tail) after two warm-up frames, twice over:
+tail), with --pathA path A (config 4's content as 10-bit HLG -> 10-bit
+BT.2020 PQ at 600 nits, EWA Lanczos, static bt2446a on K1's generic
+instance) or with --pathB path B (config 2's frame through a 33^3
+native LUT to a Display P3 gamma 2.2 ICC profile, a plain tail; both
+defined by chip_smoke.py::path_cell) after two warm-up frames, twice
+over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
@@ -49,7 +54,7 @@ def main() -> int:
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if flags and flags not in (["--config5"], ["--config4"], ["--config2"],
-                               ["--config3"]):
+                               ["--config3"], ["--pathA"], ["--pathB"]):
         print(f"port_profile: unknown options {flags}", file=sys.stderr)
         return 2
     config = flags[0][2:] if flags else "flagship"
@@ -61,7 +66,7 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     H, W = 1080, 1920
     rng = np.random.default_rng(0)
-    bits = 10 if config == "config4" else 8
+    bits = 10 if config in ("config4", "pathA") else 8
     lo, span_y, span_c = (16, 219, 224) if bits == 8 else (64, 876, 896)
     dt = np.uint8 if bits == 8 else np.uint16
     y = (rng.random((H, W)) * span_y + lo).astype(dt)
@@ -83,11 +88,15 @@ def main() -> int:
         params = lt.RenderParams() if config == "config2" else \
             lt.RenderParams(upscaler="ewa_lanczos4sharpest",
                             antiringing_strength=0.8)
-    frame = lt.frame_from_yuv420p(
-        y, u, v, color=color, bit_depth=bits,
-        repr=lt.ColorRepr(sys=system, levels=lt.ColorLevels.LIMITED,
-                          bits=lt.BitEncoding(bits, bits, 0)))
+    repr = lt.ColorRepr(sys=system, levels=lt.ColorLevels.LIMITED,
+                        bits=lt.BitEncoding(bits, bits, 0))
     target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
+    if config in ("pathA", "pathB"):
+        from chip_smoke import path_cell
+        color, repr, _, target, params = path_cell(lt, config[-1], 2 * W,
+                                                   2 * H)
+    frame = lt.frame_from_yuv420p(y, u, v, color=color, bit_depth=bits,
+                                  repr=repr)
     grains = [None] * (2 + 2 * n)
     if config5:
         from libplacebo_tpu_torch.core.film_grain import sample_grain
