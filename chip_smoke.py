@@ -75,9 +75,36 @@ Phases (each runs uncaught: any failure exits non-zero):
     BT.1886 targets, YCbCr and ICtCp encodes, white noise,
     show_clipping, 3-bit gamma dither), each bit for bit against its
     plain version and timed (in `k1_instances`), and the host's draw
-    of a 4K white-noise bias (`white_noise_host_ms`).
-On every path but B the renderer must count K1 tails only (no plain
-tails); path B's tails count as ineligible (plain in the reference).
+    of a 4K white-noise bias (`white_noise_host_ms`);
+13. path C, "Dolby Vision profile 5 on an SDR display": 1920x1080
+    10-bit full-range yuv420p Dolby Vision frames, BT.2020 PQ, each
+    with a new RPU parsed that frame (tests/golden/dovi/profile5.bin
+    with profile81.bin's L1 block, its chroma MMR rewritten frame by
+    frame with the port's write_rpu; `color.hdr` from the L1 block) ->
+    3840x2160 8-bit sRGB, RenderParams(upscaler="ewa_lanczos"): the
+    chroma merge, the RPU reshape and decode, PQ, the EWA and K1's
+    <spline, perceptual> instance with dither, 3 chained frames through
+    one plan, counts read as before (K1 3 times);
+14. path D, "1080i broadcast deinterlaced to 4K": 1920x1080 8-bit
+    limited BT.709 BT.1886 yuv420p with woven fields, top field first,
+    carrying an H.274 SEI (luma and chroma models, a new seed each
+    frame); source frames 1 and 2 each rendered as their top then
+    bottom field with their neighbors, RenderParams(deinterlace=
+    DeinterlaceParams(BWDIF)): bwdif and H.274 grain on every plane,
+    then config 2's path (K1's pass-through instance with dither),
+    counts read as before (K1 4 times);
+15. the distortion phase: config 2's frames -> 3840x2160 with
+    distort=DistortParams.rotation(0.2), bicubic: the tail plain, as in
+    the reference, so K1 never launches and the tails count as
+    ineligible;
+    then paths C's and D's K1 launches against their plain versions at
+    4K, their GPU renders (and the distortion phase's) against the CPU
+    renders on a small input, and timings: the frames, and the
+    plain stages alone (`dovi_decode_1080p_ms`, `h274_1080p_ms` with
+    `h274_host_ms`, `deinterlace_1080p_ms`, `distort_4k_ms`).
+On every path but B and the distortion phase the renderer must count
+K1 tails only (no plain tails); path B's and the distortion phase's
+tails count as ineligible (plain in the reference).
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -365,6 +392,107 @@ def path_cell(lt, path, W, H):
                                 bits=lt.BitEncoding(8, 8, 0)), 8, target,
             lt.RenderParams(lut=lt.parse_cube(creative_cube()),
                             lut_type="native"))
+
+
+DOVI_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "golden", "dovi")
+
+
+def path_c_rpus(lt, n):
+    """n Dolby Vision RPUs, a new one every frame, written with the
+    port's write_rpu: profile 5's fixture (IPT-PQ-c2, luma polynomial,
+    chroma MMR) with profile 8.1's fixture's L1 block, its chroma MMR
+    constant and coefficients scaled frame by frame; the L1 block, and so
+    the render plan, stays the same."""
+    import dataclasses
+
+    def fixture(name):
+        with open(os.path.join(DOVI_FIXTURES, name + ".bin"), "rb") as f:
+            return f.read()
+    rpu = lt.parse_rpu(fixture("profile5"))
+    l1 = lt.parse_rpu(fixture("profile81")).ext_blocks[0]
+    rpu = dataclasses.replace(rpu, ext_blocks=(l1,))
+    out = []
+    for k in range(n):
+        c1 = rpu.curves[1]
+        c1 = dataclasses.replace(
+            c1, mmr_constant=tuple(v + 200000 * (k % 7)
+                                   for v in c1.mmr_constant),
+            mmr_coef=tuple(tuple(tuple(int(x * (1 + 0.1 * (k % 7)))
+                                       for x in row) for row in piece)
+                           for piece in c1.mmr_coef))
+        out.append(lt.write_rpu(dataclasses.replace(
+            rpu, curves=(rpu.curves[0], c1, rpu.curves[2]))))
+    return out
+
+
+def path_c_frame(lt, yuv, buf, device):
+    """Path C's frame: 10-bit full-range yuv420p Dolby Vision, BT.2020
+    PQ, its RPU parsed from `buf` and its HDR metadata from the RPU's L1
+    block."""
+    color = lt.ColorSpace(lt.ColorPrimaries.BT_2020, lt.ColorTransfer.PQ,
+                          lt.hdr_metadata_from_rpu(lt.HdrMetadata(), buf))
+    rep = lt.ColorRepr(sys=lt.ColorSystem.DOLBYVISION,
+                       levels=lt.ColorLevels.FULL,
+                       bits=lt.BitEncoding(10, 10, 0),
+                       dovi=lt.rpu_to_dovi(lt.parse_rpu(buf)))
+    return lt.frame_from_yuv420p(*yuv, color=color, repr=rep, bit_depth=10,
+                                 device=device)
+
+
+def path_c_yuv(n, h, w, seed=11):
+    """Path C's seeded 10-bit full-range content."""
+    rng = np.random.default_rng(seed)
+    return [tuple(rng.integers(0, 1024, s).astype(np.uint16)
+                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+            for _ in range(n)]
+
+
+# path D's film-grain SEI (H.274): luma and chroma models, two luma
+# intensity intervals
+H274_SEI = dict(
+    model_id=0, blending_mode_id=0, log2_scale_factor=2,
+    component_model_present=(True, True, True),
+    num_intensity_intervals=(2, 1, 1), num_model_values=(3, 2, 2),
+    intensity_interval_lower_bound=((0, 128), (0,), (0,)),
+    intensity_interval_upper_bound=((127, 255), (255,), (255,)),
+    comp_model_value=(((100, 8, 8), (60, 10, 6)), ((60, 6),), ((60, 6),)))
+PATH_D_SEED = 2024
+
+
+def path_d_sources(lt, yuvs, device):
+    """Path D's source frames: 8-bit limited BT.709 BT.1886 yuv420p,
+    woven fields."""
+    color = lt.ColorSpace(lt.ColorPrimaries.BT_709, lt.ColorTransfer.BT_1886)
+    rep = lt.ColorRepr(sys=lt.ColorSystem.BT_709,
+                       levels=lt.ColorLevels.LIMITED,
+                       bits=lt.BitEncoding(8, 8, 0))
+    return [lt.frame_from_yuv420p(*f, color=color, repr=rep, device=device)
+            for f in yuvs]
+
+
+def path_d_field(lt, sources, k, field):
+    """Source frame k shown as `field` ("TOP" or "BOTTOM"; top field
+    first) with its neighbors, carrying the SEI with frame k's seed."""
+    import copy
+    f = copy.copy(sources[k])
+    f.field, f.first_field = lt.Field[field], lt.Field.TOP
+    f.prev = sources[k - 1] if k > 0 else None
+    f.next = sources[k + 1] if k + 1 < len(sources) else None
+    f.film_grain = lt.FilmGrainData(type="h274", seed=PATH_D_SEED + k,
+                                    h274=lt.H274GrainData(**H274_SEI))
+    return f
+
+
+def path_d_params(lt):
+    return lt.RenderParams(deinterlace=lt.DeinterlaceParams(
+        lt.DeinterlaceAlgo.BWDIF))
+
+
+def distort_params(lt):
+    """The distortion phase's: a 0.2 rad rotation, bicubic."""
+    return lt.RenderParams(distort=lt.DistortParams(
+        transform=lt.DistortParams.rotation(0.2).transform, bicubic=True))
 
 
 # the K1 tails chip_smoke holds on the generic instance beside path A's:
@@ -681,6 +809,31 @@ def main() -> int:
         rendererB = lt.Renderer(device=dev)
         outsB, pb_launches, pb_tails = _render_run(
             rendererB, framesB, targetB, paramsB, counters)
+        # 13. path C: Dolby Vision profile 5, a new RPU parsed each frame
+        yuvsC = path_c_yuv(3, H, W)
+        framesC = [path_c_frame(lt, f, b, dev)
+                   for f, b in zip(yuvsC, path_c_rpus(lt, 3))]
+        rendererC = lt.Renderer(device=dev)
+        outsC, pc_launches, pc_tails = _render_run(
+            rendererC, framesC, target, params, counters)
+        pc_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        # 14. path D: 1080i with an H.274 SEI, each source frame's top
+        # then bottom field with its neighbors
+        paramsD = path_d_params(lt)
+        sourcesD = path_d_sources(lt, _flagship_yuv(8, H, W, seed=13), dev)
+        fieldsD = [path_d_field(lt, sourcesD, k, fld) for k in (1, 2)
+                   for fld in ("TOP", "BOTTOM")]
+        rendererD = lt.Renderer(device=dev)
+        outsD, pd_launches, pd_tails = _render_run(
+            rendererD, fieldsD, target, paramsD, counters)
+        pd_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        # 15. the distortion phase: config 2's frames rotated at 4K
+        paramsX = distort_params(lt)
+        rendererX = lt.Renderer(device=dev)
+        outsX, px_launches, px_tails = _render_run(
+            rendererX, frames2, target, paramsX, counters)
     finally:
         polar.sample_polar = real["ewa"]
         k1.color_map_tail = real["k1"]
@@ -694,12 +847,25 @@ def main() -> int:
     assert c3_launches == {"k1": 3, "k2": 0, "k3": 0}, c3_launches
     assert pa_launches == {"k1": 3, "k2": 0, "k3": 0}, pa_launches
     assert pb_launches == {"k1": 0, "k2": 0, "k3": 0}, pb_launches
+    assert pc_launches == {"k1": 3, "k2": 0, "k3": 0}, pc_launches
+    assert pd_launches == {"k1": 4, "k2": 0, "k3": 0}, pd_launches
+    assert px_launches == {"k1": 0, "k2": 0, "k3": 0}, px_launches
     # every tail of every path ran on K1, but path B's, which the
     # reference runs plain too (an ICC target)
     for tails in (flag_tails, c5_tails, c4_tails, c2_tails, c3_tails,
-                  pa_tails):
+                  pa_tails, pc_tails):
         assert tails == (3, 0, 0), tails
-    assert pb_tails == (0, 0, 3), pb_tails
+    assert pd_tails == (4, 0, 0), pd_tails
+    assert pb_tails == (0, 0, 3) and px_tails == (0, 0, 3), \
+        (pb_tails, px_tails)
+    # path C: one plan for every RPU (the coefficients are frame data),
+    # the flagship's <spline, perceptual> instance with dither; path D:
+    # one plan a field, the pass-through instance with dither
+    assert len(rendererC._cache) == 1 and len(rendererD._cache) == 2
+    assert (pc_k1[1].tone, pc_k1[1].gamut) == (1, 2) and \
+        pc_k1[2] is not None and pc_k1[3] is not None
+    assert (pd_k1[1].tone, pd_k1[1].gamut, pd_k1[1].flags) == (0, 0, 0) \
+        and pd_k1[2] is None and pd_k1[3] is not None
     # path A as the reference plans it: the HLG source adapts to the
     # display's peak (color_space_infer_map), so no tone curve runs and
     # the tail is the pass-through chain into a PQ target
@@ -718,7 +884,8 @@ def main() -> int:
     assert c3_ewa[1].name == "ewa_lanczos4sharpest" and c3_ewa[5] == 0.8
     assert polar._route(polar.plan_polar(*ewa_key[:6]), 2 * H, 2 * W,
                         0.8) == "phased"
-    for out in outs + outs5 + outs4 + outs2 + outs3 + outsA + outsB:
+    for out in (outs + outs5 + outs4 + outs2 + outs3 + outsA + outsB +
+                outsC + outsD + outsX):
         assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
         assert bool(torch.isfinite(out).all())
         assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
@@ -859,6 +1026,33 @@ def main() -> int:
             assert d.mean() < 1e-4 and (d > lsb + 1e-5).mean() <= 5e-4, \
                 (path, small_paths[path][-1])
 
+    # 13b-15b. paths C's and D's K1 launches vs their plain versions on
+    # frame 2's input at 4K, and their GPU renders (and the distortion
+    # phase's) vs the CPU renders on a small input (the flagship's gate)
+    pc_err, pc_frac, pc_part = _check_k1(k1, pc_k1)
+    pd_err, pd_frac, _ = _check_k1(k1, pd_k1)
+    small_yuv = _flagship_yuv(4, 64, 128, seed=7)
+    small_cases = {
+        "C": (params, [(path_c_frame, (f, b)) for f, b in zip(
+            path_c_yuv(2, 64, 128, seed=7), path_c_rpus(lt, 2))]),
+        "D": (paramsD, [(lambda lt_, srcs, dv, k=k, fld=fld: path_d_field(
+            lt_, path_d_sources(lt_, srcs, dv), k, fld), (small_yuv,))
+            for k, fld in ((1, "TOP"), (1, "BOTTOM"), (2, "TOP"))]),
+        "distort": (paramsX, [(lambda lt_, f, dv: _frame(
+            lt_, f, dv, config="config2"), (f,)) for f in small_yuv[:2]])}
+    for path, (p, makers) in small_cases.items():
+        rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+        small_paths[path] = []
+        for make, args in makers:
+            g = rg.render(make(lt, *args, dev), st, p).cpu().numpy()
+            c = rc.render(make(lt, *args, "cpu"), st, p).numpy()
+            d = np.abs(g - c)
+            small_paths[path].append({
+                "max": float(d.max()), "mean": float(d.mean()),
+                "above_1lsb": float((d > LSB + 1e-5).mean())})
+            assert d.mean() < 1e-4 and (d > LSB + 1e-5).mean() <= 5e-4, \
+                (path, small_paths[path][-1])
+
     # 6. timings (their launches are not counted).  Config 5's frames
     # carry a new grain seed each, as an AV1 stream's do, so every frame
     # generates and uploads its grain tables
@@ -900,6 +1094,73 @@ def main() -> int:
     pb_ms, pb_window_ms = frame_times(
         rendererB, [framesB[k % 3] for k in range(n_timed)], paramsB,
         targetB)
+    # path C: a new RPU every frame (parsed with the frame); path D: the
+    # fields of source frames 1-6, each with its neighbors; the
+    # distortion phase on config 2's frames
+    framesC_t = [path_c_frame(lt, yuvsC[k % 3], b, dev)
+                 for k, b in enumerate(path_c_rpus(lt, n_timed))]
+    pc_ms, pc_window_ms = frame_times(rendererC, framesC_t, params)
+    assert len(rendererC._cache) == 1
+    pd_ms, pd_window_ms = frame_times(
+        rendererD, [path_d_field(lt, sourcesD, 1 + k // 2,
+                                 ("TOP", "BOTTOM")[k % 2])
+                    for k in range(n_timed)], paramsD)
+    px_ms, px_window_ms = frame_times(
+        rendererX, [frames2[k % 3] for k in range(n_timed)], paramsX)
+    # the host's parse of one frame's RPU (parse, map, L1 metadata)
+    rpu_bufs = path_c_rpus(lt, 5)
+    rpu_host_ms = []
+    for b in rpu_bufs:
+        t = time.perf_counter()
+        lt.rpu_to_dovi(lt.parse_rpu(b))
+        lt.hdr_metadata_from_rpu(lt.HdrMetadata(), b)
+        rpu_host_ms.append((time.perf_counter() - t) * 1e3)
+    # the new plain stages alone, on 1080p inputs as the renderer runs
+    # them: the DoVi decode of a merged frame, H.274 grain and bwdif on
+    # the three planes of a field, and the distortion at 4K
+    from libplacebo_tpu_torch.ops import color as ops_color
+    from libplacebo_tpu_torch.ops import deinterlace as ops_di
+    from libplacebo_tpu_torch.ops import distort as ops_distort
+    from libplacebo_tpu_torch.ops import dovi as ops_dovi
+    from libplacebo_tpu_torch.ops import film_grain_h274 as ops_h274
+    gen = torch.Generator(device=dev).manual_seed(37)
+    sig1080 = torch.rand((3, H, W), device=dev, generator=gen)
+    packed = ops_dovi.pack_dovi(framesC[1].repr.dovi)
+    dovi_ms = _cuda_ms(lambda: ops_color.decode_color(
+        sig1080, framesC[1].repr, dovi_packed=packed), 10)
+    fD = fieldsD[1]
+    planesD = [p.data for p in fD.planes]
+    prevD = [p.data for p in fD.prev.planes]
+    nextD = [p.data for p in fD.next.planes]
+    shapesD = [(p.component_mapping, p.h, p.w) for p in fD.planes]
+    h274_tables = ops_h274.prepare_h274(fD.film_grain, shapesD, dev)
+    h274_ms = _cuda_ms(lambda: [ops_h274.apply_h274_grain(
+        p, fD.film_grain, m, True, tb) for p, (m, _, _), tb in
+        zip(planesD, shapesD, h274_tables)], 10)
+    h274_host_ms = []
+    for k in range(5):
+        grain = lt.FilmGrainData(type="h274", seed=PATH_D_SEED + 100 + k,
+                                 h274=lt.H274GrainData(**H274_SEI))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ops_h274.prepare_h274(grain, shapesD, dev)
+        h274_host_ms.append((time.perf_counter() - t) * 1e3)
+    deint_ms = _cuda_ms(lambda: [ops_di.deinterlace(
+        p, fD.field, paramsD.deinterlace, prev=pv, next=nx,
+        first_field=fD.first_field) for p, pv, nx in
+        zip(planesD, prevD, nextD)], 10)
+    plan_x = ops_distort.plan_distort(2 * H, 2 * W, 2 * W, 2 * H,
+                                      paramsX.distort, dev)
+    enc4k = torch.rand((3, 2 * H, 2 * W), device=dev, generator=gen)
+    distort_ms = _cuda_ms(lambda: ops_distort.distort_image(
+        enc4k, 2 * W, 2 * H, paramsX.distort, plan_x), 5)
+    del sig1080, enc4k, plan_x
+    k1_pc_ms = _cuda_ms(lambda: k1.color_map_tail(*pc_k1), 20)
+    k1_pc_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        pc_k1[0], pc_k1[1].consts, *pc_k1[2:], pc_k1[1].instance), 3)
+    k1_pd_ms = _cuda_ms(lambda: k1.color_map_tail(*pd_k1), 20)
+    k1_pd_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        pd_k1[0], pd_k1[1].consts, *pd_k1[2:], pd_k1[1].instance), 3)
     k1_pa_ms = _cuda_ms(lambda: k1.color_map_tail(*pa_k1), 20)
     k1_pa_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pa_k1), 3)
     # path B's stages alone: the native LUT on a 1080p frame (the
@@ -1103,6 +1364,10 @@ def main() -> int:
                   c3_launches["k1"], k1_3_err, k1_3_ms, k1_3_plain_ms),
         _k1_entry(k1, "k1_color_map_generic_path_a", pa_k1, pa_part,
                   pa_launches["k1"], pa_err, k1_pa_ms, k1_pa_plain_ms),
+        _k1_entry(k1, "k1_color_map_path_c", pc_k1, pc_part,
+                  pc_launches["k1"], pc_err, k1_pc_ms, k1_pc_plain_ms),
+        _k1_entry(k1, "k1_color_map_pass_path_d", pd_k1, None,
+                  pd_launches["k1"], pd_err, k1_pd_ms, k1_pd_plain_ms),
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -1157,6 +1422,21 @@ def main() -> int:
         "k1_path_a_ms": k1_pa_ms, "k1_path_a_plain_ms": k1_pa_plain_ms,
         "k1_path_a_ops_per_pixel": k1.ops_per_pixel(pa_k1[1].consts,
                                                     pa_k1[1].instance),
+        "path_c_frame_ms_median": statistics.median(pc_ms),
+        "path_c_frame_ms": pc_ms, "path_c_window_ms": pc_window_ms,
+        "path_d_frame_ms_median": statistics.median(pd_ms),
+        "path_d_frame_ms": pd_ms, "path_d_window_ms": pd_window_ms,
+        "distort_frame_ms_median": statistics.median(px_ms),
+        "distort_frame_ms": px_ms, "distort_window_ms": px_window_ms,
+        "path_c_tails": pc_tails, "path_d_tails": pd_tails,
+        "distort_tails": px_tails,
+        "k1_path_c_ms": k1_pc_ms, "k1_path_c_plain_ms": k1_pc_plain_ms,
+        "k1_path_c_differing_fraction": pc_frac,
+        "k1_path_d_ms": k1_pd_ms, "k1_path_d_plain_ms": k1_pd_plain_ms,
+        "k1_path_d_differing_fraction": pd_frac,
+        "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
+        "h274_1080p_ms": h274_ms, "h274_host_ms": h274_host_ms,
+        "deinterlace_1080p_ms": deint_ms, "distort_4k_ms": distort_ms,
         "path_b_lut_1080p_ms": lut_ms, "path_b_lut_rank": lut_rank,
         "path_b_icc_encode_4k_ms": icc_ms,
         "white_noise_host_ms": white_noise_host_ms,

@@ -19,23 +19,32 @@ _torch.backends.cudnn.allow_tf32 = False
 from .core.colorspace import (BitEncoding, ColorLevels, ColorPrimaries,  # noqa: E402
                               ColorRepr, ColorSpace, ColorSystem,
                               ColorTransfer, CSP_BT2100_PQ, CSP_SRGB,
-                              HdrMetadata)
+                              DoviMetadata, HdrMetadata)
 from .core.dither import DitherMethod  # noqa: E402
-from .core.film_grain import AV1GrainData, FilmGrainData  # noqa: E402
+from .core.film_grain import (AV1GrainData, FilmGrainData,  # noqa: E402
+                              H274GrainData)
 from .core.icc import IccProfile, parse_icc  # noqa: E402
 from .core.lut import CustomLut, parse_cube  # noqa: E402
 from .ops.deband import DebandParams  # noqa: E402
+from .ops.deinterlace import (DeinterlaceAlgo, DeinterlaceParams,  # noqa: E402
+                              Field)
+from .ops.distort import DistortParams  # noqa: E402
 from .ops.dithering import DitherParams  # noqa: E402
 from .ops.peak_detect import PeakDetectParams  # noqa: E402
 from .render.frame import Frame, Plane, frame_from_yuv420p  # noqa: E402
-from .render.renderer import (RenderParams, Renderer, Target,  # noqa: E402
-                              render_image)
+from .render.renderer import (RenderError, RenderParams,  # noqa: E402
+                              Renderer, Target, render_image)
+from .utils.dolbyvision import (hdr_metadata_from_rpu, parse_rpu,  # noqa: E402
+                                rpu_to_dovi, write_rpu)
 
 __all__ = ["Renderer", "render_image", "RenderParams", "Target", "Frame",
            "Plane", "frame_from_yuv420p", "DitherParams", "DitherMethod",
            "DebandParams", "CustomLut", "parse_cube", "IccProfile",
            "parse_icc",
-           "FilmGrainData", "AV1GrainData",
+           "FilmGrainData", "AV1GrainData", "H274GrainData",
+           "DoviMetadata", "parse_rpu", "write_rpu", "rpu_to_dovi",
+           "hdr_metadata_from_rpu", "DeinterlaceParams", "DeinterlaceAlgo",
+           "Field", "DistortParams", "RenderError",
            "PeakDetectParams", "BitEncoding", "ColorLevels",
            "ColorPrimaries", "ColorRepr", "ColorSpace", "ColorSystem",
            "ColorTransfer", "CSP_BT2100_PQ", "CSP_SRGB", "HdrMetadata"]

@@ -20,7 +20,8 @@ from .common import Matrix3x3, Transform3x3
 __all__ = [
     "ColorSystem", "ColorLevels", "AlphaMode", "ColorPrimaries",
     "ColorTransfer", "HdrScaling", "CIExy", "RawPrimaries", "BitEncoding",
-    "HdrMetadata", "ColorRepr", "ColorSpace", "COLOR_SDR_WHITE",
+    "HdrMetadata", "DoviMetadata", "ColorRepr", "ColorSpace",
+    "COLOR_SDR_WHITE",
     "COLOR_HDR_BLACK", "CSP_SRGB", "CSP_BT2100_PQ",
     "hdr_rescale", "primaries_get", "primaries_guess",
     "color_space_infer_map", "rgb_to_xyz_matrix", "adapt_white_matrix",
@@ -378,13 +379,28 @@ class BitEncoding:
 
 
 @dataclass(frozen=True)
+class DoviMetadata:
+    """Parsed Dolby Vision RPU (reference pl_dovi_metadata,
+    colorspace.h:135-155). Reshape data grouped per component."""
+    nonlinear_offset: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    nonlinear: Tuple = ()      # 3x3, applied before PQ ("ycc_to_rgb")
+    linear: Tuple = ()         # 3x3, applied after PQ ("rgb_to_lms")
+    # per component c in 0..2: dict with keys
+    #   pivots: tuple[float,...]  (num_pivots entries, normalized)
+    #   method: tuple[int,...]    (0 = polynomial, 1 = MMR)
+    #   poly_coeffs: tuple[tuple[f,f,f],...]
+    #   mmr_order/mmr_constant/mmr_coeffs
+    comp: Tuple = ()
+
+
+@dataclass(frozen=True)
 class ColorRepr:
     """Encoded-color representation; enum fields accept string names."""
     sys: ColorSystem = ColorSystem.UNKNOWN
     levels: ColorLevels = ColorLevels.UNKNOWN
     alpha: AlphaMode = AlphaMode.UNKNOWN
     bits: BitEncoding = field(default_factory=BitEncoding)
-    dovi: Optional[object] = None
+    dovi: Optional[DoviMetadata] = None
 
     def __post_init__(self):
         object.__setattr__(self, "sys", coerce_enum(
@@ -469,26 +485,14 @@ def ictcp_matrices(variant: ColorSystem) -> Tuple[np.ndarray, np.ndarray]:
     raise ValueError(variant)
 
 
-# the systems color_repr_decode builds a transform for: the affine
-# matrix systems, and the linear pre-matrix of the non-linear ones
-# (ICtCp, BT.2020-C, XYZ), whose non-linear steps ops/color.py applies
-MATRIX_SYSTEMS = (ColorSystem.RGB, ColorSystem.BT_601, ColorSystem.BT_709,
-                  ColorSystem.SMPTE_240M, ColorSystem.BT_2020_NC,
-                  ColorSystem.YCGCO, ColorSystem.YCGCO_RE,
-                  ColorSystem.YCGCO_RO, ColorSystem.BT_2020_C,
-                  ColorSystem.BT_2100_PQ, ColorSystem.BT_2100_HLG,
-                  ColorSystem.XYZ)
-
-
 def color_repr_decode(repr: ColorRepr) -> Tuple[Transform3x3, ColorRepr]:
     """Affine transform taking sampled (normalized) texture values to
-    full-range RGB — for the non-linear systems, their linear pre-matrix
-    (reference pl_color_repr_decode, colorspace.c:1717)."""
+    full-range RGB — for the non-linear systems (ICtCp, BT.2020-C, XYZ,
+    Dolby Vision), their linear pre-matrix (reference
+    pl_color_repr_decode, colorspace.c:1717)."""
     sys = repr.sys if repr.sys != ColorSystem.UNKNOWN else ColorSystem.RGB
-    if sys not in MATRIX_SYSTEMS:
-        raise NotImplementedError(
-            f"color system {sys.value} is not ported (ROADMAP slice 3 "
-            "item 17: Dolby Vision)")
+    if sys == ColorSystem.DOLBYVISION and repr.dovi is None:
+        raise ValueError("DOLBYVISION repr requires dovi metadata")
     levels = levels_guess(repr)
     scale, norm_repr = color_repr_normalize(repr)
     depth = norm_repr.bits.sample_depth or 8
@@ -510,9 +514,13 @@ def color_repr_decode(repr: ColorRepr) -> Tuple[Transform3x3, ColorRepr]:
         M = np.array([[1.0, -1.0, 1.0], [1.0, 1.0, 0.0], [1.0, -1.0, -1.0]])
     elif sys in (ColorSystem.YCGCO_RE, ColorSystem.YCGCO_RO):
         M = np.array([[1.0, -0.5, 0.5], [1.0, 0.5, 0.0], [1.0, -0.5, -0.5]])
+    elif sys == ColorSystem.DOLBYVISION:
+        M = np.asarray(repr.dovi.nonlinear, dtype=np.float64).reshape(3, 3)
     else:
         M = _ycbcr_matrix(*_luma_for_system(sys))
     off = np.zeros(3)
+    if sys == ColorSystem.DOLBYVISION:
+        off = -M @ np.asarray(repr.dovi.nonlinear_offset, dtype=np.float64)
     ycbcr = system_is_ycbcr_like(sys)
 
     imax = (1 << depth) - 1
@@ -525,7 +533,12 @@ def color_repr_decode(repr: ColorRepr) -> Tuple[Transform3x3, ColorRepr]:
         ymul = 1.0
         yoff = 0.0
         cmul = 0.5 / (1.0 - coff) if ycbcr else 1.0
-    if ycbcr:
+    if sys == ColorSystem.DOLBYVISION:
+        # the RPU matrix already includes the levels: only the signalled
+        # nonlinear offsets apply (reference: mul = 1, black = offsets)
+        pre_mul = np.eye(3)
+        pre_off = np.zeros(3)
+    elif ycbcr:
         pre_mul = np.diag([ymul, cmul, cmul])
         pre_off = np.array([-yoff * ymul, -coff * cmul, -coff * cmul])
     else:

@@ -1,4 +1,4 @@
-"""AV1 film-grain synthesis: host-side table generation.
+"""Film-grain metadata (AV1 and H.274) and AV1's host-side tables.
 
 Counterpart of libplacebo_tpu/core/film_grain.py (the CPU half of the
 reference's src/shaders/film_grain_av1.c: generate_grain_y:303,
@@ -20,7 +20,7 @@ import numpy as np
 
 from .. import native
 
-__all__ = ["AV1GrainData", "FilmGrainData", "sample_grain",
+__all__ = ["AV1GrainData", "H274GrainData", "FilmGrainData", "sample_grain",
            "generate_grain_y",
            "generate_grain_uv", "generate_offsets", "generate_scaling",
            "BLOCK_SIZE", "SCALING_LUT_SIZE"]
@@ -56,13 +56,27 @@ class AV1GrainData:
 
 
 @dataclass(frozen=True)
+class H274GrainData:
+    """Reference pl_h274_grain_data (SMPTE RDD-5 / H.274 SEI)."""
+    model_id: int = 0
+    blending_mode_id: int = 0
+    log2_scale_factor: int = 0
+    component_model_present: Tuple[bool, bool, bool] = (False, False, False)
+    num_intensity_intervals: Tuple[int, ...] = (0, 0, 0)
+    num_model_values: Tuple[int, ...] = (0, 0, 0)
+    intensity_interval_lower_bound: Tuple = ((), (), ())
+    intensity_interval_upper_bound: Tuple = ((), (), ())
+    comp_model_value: Tuple = ((), (), ())
+
+
+@dataclass(frozen=True)
 class FilmGrainData:
-    """Reference pl_film_grain_data (film_grain.h:82-100), AV1 only:
-    H.274 grain is not ported (ROADMAP slice 3 item 18)."""
+    """Reference pl_film_grain_data (film_grain.h:82-100): AV1 or H.274
+    grain; the seed may change every frame."""
     type: str = "av1"            # "av1" | "h274" | "none"
     seed: int = 0
     av1: Optional[AV1GrainData] = None
-    h274: Optional[object] = None
+    h274: Optional[H274GrainData] = None
 
 
 def sample_grain(seed: int = 7391) -> FilmGrainData:

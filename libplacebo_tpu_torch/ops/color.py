@@ -1,7 +1,8 @@
 """Color decoding/encoding & (de)linearization on (C, H, W) tensors.
 
 Counterpart of libplacebo_tpu/ops/color.py: the matrix color systems,
-the non-linear ones (ICtCp PQ/HLG, BT.2020 constant luminance, XYZ),
+the non-linear ones (ICtCp PQ/HLG, BT.2020 constant luminance, XYZ,
+Dolby Vision),
 and every transfer curve (HLG with its OOTF, the scene-referred camera
 curves without display scaling, scRGB keeping negatives).  Channel
 mixes are unrolled per-channel multiply-adds with float32 weights and
@@ -84,13 +85,55 @@ def _pick(cond, a: float, b: float):
                        torch.full_like(cond, b, dtype=torch.float32))
 
 
+def _mat_traced(img, mat: np.ndarray, off=None):
+    """out[c] = sum_k mat[c, k] * img[k] (- off[c]) with every weight
+    kept, zeros too, rounded as XLA rounds a product with a traced
+    matrix: the first product fused into the second, the third fused
+    into the sum."""
+    chans = []
+    for c in range(3):
+        w = [float(v) for v in np.asarray(mat[c], np.float32)]
+        acc = fma(img[..., 0, :, :], w[0], img[..., 1, :, :] * w[1])
+        acc = fma(img[..., 2, :, :], w[2], acc)
+        chans.append(acc - float(off[c]) if off is not None else acc)
+    return torch.stack(chans, dim=-3)
+
+
+def _decode_dovi(img, repr: ColorRepr, dovi_packed):
+    """Dolby Vision: reshape -> the nonlinear (YCC -> RGB) matrix -> PQ
+    linearize -> the linear (LMS -> RGB) matrix -> back to PQ-encoded
+    RGB, so the uniform linearize downstream applies (reference
+    decode_color, ops/color.py:218-241).  With `dovi_packed` (the
+    renderer's per-frame RPU) the matrices are the frame's data."""
+    from . import dovi as ops_dovi
+    if dovi_packed is not None:
+        img = ops_dovi.dovi_reshape_packed(img, dovi_packed)
+        img = _mat_traced(img, dovi_packed.nonlinear,
+                          ops_dovi.dovi_offset(dovi_packed))
+        lms = tf.pq_eotf_fast(torch.clamp_min(img, 0.0))
+        rgb = _mat_traced(lms, dovi_packed.linear)
+        return tf.pq_oetf_fast(torch.clamp_min(rgb, 0.0))
+    img = ops_dovi.dovi_reshape(img, repr.dovi)
+    tr, _ = color_repr_decode(repr)
+    img = mat_pointwise(img, tr.mat.m, tr.c)
+    lms = tf.pq_eotf_fast(torch.clamp_min(img, 0.0))
+    rgb = mat_pointwise(lms, np.asarray(repr.dovi.linear,
+                                        np.float64).reshape(3, 3))
+    return tf.pq_oetf_fast(torch.clamp_min(rgb, 0.0))
+
+
 def decode_color(img, repr: ColorRepr,
-                 prim: ColorPrimaries = ColorPrimaries.UNKNOWN):
+                 prim: ColorPrimaries = ColorPrimaries.UNKNOWN,
+                 dovi_packed=None):
     """Encoded (sampled, normalized) planes -> full-range RGB, with the
-    non-linear steps of ICtCp, BT.2020-C and XYZ (reference
+    non-linear steps of ICtCp, BT.2020-C, XYZ and Dolby Vision (reference
     pl_shader_decode_color, shaders/colorspace.c:275).  ICtCp runs the
     exact PQ curves, as the reference's container transforms do."""
     sys = repr.sys
+    if sys == ColorSystem.DOLBYVISION:
+        if repr.dovi is None and dovi_packed is None:
+            raise ValueError("DOLBYVISION repr requires dovi metadata")
+        return _decode_dovi(img, repr, dovi_packed)
     tr, _ = color_repr_decode(repr)
     img = mat_pointwise(img, tr.mat.m, tr.c)
     if sys == ColorSystem.XYZ:

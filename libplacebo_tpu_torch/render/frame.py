@@ -56,6 +56,13 @@ class Frame:
     # outside the ported slice: the renderer raises when these are set
     rotation: int = 0
     overlays: list = field(default_factory=list)
+    # interlacing (reference pl_frame.field + pl_frame_mix's temporal
+    # neighbors): the field shown now (ops.deinterlace.Field), the
+    # stream's first field, and the previous / next frames
+    field: Optional[object] = None
+    first_field: Optional[object] = None
+    prev: Optional["Frame"] = None
+    next: Optional["Frame"] = None
 
     @property
     def ref_plane(self) -> Plane:
@@ -85,9 +92,12 @@ class Frame:
 
     def meta_key(self) -> tuple:
         """Static signature of everything that shapes the render plan.
-        The grain's structure (which channels, overlap, scaling shift) is
-        static; its seed is not — a new seed only swaps the per-frame
-        grain tables."""
+        The grain's structure (AV1: which channels, overlap, scaling
+        shift; H.274: the models) is static; its seed is not — a new
+        seed only swaps the per-frame grain inputs.  A Dolby Vision RPU
+        keys by presence only: its coefficients are per-frame data.
+        Fields key by the field shown, the first field and whether the
+        neighbor frames are present."""
         grain_static = None
         if self.film_grain is not None and self.film_grain.av1 is not None:
             a = self.film_grain.av1
@@ -95,15 +105,20 @@ class Frame:
                             a.num_points_uv[0] > 0, a.num_points_uv[1] > 0,
                             a.chroma_scaling_from_luma, a.overlap,
                             a.scaling_shift)
+        elif self.film_grain is not None and \
+                self.film_grain.type == "h274":
+            grain_static = ("h274", self.film_grain.h274)
         elif self.film_grain is not None:
             grain_static = (self.film_grain.type,)
         return (
             tuple((tuple(p.data.shape), p.component_mapping, p.shift_x,
                    p.shift_y) for p in self.planes),
             self.repr.sys, self.repr.levels, self.repr.alpha,
-            self.repr.bits, self.color.primaries, self.color.transfer,
+            self.repr.bits, self.repr.dovi is not None,
+            self.color.primaries, self.color.transfer,
             self.color.hdr, self.get_crop(), str(self.device), grain_static,
-            icc_key(self.icc))
+            icc_key(self.icc), self.field, self.first_field,
+            self.prev is not None, self.next is not None)
 
 
 def icc_key(icc) -> Optional[int]:

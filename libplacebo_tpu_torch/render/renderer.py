@@ -2,31 +2,35 @@
 
 Counterpart of libplacebo_tpu/render/renderer.py for the ported paths,
 keeping the reference package's stage order (`_trace_pipeline`): per
-plane deband and AV1 film grain -> merge planes (bilinear chroma
-alignment) -> decode -> linearize (and sigmoidize, for SDR sources) ->
-main scaler (EWA or separable, with anti-ringing) -> desigmoidize -> the
-color-map tail -> error diffusion (kernels K3, K2, K3) -> finish the
-peak state, with a native custom LUT after the decode and, with ICC
-profiles, the frame's decoding the source and the target's encoding
-the output.  The tail runs on kernel K1 (tone + gamut + delinearize +
-encode, with the peak partials, and the dither unless error diffusion
-quantizes) wherever the reference's kernel would run it (a templated
-instance or the generic one, `ops/cuda/color_map.py`), and as plain
-stages where the reference runs it plain too (an ICC target, a
-conversion LUT); `k1_tails`, `plain_tails` and `ineligible_tails`
-count which ran.  Planning (color inference, boundary
-fits, filter weights, K1's packed constants, deband's random tables)
-happens once per signature on the host and is cached; the grain tables
-are per frame (their seed changes): generated on the host (cached by
-seed, as the reference caches them) and uploaded every frame.  PyTorch
-then runs the stages eagerly.  Every parameter outside the ported slices
-raises NotImplementedError naming the ROADMAP item that ports it —
+plane deinterlacing, deband, H.274 and AV1 film grain -> merge planes
+(bilinear chroma alignment) -> decode (Dolby Vision's reshaping with the
+frame's RPU) -> linearize (and sigmoidize, for SDR sources) -> main
+scaler (EWA or separable, with anti-ringing) -> desigmoidize -> the
+color-map tail -> affine distortion -> dither or error diffusion
+(kernels K3, K2, K3) -> finish the peak state, with a native custom LUT
+after the decode and, with ICC profiles, the frame's decoding the source
+and the target's encoding the output.  The tail runs on kernel K1
+(tone + gamut + delinearize + encode, with the peak partials, and the
+dither unless error diffusion quantizes) wherever the reference's
+kernel would run it (a templated instance or the generic one,
+`ops/cuda/color_map.py`), and as plain stages where the reference runs
+it plain too (an ICC target, a conversion LUT, a distortion);
+`k1_tails`, `plain_tails` and `ineligible_tails` count which ran.
+Planning (color inference, boundary fits, filter weights, K1's packed
+constants, deband's random tables, the distortion's inverse map)
+happens once per signature on the host and is cached; the per-frame
+inputs (`FrameInputs`) are not: the grain tables (AV1's generated on
+the host, cached by seed as the reference caches them; H.274's block
+hash) uploaded every frame, the neighbor frames of a field, and the
+frame's Dolby Vision RPU, packed on the host.  PyTorch then runs the
+stages eagerly.  Every parameter outside the ported slices raises
+NotImplementedError naming the ROADMAP item that ports it —
 nothing silently takes another path.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,8 +50,12 @@ from ..core import transfer as tf
 from ..core.tone_mapping import ToneMapConstants
 from ..ops import color as ops_color
 from ..ops import deband as ops_deband
+from ..ops import deinterlace as ops_di
+from ..ops import distort as ops_distort
 from ..ops import dithering as ops_dither
+from ..ops import dovi as ops_dovi
 from ..ops import film_grain as ops_fg
+from ..ops import film_grain_h274 as ops_h274
 from ..ops import gamut as ops_gamut
 from ..ops import icc as ops_icc
 from ..ops import lut as ops_lut
@@ -63,8 +71,8 @@ from ..utils.device import resolve_device
 from .frame import Frame, icc_key
 
 __all__ = ["RenderParams", "Target", "Renderer", "render_image",
-           "ColorChain", "color_chain", "color_map_stage", "k1_tails",
-           "plain_tails", "ineligible_tails"]
+           "RenderError", "FrameInputs", "ColorChain", "color_chain",
+           "color_map_stage", "k1_tails", "plain_tails", "ineligible_tails"]
 
 _MAX_CACHED_PIPELINES = 64
 
@@ -76,6 +84,23 @@ _MAX_CACHED_PIPELINES = 64
 k1_tails = 0
 plain_tails = 0
 ineligible_tails = 0
+
+
+class RenderError(Exception):
+    """A render that cannot be carried out as asked (the reference's
+    RenderError), e.g. a singular distortion transform."""
+
+
+class FrameInputs(NamedTuple):
+    """What a render plan takes every frame besides the planes: the AV1
+    grain tables and H.274 block inputs (per plane, or None), the
+    neighbor frames' planes of a field, and the packed Dolby Vision
+    RPU."""
+    grain_tables: Optional[tuple] = None
+    h274_tables: Optional[tuple] = None
+    prev_planes: Optional[tuple] = None
+    next_planes: Optional[tuple] = None
+    dovi_packed: Optional[ops_dovi.DoviPacked] = None
 
 
 @dataclass(frozen=True)
@@ -127,14 +152,16 @@ class RenderParams:
         default_factory=PeakDetectParams)
     deband: Optional[DebandParams] = None
     film_grain: bool = True      # honor frame-attached grain data
-    deinterlace: Optional[object] = None
+    # ops.deinterlace.DeinterlaceParams: applied to frames with a field
+    deinterlace: Optional[ops_di.DeinterlaceParams] = None
     contrast_recovery: float = 0.0
     inverse_tone_mapping: bool = False
     gamut_expansion: bool = False
     show_clipping: bool = False
     visualize_lut: bool = False
     cone: Optional[object] = None
-    distort: Optional[object] = None
+    # ops.distort.DistortParams: affine distortion of the output
+    distort: Optional[ops_distort.DistortParams] = None
     blend: Optional[Tuple[str, str, str, str]] = None
     color_adjustment: Optional[object] = None
     corner_rounding: float = 0.0
@@ -161,16 +188,11 @@ def _check_slice(params: RenderParams, target: Target, frame: Frame):
     """Raise for every requested feature outside the ported slice."""
     checks = (
         (params.hooks, "user hooks", "slice 3 item 22"),
-        (params.deinterlace is not None, "deinterlacing", "slice 3 item 19"),
-        (params.distort is not None, "distortion", "slice 3 item 20"),
         (params.cone is not None, "cone distortion", "slice 3 item 21"),
         (params.blend is not None or target.data is not None,
          "target blending", "slice 3 item 21"),
         (target.overlays or frame.overlays, "overlays", "slice 3 item 21"),
         (frame.rotation % 4, "frame rotation", "slice 3 item 21"),
-        (params.film_grain and frame.film_grain is not None and
-         frame.film_grain.type == "h274", "H.274 film grain",
-         "slice 3 item 18"),
         (params.color_adjustment is not None, "color adjustment",
          "slice 3 item 21"),
         (params.corner_rounding > 0, "corner rounding", "slice 3 item 21"),
@@ -387,15 +409,19 @@ class Renderer:
         return ref_i
 
     def _merge_planes(self, planes, plane_metas, params: RenderParams,
-                      deband=None, grain=None):
-        """Per-plane deband and film grain, then alignment of every plane
-        to the reference plane's grid and channel stacking (reference
-        pass_read_image, renderer.c:1553: plane_deband ->
-        plane_film_grain -> sampler).  `deband` holds per plane None or
-        (DebandParams, neutral values, random tables); `grain` is None or
-        (per-plane GrainCfg or None, the frame's grain tables, scaling
-        shift).  Chroma grain scales with the frame's input luma, not the
-        debanded one."""
+                      deband=None, grain=None, fields=None, h274=None):
+        """Per-plane deinterlacing, deband and film grain, then alignment
+        of every plane to the reference plane's grid and channel stacking
+        (reference pass_read_image, renderer.c:1553, and _merge_planes,
+        renderer.py:639-681: deinterlace -> plane_deband -> H.274 grain
+        -> AV1 grain -> sampler).  `fields` is None or (field, first
+        field, the previous frame's planes or None, the next's or None);
+        `deband` holds per plane None or (DebandParams, neutral values,
+        random tables); `h274` is None or (the grain data, per-plane
+        H274Tables or None, whether the system is YCbCr-like); `grain`
+        is None or (per-plane GrainCfg or None, the frame's AV1 grain
+        tables, scaling shift).  Chroma grain scales with the frame's
+        input luma, not the processed one."""
         ref_i = self._ref_plane_index(plane_metas)
         H, W = planes[ref_i].shape[-2], planes[ref_i].shape[-1]
         ref_mapping = plane_metas[ref_i][1]
@@ -407,10 +433,21 @@ class Renderer:
         for i, ((shape, mapping, sx, sy), data) in enumerate(
                 zip(plane_metas, planes)):
             ph, pw = data.shape[-2], data.shape[-1]
+            if fields is not None:
+                field, first, prev, nxt = fields
+                data = ops_di.deinterlace(
+                    data, field, params.deinterlace,
+                    prev=prev[i] if prev is not None else None,
+                    next=nxt[i] if nxt is not None else None,
+                    first_field=first)
             if deband is not None and deband[i] is not None:
                 dp, neutral, tables = deband[i]
                 data = ops_deband.deband(data, dp, seed=i, tables=tables,
                                          neutral=neutral)
+            if h274 is not None and h274[1][i] is not None:
+                data = ops_h274.apply_h274_grain(
+                    data, h274[0], tuple(mapping), is_ycbcr=h274[2],
+                    tables=h274[1][i])
             if grain is not None and grain[0][i] is not None:
                 cfgs, tables, scaling_shift = grain
                 luma = None
@@ -462,10 +499,10 @@ class Renderer:
                         params: RenderParams, frame_repr: ColorRepr,
                         frame_color: ColorSpace, crop: RectF,
                         frame_grain=None, dither_phase: int = 0,
-                        frame_icc=None):
+                        frame_icc=None, field=None, first_field=None):
         """Plan one signature on the host and return the per-frame stage
-        function pipeline(peak_state, grain_tables, *planes) -> (image,
-        new_state)."""
+        function pipeline(peak_state, inputs: FrameInputs, *planes) ->
+        (image, new_state)."""
         if params.ignore_icc_profiles:
             # both ends fall back to their colorimetric metadata
             frame_icc = None
@@ -480,6 +517,12 @@ class Renderer:
         if params.film_grain and ops_fg.needs_fg(frame_grain):
             grain_cfgs, scaling_shift = self._grain_cfgs(
                 plane_metas, frame_repr, frame_grain)
+        # H.274's models are the plan's; its seed enters with the
+        # per-frame block inputs
+        h274_grain = frame_grain if params.film_grain and \
+            ops_h274.needs_fg_h274(frame_grain) else None
+        is_ycbcr = system_is_ycbcr_like(frame_repr.sys)
+        deinterlace = params.deinterlace is not None and field is not None
         deband = None
         if params.deband is not None:
             # reference plane_deband (renderer.c:1318-1342): the grain
@@ -565,15 +608,25 @@ class Renderer:
 
         tail_eligible = need_color_map and _tail_eligible(
             params, target, dst_w, dst_h, dst_crop)
+        # the distortion's inverse map, once a plan (a singular transform
+        # raises RenderError here)
+        distort_plan = ops_distort.plan_distort(
+            dst_h, dst_w, dst_w, dst_h, params.distort, self.device) \
+            if params.distort is not None else None
 
-        def pipeline(peak_state, grain_tables, *planes):
+        def pipeline(peak_state, inputs: FrameInputs, *planes):
             global k1_tails, plain_tails, ineligible_tails
-            grain = (grain_cfgs, grain_tables, scaling_shift) \
+            grain = (grain_cfgs, inputs.grain_tables, scaling_shift) \
                 if grain_cfgs is not None else None
+            h274 = (h274_grain, inputs.h274_tables, is_ycbcr) \
+                if h274_grain is not None else None
+            fields = (field, first_field or field, inputs.prev_planes,
+                      inputs.next_planes) if deinterlace else None
             img = self._merge_planes(planes, plane_metas, params, deband,
-                                     grain)
+                                     grain, fields, h274)
             img = ops_color.decode_color(img, frame_repr,
-                                         src_color.primaries)
+                                         src_color.primaries,
+                                         dovi_packed=inputs.dovi_packed)
             if params.lut is not None and params.lut_type == "native":
                 img = ops_lut.apply_lut(img, params.lut)
             if use_linear:
@@ -632,6 +685,9 @@ class Renderer:
                     img = ops_lut.apply_lut(img, params.lut)
                 img = ops_color.encode_color(img, target.repr,
                                              dst_color.primaries)
+            if distort_plan is not None:
+                img = ops_distort.distort_image(img, dst_w, dst_h,
+                                                params.distort, distort_plan)
             # error diffusion needs the whole encoded frame, so it runs
             # after the tail, which then leaves out the ordered dither
             if quantize and (fused_tail is None or params.error_diffusion):
@@ -761,15 +817,25 @@ class Renderer:
                                       frame.repr, frame.color,
                                       frame.get_crop(), frame.film_grain,
                                       dither_phase=dither_phase,
-                                      frame_icc=frame.icc)
+                                      frame_icc=frame.icc, field=frame.field,
+                                      first_field=frame.first_field)
         self._cache[key] = fn
         while len(self._cache) > _MAX_CACHED_PIPELINES:
             self._cache.pop(next(iter(self._cache)))
-        # per-frame grain tables (the seed may change every frame; host
-        # generation cached by seed)
-        grain_tables = None
+        out, self._peak_state = fn(self._peak_state,
+                                   self._frame_inputs(frame, params),
+                                   *[p.data for p in frame.planes])
+        return out
+
+    def _frame_inputs(self, frame: Frame, params: RenderParams
+                      ) -> FrameInputs:
+        """The per-frame inputs of a plan: grain tables (the seed may
+        change every frame; AV1's host generation cached by seed), the
+        neighbor frames' planes, and the frame's RPU, packed on the host
+        (reference renderer.py:1741-1765)."""
+        plane_metas = frame.meta_key()[0]
+        grain_tables = h274_tables = None
         if params.film_grain and ops_fg.needs_fg(frame.film_grain):
-            plane_metas = frame.meta_key()[0]
             cfgs, _ = self._grain_cfgs(plane_metas, frame.repr,
                                        frame.film_grain)
             grain_tables = tuple(
@@ -777,9 +843,25 @@ class Renderer:
                                          meta[0][-1], self.device)
                 if cfg else None
                 for cfg, meta in zip(cfgs, plane_metas))
-        out, self._peak_state = fn(self._peak_state, grain_tables,
-                                   *[p.data for p in frame.planes])
-        return out
+        if params.film_grain and ops_h274.needs_fg_h274(frame.film_grain):
+            h274_tables = ops_h274.prepare_h274(
+                frame.film_grain,
+                [(() if 3 in mapping else tuple(mapping), shape[-2],
+                  shape[-1]) for shape, mapping, _, _ in plane_metas],
+                self.device)
+        deinterlace = params.deinterlace is not None and \
+            frame.field is not None
+        dovi_packed = None
+        if frame.repr.sys == ColorSystem.DOLBYVISION and \
+                frame.repr.dovi is not None:
+            dovi_packed = ops_dovi.pack_dovi(frame.repr.dovi)
+        return FrameInputs(
+            grain_tables, h274_tables,
+            tuple(p.data for p in frame.prev.planes)
+            if deinterlace and frame.prev is not None else None,
+            tuple(p.data for p in frame.next.planes)
+            if deinterlace and frame.next is not None else None,
+            dovi_packed)
 
 
 _default_renderers: Dict[str, Renderer] = {}

@@ -141,8 +141,10 @@ def test_decode_system_matches_jax(sys, levels):
 
 
 def test_dolby_vision_still_refuses():
-    """Dolby Vision's decode stays with its slice (item 17)."""
-    with pytest.raises(NotImplementedError, match="item 17"):
+    """Dolby Vision's decode is ported (tests/test_torch_dovi.py); it
+    still refuses a Dolby Vision repr without its RPU metadata, as the
+    reference does."""
+    with pytest.raises(ValueError, match="dovi metadata"):
         tcolor.decode_color(torch.zeros(3, 2, 2),
                             tcs.ColorRepr(sys=tcs.ColorSystem.DOLBYVISION))
 

@@ -210,13 +210,16 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("feature", [
-    dict(deinterlace=object()), dict(distort=object()),
+    {"blend": ("one", "zero", "one", "zero")}, {"frame.rotation": 1},
     dict(hooks=(object(),)), dict(corner_rounding=0.5),
     dict(contrast_recovery=0.3), dict(color_adjustment=object()),
     dict(visualize_lut=True), dict(cone=object())])
 def test_outside_the_slice_raises(feature):
     """Every feature outside the ported slice raises NotImplementedError
-    naming its ROADMAP item — none silently takes another path."""
+    naming its ROADMAP item — none silently takes another path.  (The
+    first two cases were deinterlacing and distortion until their
+    slice; they now hold target blending and frame rotation, item 21.)
+    A "frame." key sets the frame's field of that name."""
     rng = np.random.default_rng(0)
     y = (rng.random((16, 64)) * 219 + 16).astype(np.uint8)
     uv = (rng.random((8, 32)) * 224 + 16).astype(np.uint8)
@@ -225,6 +228,11 @@ def test_outside_the_slice_raises(feature):
         repr=lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
                           levels=lt.ColorLevels.LIMITED,
                           bits=lt.BitEncoding(8, 8, 0)))
+    for key, value in feature.items():
+        if key.startswith("frame."):
+            setattr(frame, key[len("frame."):], value)
+    feature = {k: v for k, v in feature.items()
+               if not k.startswith("frame.")}
     target = lt.Target(w=128, h=32, color=lt.CSP_SRGB, bit_depth=8)
     params = lt.RenderParams(upscaler="ewa_lanczos", **feature)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:
     python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2
-                                           | --config3 | --pathA | --pathB]
+                                           | --config3 | --pathA | --pathB
+                                           | --pathC | --pathD]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
 Lanczos, K1 tail) or, with --config5, config 5 (the same frame carrying
@@ -21,8 +22,13 @@ tail), with --pathA path A (config 4's content as 10-bit HLG -> 10-bit
 BT.2020 PQ at 600 nits, EWA Lanczos, static bt2446a on K1's generic
 instance) or with --pathB path B (config 2's frame through a 33^3
 native LUT to a Display P3 gamma 2.2 ICC profile, a plain tail; both
-defined by chip_smoke.py::path_cell) after two warm-up frames, twice
-over:
+defined by chip_smoke.py::path_cell), with --pathC path C (10-bit Dolby
+Vision profile 5, a new RPU parsed every frame -> 3840x2160 sRGB, EWA
+Lanczos, K1's <spline, perceptual> tail) or with --pathD path D (1080i
+BT.709 with an H.274 SEI, a new seed every frame, each source frame's
+fields rendered in turn with bwdif, then config 2's path; both defined by
+chip_smoke.py's path_c_* and path_d_* helpers) after two warm-up frames,
+twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
@@ -54,7 +60,8 @@ def main() -> int:
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if flags and flags not in (["--config5"], ["--config4"], ["--config2"],
-                               ["--config3"], ["--pathA"], ["--pathB"]):
+                               ["--config3"], ["--pathA"], ["--pathB"],
+                               ["--pathC"], ["--pathD"]):
         print(f"port_profile: unknown options {flags}", file=sys.stderr)
         return 2
     config = flags[0][2:] if flags else "flagship"
@@ -97,20 +104,40 @@ def main() -> int:
                                                    2 * H)
     frame = lt.frame_from_yuv420p(y, u, v, color=color, bit_depth=bits,
                                   repr=repr)
-    grains = [None] * (2 + 2 * n)
+    # every render's frame, built beforehand: config 5's grain, path C's
+    # RPU and path D's field change every frame
+    count = 2 + 2 * n
+    frames = [frame] * count
     if config5:
+        import copy
         from libplacebo_tpu_torch.core.film_grain import sample_grain
-        grains = [sample_grain(7391 + k) for k in range(len(grains))]
+        frames = [copy.copy(frame) for _ in range(count)]
+        for k, f in enumerate(frames):
+            f.film_grain = sample_grain(7391 + k)
         params = lt.RenderParams(upscaler="ewa_lanczos",
                                  deband=lt.DebandParams(iterations=2),
                                  film_grain=True,
                                  error_diffusion="floyd-steinberg")
+    elif config == "pathC":
+        from chip_smoke import path_c_frame, path_c_rpus, path_c_yuv
+        yuv = path_c_yuv(1, H, W)[0]
+        frames = [path_c_frame(lt, yuv, b, "cuda")
+                  for b in path_c_rpus(lt, count)]
+        params = lt.RenderParams(upscaler="ewa_lanczos")
+    elif config == "pathD":
+        from chip_smoke import (_flagship_yuv, path_d_field, path_d_params,
+                                path_d_sources)
+        sources = path_d_sources(lt, _flagship_yuv(count // 2 + 2, H, W,
+                                                   seed=13), "cuda")
+        frames = [path_d_field(lt, sources, 1 + k // 2,
+                               ("TOP", "BOTTOM")[k % 2])
+                  for k in range(count)]
+        params = path_d_params(lt)
     r = lt.Renderer()
-    grain_iter = iter(grains)
+    frame_iter = iter(frames)
 
     def render():
-        frame.film_grain = next(grain_iter)
-        r.render(frame, target, params)
+        r.render(next(frame_iter), target, params)
 
     for _ in range(2):
         render()
