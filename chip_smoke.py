@@ -101,10 +101,34 @@ Phases (each runs uncaught: any failure exits non-zero):
     4K, their GPU renders (and the distortion phase's) against the CPU
     renders on a small input, and timings: the frames, and the
     plain stages alone (`dovi_decode_1080p_ms`, `h274_1080p_ms` with
-    `h274_host_ms`, `deinterlace_1080p_ms`, `distort_4k_ms`).
-On every path but B and the distortion phase the renderer must count
-K1 tails only (no plain tails); path B's and the distortion phase's
-tails count as ineligible (plain in the reference).
+    `h274_host_ms`, `deinterlace_1080p_ms`, `distort_4k_ms`);
+16. path E, "a 23.976 fps HDR film with subtitles and an OSD on a 60 Hz
+    SDR display, with frame interpolation": 1920x1080 10-bit limited
+    BT.2020-NC PQ yuv420p (config 4's content) carrying monochrome
+    subtitles (two seeded coverage masks, src_frame coordinates, a new
+    bitmap every third frame) and a premultiplied RGBA OSD (dst_frame
+    coordinates), a source frame every 2.5025 vsyncs, each vsync's
+    FrameMix through render_image_mix (oversample) -> 3840x2160 8-bit
+    sRGB, RenderParams(upscaler="ewa_lanczos", color_adjustment=
+    ColorAdjustment(brightness=0.02, contrast=1.05, saturation=1.1)):
+    10 vsyncs counted (K1's <spline, perceptual> instance without dither
+    once a new source frame, 5 times; the rest mix-cache hits; the final
+    dither plain), K1 bit for bit against its plain version, timed a
+    vsync;
+17. path F, "a 2.39:1 HDR10 film letterboxed on a 4K SDR display":
+    1920x800 10-bit limited BT.2020-NC PQ at 1000 nits -> 3840x2160
+    8-bit sRGB with the crop (0, 280, 3840, 1880) and the default black
+    border, HIGH_QUALITY_PARAMS (ewa_lanczossharp, deband, percentile
+    99.995, contrast recovery 0.30): the tail plain, as in the reference
+    (a crop and contrast recovery), counted ineligible; the bars black;
+    then paths E's and F's GPU renders and six presentation cases
+    (`presentation_cases`: a quarter turn pillarboxed with a blurred
+    border, tiles, corner rounding, an RGBA frame blended onto the
+    target's contents, cone distortion, the tone-curve visualizer)
+    against the CPU renders on a small input, and timings.
+On every path but B, F and the distortion phase the renderer must count
+K1 tails only (no plain tails); their tails count as ineligible (plain
+in the reference).
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -203,6 +227,26 @@ def _render_run(renderer, frames, target, params, counters):
     torch.cuda.synchronize()
     return outs, {name: mod.launches for name, mod in counters.items()}, \
         (trender.k1_tails, trender.plain_tails, trender.ineligible_tails)
+
+
+def _mix_run(renderer, frames, target, params, counters, vsyncs, lt):
+    """Path E's `_render_run`: render_image_mix of each vsync's FrameMix;
+    also returns the mix-cache hits (frames a mix reused, not
+    rendered)."""
+    import torch
+    from libplacebo_tpu_torch.render import renderer as trender
+    for mod in counters.values():
+        mod.launches = 0
+    trender.k1_tails = trender.plain_tails = trender.ineligible_tails = 0
+    outs, refs = [], 0
+    for v in vsyncs:
+        mix = path_e_mix(lt, frames, v)
+        refs += len(mix.frames)
+        outs.append(lt.render_image_mix(renderer, mix, target, params))
+    torch.cuda.synchronize()
+    tails = (trender.k1_tails, trender.plain_tails, trender.ineligible_tails)
+    return outs, {name: mod.launches for name, mod in counters.items()}, \
+        tails, refs - sum(tails)
 
 
 def _check_k1(k1, args):
@@ -493,6 +537,126 @@ def distort_params(lt):
     """The distortion phase's: a 0.2 rad rotation, bicubic."""
     return lt.RenderParams(distort=lt.DistortParams(
         transform=lt.DistortParams.rotation(0.2).transform, bicubic=True))
+
+
+# path E: a 23.976 fps film on a 60 Hz display, a source frame every
+# 2.5025 vsyncs
+PATH_E_SPACING = 2.5025
+
+
+def path_e_params(lt):
+    return lt.RenderParams(upscaler="ewa_lanczos", frame_mixer="oversample",
+                           color_adjustment=lt.ColorAdjustment(
+                               brightness=0.02, contrast=1.05,
+                               saturation=1.1))
+
+
+def path_e_overlays(lt, src_w, src_h, dst_w, seed, device):
+    """Path E's overlays for a src_w x src_h frame shown dst_w wide, at
+    their 1080p / 4K sizes scaled to these: the subtitles, monochrome,
+    two seeded coverage masks (1280x64 and 960x64 at 1920 wide) near the
+    bottom of the frame in src_frame coordinates, colour (1, 1, 0.9, 1);
+    and the OSD, premultiplied RGBA 960x128 at (64, 64) of a 3840-wide
+    target in dst_frame coordinates.  Both ride on the frame:
+    render_image_mix's intermediates carry no target overlays, as in the
+    reference."""
+    import torch
+    s, t = src_w / 1920.0, dst_w / 3840.0
+    rng = np.random.default_rng(seed)
+    w1, w2, hm = round(1280 * s), round(960 * s), max(1, round(64 * s))
+    cover = np.clip(rng.random((1, 2 * hm, w1)) * 1.6 - 0.6, 0.0, 1.0)
+    cover[:, hm:, w2:] = 0.0
+    gold = (1.0, 1.0, 0.9, 1.0)
+    y1, y2 = src_h - round(150 * s), src_h - round(80 * s)
+    sub = lt.Overlay(
+        data=torch.from_numpy(cover.astype(np.float32)).to(device),
+        mode="monochrome", coords="src_frame", parts=(
+            lt.OverlayPart(lt.RectF(0, 0, w1, hm), lt.RectF(
+                (src_w - w1) // 2, y1, (src_w - w1) // 2 + w1, y1 + hm),
+                gold),
+            lt.OverlayPart(lt.RectF(0, hm, w2, 2 * hm), lt.RectF(
+                (src_w - w2) // 2, y2, (src_w - w2) // 2 + w2, y2 + hm),
+                gold)))
+    ow, oh, at = round(960 * t), max(1, round(128 * t)), round(64 * t)
+    a = np.full((1, oh, ow), 0.75, np.float32)
+    rgb = rng.random((3, oh, ow)).astype(np.float32) * a
+    osd = lt.Overlay(
+        data=torch.from_numpy(np.concatenate([rgb, a])).to(device),
+        rect=lt.RectF(at, at, at + ow, at + oh), coords="dst_frame",
+        repr=lt.ColorRepr(alpha=lt.AlphaMode.PREMULTIPLIED))
+    return [sub, osd]
+
+
+def path_e_frames(lt, yuvs, device, dst_w):
+    """Path E's source frames: 10-bit limited BT.2020-NC PQ yuv420p
+    (config 4's content), frame k at pts k * PATH_E_SPACING vsyncs with
+    signature k + 1, a new subtitle bitmap every third frame."""
+    rep = lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
+                       levels=lt.ColorLevels.LIMITED,
+                       bits=lt.BitEncoding(10, 10, 0))
+    out = []
+    for k, yuv in enumerate(yuvs):
+        f = lt.frame_from_yuv420p(*yuv, color=lt.CSP_BT2100_PQ, repr=rep,
+                                  bit_depth=10, device=device)
+        f.overlays = path_e_overlays(lt, f.w, f.h, dst_w, k // 3, device)
+        f.pts, f.signature = k * PATH_E_SPACING, k + 1
+        out.append(f)
+    return out
+
+
+def path_e_mix(lt, frames, v):
+    """The FrameMix of vsync v: the source frames shown before and after
+    it, timestamps in vsyncs from it."""
+    k = int(v // PATH_E_SPACING)
+    return lt.FrameMix(frames=[frames[k], frames[k + 1]],
+                       timestamps=[frames[k].pts - v, frames[k + 1].pts - v],
+                       vsync_duration=1.0)
+
+
+def path_f_cell(lt, W, H, bar):
+    """Path F, a 2.39:1 HDR10 film letterboxed on a 4K SDR display:
+    (frame colorspace, repr, bits, target, params) — 10-bit limited
+    BT.2020-NC PQ at 1000 nits -> W x H 8-bit sRGB with the crop (0, bar,
+    W, H - bar) and the default border (black), HIGH_QUALITY_PARAMS."""
+    color = lt.ColorSpace(lt.ColorPrimaries.BT_2020, lt.ColorTransfer.PQ,
+                          lt.HdrMetadata(max_luma=1000.0))
+    rep = lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
+                       levels=lt.ColorLevels.LIMITED,
+                       bits=lt.BitEncoding(10, 10, 0))
+    target = lt.Target(w=W, h=H, color=lt.CSP_SRGB, bit_depth=8,
+                       crop=lt.RectF(0, bar, W, H - bar))
+    return color, rep, 10, target, lt.HIGH_QUALITY_PARAMS
+
+
+def presentation_cases(lt, yuv, device):
+    """The small-input gate's presentation cases on a 64x128 frame (`yuv`,
+    8-bit) -> 128x256: name -> (frame, target, params)."""
+    flag = lambda: _frame(lt, yuv, device)   # noqa: E731
+    sdr = lambda: _frame(lt, yuv, device, config="config2")  # noqa: E731
+    tgt = dict(w=256, h=128, color=lt.CSP_SRGB, bit_depth=8)
+    ewa = dict(upscaler="ewa_lanczos")
+    rot = sdr()
+    rot.rotation, rot.crop = 1, lt.RectF(0, 0, 64, 128)
+    rng = np.random.default_rng(31)
+    rgba = rng.random((64, 128, 4)).astype(np.float32)
+    base = rng.random((3, 128, 256)).astype(np.float32)
+    return {
+        # a quarter turn, pillarboxed with a blurred border
+        "rotation_blur": (rot, lt.Target(crop=lt.RectF(96, 0, 160, 128),
+                                         **tgt),
+                          lt.RenderParams(border="blur", **ewa)),
+        "tiles": (flag(), lt.Target(crop=lt.RectF(32, 16, 224, 112), **tgt),
+                  lt.RenderParams(background="tiles", tile_size=16, **ewa)),
+        "corners": (flag(), lt.Target(**tgt),
+                    lt.RenderParams(corner_rounding=0.3, **ewa)),
+        "rgba_blend": (lt.frame_from_rgb(rgba, color=lt.CSP_SRGB,
+                                         device=device),
+                       lt.Target(data=base, **tgt),
+                       lt.RenderParams(blend=lt.ALPHA_OVERLAY, **ewa)),
+        "cone": (flag(), lt.Target(**tgt), lt.RenderParams(
+            cone=lt.ConeParams(lt.Cone.M, 0.2), **ewa)),
+        "visualize": (flag(), lt.Target(**tgt),
+                      lt.RenderParams(visualize_lut=True, **ewa))}
 
 
 # the K1 tails chip_smoke holds on the generic instance beside path A's:
@@ -834,6 +998,25 @@ def main() -> int:
         rendererX = lt.Renderer(device=dev)
         outsX, px_launches, px_tails = _render_run(
             rendererX, frames2, target, paramsX, counters)
+        # 16. path E: a 23.976 fps HDR film with subtitles and an OSD on
+        # a 60 Hz display with frame interpolation, a FrameMix a vsync
+        paramsE = path_e_params(lt)
+        framesE = path_e_frames(lt, _flagship_yuv(12, H, W, seed=17,
+                                                  bits=10), dev, 2 * W)
+        rendererE = lt.Renderer(device=dev)
+        outsE, pe_launches, pe_tails, pe_hits = _mix_run(
+            rendererE, framesE, target, paramsE, counters, range(10), lt)
+        pe_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        # 17. path F: a 2.39:1 HDR10 film letterboxed on a 4K display,
+        # HIGH_QUALITY_PARAMS
+        colF, repF, bitsF, targetF, paramsF = path_f_cell(lt, 2 * W, 2 * H,
+                                                          280)
+        framesF = [_frame_cell(lt, f, dev, colF, repF, bitsF)
+                   for f in _flagship_yuv(3, 800, W, seed=19, bits=10)]
+        rendererF = lt.Renderer(device=dev)
+        outsF, pf_launches, pf_tails = _render_run(
+            rendererF, framesF, targetF, paramsF, counters)
     finally:
         polar.sample_polar = real["ewa"]
         k1.color_map_tail = real["k1"]
@@ -850,6 +1033,16 @@ def main() -> int:
     assert pc_launches == {"k1": 3, "k2": 0, "k3": 0}, pc_launches
     assert pd_launches == {"k1": 4, "k2": 0, "k3": 0}, pd_launches
     assert px_launches == {"k1": 0, "k2": 0, "k3": 0}, px_launches
+    # path E: one K1 launch a new source frame (frames 0-4 over vsyncs
+    # 0-9), the rest mix-cache hits; path F: the tail plain, as in the
+    # reference (a target crop, contrast recovery): counted ineligible
+    assert pe_launches == {"k1": 5, "k2": 0, "k3": 0}, pe_launches
+    assert pe_tails == (5, 0, 0) and pe_hits == 15, (pe_tails, pe_hits)
+    assert len(rendererE._cache) == 1
+    assert (pe_k1[1].tone, pe_k1[1].gamut) == (1, 2) and \
+        pe_k1[2] is not None and pe_k1[3] is None
+    assert pf_launches == {"k1": 0, "k2": 0, "k3": 0}, pf_launches
+    assert pf_tails == (0, 0, 3), pf_tails
     # every tail of every path ran on K1, but path B's, which the
     # reference runs plain too (an ICC target)
     for tails in (flag_tails, c5_tails, c4_tails, c2_tails, c3_tails,
@@ -889,7 +1082,14 @@ def main() -> int:
         assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
         assert bool(torch.isfinite(out).all())
         assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
-    for out in outs5:
+    for out in outsE + outsF:
+        assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
+        assert bool(torch.isfinite(out).all())
+        assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    for out in outsF:
+        # the letterbox bars: black, and black stays 0 under the dither
+        assert not out[:, :280].any() and not out[:, 1880:].any()
+    for out in outs5 + outsE + outsF:
         codes = out * 255.0
         assert float((codes - torch.round(codes)).abs().max()) <= 255e-6
     for out in outsA:
@@ -1053,6 +1253,44 @@ def main() -> int:
             assert d.mean() < 1e-4 and (d > LSB + 1e-5).mean() <= 5e-4, \
                 (path, small_paths[path][-1])
 
+    # 16b/17b. path E's K1 launch vs its plain version on frame 2's
+    # input at 4K (no dither: bit for bit), and the GPU renders of paths
+    # E and F and of each presentation case vs the CPU renders on a
+    # small input (the flagship's gate)
+    pe_err, pe_frac, pe_part = _check_k1(k1, pe_k1)
+    assert pe_err == 0.0, pe_err
+
+    def gate(path, g, c, lsb=LSB):
+        d = np.abs(g - c)
+        small_paths.setdefault(path, []).append({
+            "max": float(d.max()), "mean": float(d.mean()),
+            "above_1lsb": float((d > lsb + 1e-5).mean())})
+        assert d.mean() < 1e-4 and (d > lsb + 1e-5).mean() <= 5e-4, \
+            (path, small_paths[path][-1])
+    yuvE = _flagship_yuv(4, 64, 128, seed=7, bits=10)
+    framesE_g = path_e_frames(lt, yuvE, dev, 256)
+    framesE_c = path_e_frames(lt, yuvE, "cpu", 256)
+    rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+    for v in range(6):
+        gate("E", lt.render_image_mix(rg, path_e_mix(lt, framesE_g, v), st,
+                                      paramsE).cpu().numpy(),
+             lt.render_image_mix(rc, path_e_mix(lt, framesE_c, v), st,
+                                 paramsE).numpy())
+    colF_s, repF_s, _, targetF_s, _ = path_f_cell(lt, 256, 128, 16)
+    rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+    for f in _flagship_yuv(3, 48, 128, seed=7, bits=10):
+        gate("F", rg.render(_frame_cell(lt, f, dev, colF_s, repF_s, 10),
+                            targetF_s, paramsF).cpu().numpy(),
+             rc.render(_frame_cell(lt, f, "cpu", colF_s, repF_s, 10),
+                       targetF_s, paramsF).numpy())
+    np.testing.assert_allclose(rg._peak_state.cpu().numpy(),
+                               rc._peak_state.numpy(), atol=1e-5)
+    cases_g = presentation_cases(lt, small_yuv[0], dev)
+    cases_c = presentation_cases(lt, small_yuv[0], "cpu")
+    for name, (f, t, p) in cases_g.items():
+        gate(name, lt.Renderer(device=dev).render(f, t, p).cpu().numpy(),
+             lt.Renderer(device="cpu").render(*cases_c[name]).numpy())
+
     # 6. timings (their launches are not counted).  Config 5's frames
     # carry a new grain seed each, as an AV1 stream's do, so every frame
     # generates and uploads its grain tables
@@ -1107,6 +1345,44 @@ def main() -> int:
                     for k in range(n_timed)], paramsD)
     px_ms, px_window_ms = frame_times(
         rendererX, [frames2[k % 3] for k in range(n_timed)], paramsX)
+    # path E: vsyncs 10-17 synchronized, then 18-27 back to back (source
+    # frames 3-11, rendered once each as they come in)
+    pe_ms = []
+    for v in range(10, 18):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lt.render_image_mix(rendererE, path_e_mix(lt, framesE, v), target,
+                            paramsE)
+        torch.cuda.synchronize()
+        pe_ms.append((time.perf_counter() - t) * 1e3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    k1.launches = 0
+    start.record()
+    for v in range(18, 28):
+        lt.render_image_mix(rendererE, path_e_mix(lt, framesE, v), target,
+                            paramsE)
+    end.record()
+    torch.cuda.synchronize()
+    pe_window_ms = start.elapsed_time(end) / 10
+    pe_window_k1 = k1.launches
+    pf_ms, pf_window_ms = frame_times(
+        rendererF, [framesF[k % 3] for k in range(n_timed)], paramsF,
+        targetF)
+    # path F's stages by ablation: the back-to-back frame without
+    # contrast recovery, without deband, and without both (the crop
+    # keeps the tail plain)
+    import dataclasses
+    pf_ablation_ms = {}
+    for name, p in (
+            ("no_recovery", dataclasses.replace(paramsF,
+                                                contrast_recovery=0.0)),
+            ("no_deband", dataclasses.replace(paramsF, deband=None)),
+            ("no_recovery_no_deband", dataclasses.replace(
+                paramsF, deband=None, contrast_recovery=0.0))):
+        pf_ablation_ms[name] = frame_times(
+            lt.Renderer(device=dev), [framesF[k % 3] for k in range(12)],
+            p, targetF)[1]
     # the host's parse of one frame's RPU (parse, map, L1 metadata)
     rpu_bufs = path_c_rpus(lt, 5)
     rpu_host_ms = []
@@ -1161,6 +1437,9 @@ def main() -> int:
     k1_pd_ms = _cuda_ms(lambda: k1.color_map_tail(*pd_k1), 20)
     k1_pd_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
         pd_k1[0], pd_k1[1].consts, *pd_k1[2:], pd_k1[1].instance), 3)
+    k1_pe_ms = _cuda_ms(lambda: k1.color_map_tail(*pe_k1), 20)
+    k1_pe_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        pe_k1[0], pe_k1[1].consts, *pe_k1[2:], pe_k1[1].instance), 3)
     k1_pa_ms = _cuda_ms(lambda: k1.color_map_tail(*pa_k1), 20)
     k1_pa_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pa_k1), 3)
     # path B's stages alone: the native LUT on a 1080p frame (the
@@ -1368,6 +1647,8 @@ def main() -> int:
                   pc_launches["k1"], pc_err, k1_pc_ms, k1_pc_plain_ms),
         _k1_entry(k1, "k1_color_map_pass_path_d", pd_k1, None,
                   pd_launches["k1"], pd_err, k1_pd_ms, k1_pd_plain_ms),
+        _k1_entry(k1, "k1_color_map_no_dither_path_e", pe_k1, pe_part,
+                  pe_launches["k1"], pe_err, k1_pe_ms, k1_pe_plain_ms),
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -1434,6 +1715,17 @@ def main() -> int:
         "k1_path_c_differing_fraction": pc_frac,
         "k1_path_d_ms": k1_pd_ms, "k1_path_d_plain_ms": k1_pd_plain_ms,
         "k1_path_d_differing_fraction": pd_frac,
+        "path_e_vsync_ms_median": statistics.median(pe_ms),
+        "path_e_vsync_ms": pe_ms, "path_e_window_ms": pe_window_ms,
+        "path_e_k1_launches_per_vsync": pe_launches["k1"] / 10,
+        "path_e_window_k1_launches_per_vsync": pe_window_k1 / 10,
+        "path_e_mix_cache_hits": pe_hits, "path_e_tails": pe_tails,
+        "k1_path_e_ms": k1_pe_ms, "k1_path_e_plain_ms": k1_pe_plain_ms,
+        "k1_path_e_differing_fraction": pe_frac,
+        "path_f_frame_ms_median": statistics.median(pf_ms),
+        "path_f_frame_ms": pf_ms, "path_f_window_ms": pf_window_ms,
+        "path_f_tails": pf_tails, "path_f_ablation_window_ms":
+        pf_ablation_ms,
         "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
         "h274_1080p_ms": h274_ms, "h274_host_ms": h274_host_ms,
         "deinterlace_1080p_ms": deint_ms, "distort_4k_ms": distort_ms,

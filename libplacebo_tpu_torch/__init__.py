@@ -16,10 +16,13 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from .core.colorspace import (BitEncoding, ColorLevels, ColorPrimaries,  # noqa: E402
+from .core.colorspace import (AlphaMode, BitEncoding,  # noqa: E402
+                              ColorAdjustment, ColorLevels, ColorPrimaries,
                               ColorRepr, ColorSpace, ColorSystem,
-                              ColorTransfer, CSP_BT2100_PQ, CSP_SRGB,
+                              ColorTransfer, Cone, ConeParams,
+                              CSP_BT2100_PQ, CSP_BT709, CSP_SRGB,
                               DoviMetadata, HdrMetadata)
+from .core.common import RectF  # noqa: E402
 from .core.dither import DitherMethod  # noqa: E402
 from .core.film_grain import (AV1GrainData, FilmGrainData,  # noqa: E402
                               H274GrainData)
@@ -31,14 +34,25 @@ from .ops.deinterlace import (DeinterlaceAlgo, DeinterlaceParams,  # noqa: E402
 from .ops.distort import DistortParams  # noqa: E402
 from .ops.dithering import DitherParams  # noqa: E402
 from .ops.peak_detect import PeakDetectParams  # noqa: E402
-from .render.frame import Frame, Plane, frame_from_yuv420p  # noqa: E402
-from .render.renderer import (RenderError, RenderParams,  # noqa: E402
-                              Renderer, Target, render_image)
+from .render.frame import (Frame, Overlay, OverlayPart, Plane,  # noqa: E402
+                           frame_from_rgb, frame_from_yuv420p)
+from .render.queue import FrameMix  # noqa: E402
+from .render.renderer import (ALPHA_OVERLAY, DEFAULT_PARAMS,  # noqa: E402
+                              FAST_PARAMS, HIGH_QUALITY_PARAMS, RenderError,
+                              RenderParams, Renderer, Target, clear_target,
+                              clear_target_tiles, frames_infer,
+                              frames_infer_mix, render_image,
+                              render_image_mix)
 from .utils.dolbyvision import (hdr_metadata_from_rpu, parse_rpu,  # noqa: E402
                                 rpu_to_dovi, write_rpu)
 
-__all__ = ["Renderer", "render_image", "RenderParams", "Target", "Frame",
-           "Plane", "frame_from_yuv420p", "DitherParams", "DitherMethod",
+__all__ = ["Renderer", "render_image", "render_image_mix", "RenderParams",
+           "Target", "Frame", "Plane", "Overlay", "OverlayPart", "FrameMix",
+           "frame_from_yuv420p", "frame_from_rgb", "frames_infer",
+           "frames_infer_mix", "clear_target", "clear_target_tiles",
+           "FAST_PARAMS", "DEFAULT_PARAMS", "HIGH_QUALITY_PARAMS",
+           "ALPHA_OVERLAY", "ColorAdjustment", "Cone", "ConeParams",
+           "AlphaMode", "RectF", "CSP_BT709", "DitherParams", "DitherMethod",
            "DebandParams", "CustomLut", "parse_cube", "IccProfile",
            "parse_icc",
            "FilmGrainData", "AV1GrainData", "H274GrainData",

@@ -3,8 +3,9 @@
 The renderer has no weights; what crosses is the carried state (the
 peak-detection state (2,) and the temporal frame index), the input
 planes, the frame's film-grain description (AV1 or H.274), its Dolby
-Vision metadata and, for a test that wants to rule out the random
-draws, deband's random tables.  The dither LUT
+Vision metadata, its overlays, the user's color adjustment and cone
+parameters, a frame-mix window and, for a test that wants to rule out
+the random draws, deband's random tables.  The dither LUT
 and the grain tables are regenerated bit-identically from the same
 native sources.  The interface is numpy arrays and plain dicts, so this
 module — like the rest of the port — never imports JAX.
@@ -16,15 +17,22 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .core.colorspace import ColorRepr, ColorSpace, DoviMetadata
+from .core.colorspace import (BitEncoding, ColorAdjustment, ColorRepr,
+                              ColorSpace, Cone, ConeParams, DoviMetadata,
+                              HdrMetadata)
+from .core.common import RectF
 from .core.film_grain import AV1GrainData, FilmGrainData, H274GrainData
-from .render.frame import Frame, Plane
+from .render.frame import Frame, Overlay, OverlayPart, Plane
+from .render.queue import FrameMix
 from .render.renderer import Renderer
 from .utils.device import resolve_device
 
 __all__ = ["renderer_state_from_jax", "frame_from_numpy",
            "film_grain_from_fields", "dovi_from_fields",
-           "deband_tables_from_numpy"]
+           "deband_tables_from_numpy", "repr_from_fields",
+           "colorspace_from_fields", "overlay_from_fields",
+           "color_adjustment_from_fields", "cone_params_from_fields",
+           "frame_mix_from_fields"]
 
 
 def renderer_state_from_jax(peak_state: np.ndarray, frame_idx: int,
@@ -123,3 +131,79 @@ def deband_tables_from_numpy(choices: Sequence, noise, device=None):
              for c in choices],
             torch.from_numpy(np.array(noise, np.float32)).to(dev)
             if noise is not None else None)
+
+
+def _value(v):
+    """An enum member's value (the reference's enums cross as members
+    of the reference's classes, or as their values)."""
+    return getattr(v, "value", v)
+
+
+def repr_from_fields(d: dict) -> ColorRepr:
+    """The port's ColorRepr from dataclasses.asdict() of a reference one
+    (without Dolby Vision metadata: see dovi_from_fields)."""
+    return ColorRepr(sys=_value(d["sys"]), levels=_value(d["levels"]),
+                     alpha=_value(d["alpha"]),
+                     bits=BitEncoding(**{k: int(v)
+                                         for k, v in d["bits"].items()}))
+
+
+_HDR_SCALARS = ("min_luma", "max_luma", "max_cll", "max_fall", "scene_avg",
+                "max_pq_y", "avg_pq_y")
+
+
+def colorspace_from_fields(d: dict) -> ColorSpace:
+    """The port's ColorSpace from dataclasses.asdict() of a reference
+    one: primaries, transfer and the HDR metadata's scalars and scene
+    maxima (mastering primaries and HDR10+ curves do not cross)."""
+    hdr = d.get("hdr") or {}
+    return ColorSpace(_value(d["primaries"]), _value(d["transfer"]),
+                      HdrMetadata(scene_max=tuple(
+                          float(v) for v in hdr.get("scene_max",
+                                                    (0.0, 0.0, 0.0))),
+                          **{k: float(hdr.get(k, 0.0))
+                             for k in _HDR_SCALARS}))
+
+
+def _rect(v) -> RectF:
+    if isinstance(v, dict):
+        return RectF(float(v["x0"]), float(v["y0"]), float(v["x1"]),
+                     float(v["y1"]))
+    return RectF(*(float(x) for x in v))
+
+
+def overlay_from_fields(d: dict, device=None) -> Overlay:
+    """The port's Overlay from the fields of a reference one —
+    dataclasses.asdict(overlay) with `data` as a numpy array, or the
+    same fields as plain values (rects as dicts or 4-tuples)."""
+    dev = resolve_device(device)
+    parts = tuple(OverlayPart(_rect(p["src"]), _rect(p["dst"]),
+                              tuple(float(c) for c in p["color"]))
+                  for p in d.get("parts", ()))
+    return Overlay(
+        data=torch.from_numpy(np.array(d["data"], np.float32)).to(dev),
+        rect=_rect(d["rect"]) if d.get("rect") is not None else None,
+        color=colorspace_from_fields(d["color"]),
+        repr=repr_from_fields(d["repr"]), mode=d.get("mode", "normal"),
+        coords=d.get("coords", "auto"), parts=parts)
+
+
+def color_adjustment_from_fields(d: dict) -> ColorAdjustment:
+    """The port's ColorAdjustment from dataclasses.asdict() of a
+    reference one."""
+    return ColorAdjustment(**{k: float(v) for k, v in d.items()})
+
+
+def cone_params_from_fields(d: dict) -> ConeParams:
+    """The port's ConeParams from dataclasses.asdict() of a reference
+    one (the cones as the reference's Cone flag or its integer)."""
+    return ConeParams(Cone(int(d["cones"])), float(d["strength"]))
+
+
+def frame_mix_from_fields(frames: Sequence[Frame], timestamps,
+                          vsync_duration: float) -> FrameMix:
+    """The port's FrameMix over frames already carried (frame_from_numpy)
+    with a reference mix's timestamps and vsync duration."""
+    return FrameMix(frames=list(frames),
+                    timestamps=[float(t) for t in timestamps],
+                    vsync_duration=float(vsync_duration))

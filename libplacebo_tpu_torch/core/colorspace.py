@@ -10,6 +10,7 @@ reference's: linear light is NORM (1.0 == 203 cd/m² SDR white).
 from __future__ import annotations
 
 import enum
+import math
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
@@ -29,6 +30,9 @@ __all__ = [
     "color_repr_decode", "luma_coeffs", "transfer_is_hdr",
     "ictcp_matrices", "xyz_to_rgb_matrix",
     "transfer_nominal_peak", "levels_guess", "system_is_ycbcr_like",
+    "ColorAdjustment", "COLOR_ADJUSTMENT_NEUTRAL", "white_from_temp",
+    "daylight_from_temp", "blackbody_from_temp", "Cone", "ConeParams",
+    "cone_matrix", "CSP_BT709",
 ]
 
 COLOR_SDR_WHITE = 203.0   # cd/m² of SDR reference white
@@ -273,6 +277,49 @@ def primaries_guess(width: int, height: int) -> ColorPrimaries:
     return ColorPrimaries.BT_709
 
 
+def daylight_from_temp(temp: float) -> CIExy:
+    """CIE daylight illuminant for a correlated color temperature,
+    clamped to [1000, 25000] K (reference pl_daylight_from_temp)."""
+    temp = float(np.clip(temp, 1000, 25000))
+    ti = 1000.0 / temp
+    ti2, ti3 = ti * ti, ti * ti * ti
+    if temp <= 7000:
+        x = 0.244063 + 0.09911 * ti + 2.9678 * ti2 - 4.6070 * ti3
+    else:
+        x = 0.237040 + 0.24748 * ti + 1.9018 * ti2 - 2.0064 * ti3
+    y = -3.0 * x * x + 2.87 * x - 0.275
+    return CIExy(x, y)
+
+
+def blackbody_from_temp(temp: float) -> CIExy:
+    """CIE xy of a Planckian radiator for a temperature in [1667, 25000]
+    K (reference pl_blackbody_from_temp; Kim et al.'s cubic spline)."""
+    temp = float(np.clip(temp, 1667, 25000))
+    ti = 1000.0 / temp
+    ti2, ti3 = ti * ti, ti * ti * ti
+    if temp <= 4000:
+        x = -0.2661239 * ti3 - 0.2343580 * ti2 + 0.8776956 * ti + 0.179910
+    else:
+        x = -3.0258469 * ti3 + 2.1070379 * ti2 + 0.2226347 * ti + 0.240390
+    x2, x3 = x * x, x * x * x
+    if temp <= 2222:
+        y = -1.1063814 * x3 - 1.34811020 * x2 + 2.18555832 * x - 0.20219683
+    elif temp <= 4000:
+        y = -0.9549476 * x3 - 1.37418593 * x2 + 2.09137015 * x - 0.16748867
+    else:
+        y = 3.0817580 * x3 - 5.87338670 * x2 + 3.75112997 * x - 0.37001483
+    return CIExy(x, y)
+
+
+def white_from_temp(temp: float) -> CIExy:
+    """Daylight above 4000 K blending into a pure blackbody below 2500 K
+    (reference pl_white_from_temp)."""
+    a = blackbody_from_temp(temp)
+    b = daylight_from_temp(temp)
+    f = float(np.clip((temp - 2500.0) / (4000.0 - 2500.0), 0.0, 1.0))
+    return CIExy(a.x + (b.x - a.x) * f, a.y + (b.y - a.y) * f)
+
+
 def rgb_to_xyz_matrix(prim: RawPrimaries) -> Matrix3x3:
     """RGB->XYZ from chromaticities + white point (white maps to Y=1)."""
     M = np.stack([prim.red.to_XYZ(), prim.green.to_XYZ(), prim.blue.to_XYZ()],
@@ -485,11 +532,36 @@ def ictcp_matrices(variant: ColorSystem) -> Tuple[np.ndarray, np.ndarray]:
     raise ValueError(variant)
 
 
-def color_repr_decode(repr: ColorRepr) -> Tuple[Transform3x3, ColorRepr]:
+@dataclass(frozen=True)
+class ColorAdjustment:
+    """User color adjustment (reference pl_color_adjustment), folded into
+    the decode matrix: hue and saturation rotate and scale the chroma,
+    contrast scales the gain, brightness lifts the bias, temperature
+    adapts the white point; gamma is a separate non-linear step of
+    ops.color.decode_color."""
+    brightness: float = 0.0      # -1..1 black lift/boost
+    contrast: float = 1.0        # 0..100 gain
+    saturation: float = 1.0      # 0..100 chroma gain
+    hue: float = 0.0             # radians, chroma rotation
+    gamma: float = 1.0           # 0..100 aesthetic gamma
+    temperature: float = 0.0     # -1..1 of +-3500 K around 6500 K
+
+    def is_neutral(self) -> bool:
+        return self == COLOR_ADJUSTMENT_NEUTRAL
+
+
+COLOR_ADJUSTMENT_NEUTRAL = ColorAdjustment()
+
+
+def color_repr_decode(repr: ColorRepr,
+                      adjustment: Optional[ColorAdjustment] = None,
+                      ) -> Tuple[Transform3x3, ColorRepr]:
     """Affine transform taking sampled (normalized) texture values to
     full-range RGB — for the non-linear systems (ICtCp, BT.2020-C, XYZ,
-    Dolby Vision), their linear pre-matrix (reference
-    pl_color_repr_decode, colorspace.c:1717)."""
+    Dolby Vision), their linear pre-matrix — with the user's color
+    adjustment folded in (reference pl_color_repr_decode,
+    colorspace.c:1717)."""
+    adj = adjustment or COLOR_ADJUSTMENT_NEUTRAL
     sys = repr.sys if repr.sys != ColorSystem.UNKNOWN else ColorSystem.RGB
     if sys == ColorSystem.DOLBYVISION and repr.dovi is None:
         raise ValueError("DOLBYVISION repr requires dovi metadata")
@@ -522,6 +594,30 @@ def color_repr_decode(repr: ColorRepr) -> Tuple[Transform3x3, ColorRepr]:
     if sys == ColorSystem.DOLBYVISION:
         off = -M @ np.asarray(repr.dovi.nonlinear_offset, dtype=np.float64)
     ycbcr = system_is_ycbcr_like(sys)
+    # hue and saturation rotate and scale the chroma subvector; other
+    # systems go through BT.709's YCbCr model, as in the reference
+    if adj.saturation != 1.0 or adj.hue != 0.0:
+        huecos = adj.saturation * math.cos(adj.hue)
+        huesin = adj.saturation * math.sin(adj.hue)
+        rot = np.array([[1.0, 0.0, 0.0],
+                        [0.0, huecos, huesin],
+                        [0.0, -huesin, huecos]])
+        if ycbcr:
+            M = M @ rot
+        else:
+            yuv2rgb = _ycbcr_matrix(0.2126, 0.0722)
+            M = (yuv2rgb @ rot) @ np.linalg.inv(yuv2rgb) @ M
+    # temperature: adaptation from 6500 K, through BT.709's RGB <-> XYZ
+    # anchored at the source white
+    if adj.temperature:
+        src_w = white_from_temp(6500.0)
+        dst_w = white_from_temp(6500.0 + 3500.0 * adj.temperature)
+        prim = replace(primaries_get(ColorPrimaries.BT_709), white=src_w)
+        r2x = rgb_to_xyz_matrix(prim).m
+        adapt = np.linalg.inv(r2x) @ adapt_white_matrix(src_w, dst_w).m \
+            @ r2x
+        M = adapt @ M
+        off = adapt @ off
 
     imax = (1 << depth) - 1
     coff = ((128 << (depth - 8)) / imax) if ycbcr else 0.0
@@ -544,8 +640,11 @@ def color_repr_decode(repr: ColorRepr) -> Tuple[Transform3x3, ColorRepr]:
     else:
         pre_mul = np.diag([ymul, ymul, ymul])
         pre_off = np.array([-yoff * ymul] * 3)
+    if adj.contrast != 1.0:
+        pre_mul = pre_mul * adj.contrast
+        pre_off = pre_off * adj.contrast
     full = M @ pre_mul * scale
-    full_off = M @ pre_off + off
+    full_off = M @ pre_off + off + adj.brightness
     out_repr = replace(norm_repr, sys=ColorSystem.RGB,
                        levels=ColorLevels.FULL)
     return Transform3x3(Matrix3x3(full), full_off), out_repr
@@ -728,4 +827,83 @@ def color_space_infer_map(src: ColorSpace,
 
 
 CSP_SRGB = ColorSpace(ColorPrimaries.BT_709, ColorTransfer.SRGB)
+CSP_BT709 = ColorSpace(ColorPrimaries.BT_709, ColorTransfer.BT_1886)
 CSP_BT2100_PQ = ColorSpace(ColorPrimaries.BT_2020, ColorTransfer.PQ)
+
+
+# ---------------------------------------------------------------------------
+# Cone distortion: color blindness simulation (reference pl_cone_params,
+# pl_get_cone_matrix; libplacebo_tpu/core/colorspace.py:1161-1255)
+# ---------------------------------------------------------------------------
+
+class Cone(enum.IntFlag):
+    """The cone types the simulated vision lacks or is deficient in."""
+    NONE = 0
+    L = 1
+    M = 2
+    S = 4
+    LM = L | M
+    MS = M | S
+    LS = L | S
+    LMS = L | M | S
+
+
+@dataclass(frozen=True)
+class ConeParams:
+    """strength: 1.0 = unaffected, 0.0 = full blindness of `cones`."""
+    cones: Cone = Cone.NONE
+    strength: float = 0.0
+
+
+VISION_NORMAL = ConeParams(Cone.NONE, 1.0)
+VISION_PROTANOMALY = ConeParams(Cone.L, 0.5)
+VISION_PROTANOPIA = ConeParams(Cone.L, 0.0)
+VISION_DEUTERANOMALY = ConeParams(Cone.M, 0.5)
+VISION_DEUTERANOPIA = ConeParams(Cone.M, 0.0)
+VISION_TRITANOMALY = ConeParams(Cone.S, 0.5)
+VISION_TRITANOPIA = ConeParams(Cone.S, 0.0)
+VISION_MONOCHROMACY = ConeParams(Cone.LM, 0.0)
+VISION_ACHROMATOPSIA = ConeParams(Cone.LMS, 0.0)
+
+
+def cone_matrix(params: ConeParams, prim: RawPrimaries) -> Matrix3x3:
+    """Linear RGB -> RGB matrix simulating the cone deficiency in the
+    given primaries: in CAT16 LMS, each affected cone's response becomes
+    `strength` of itself plus (1 - strength) of the combination of the
+    others that preserves neutral and the primary farthest from it (blue
+    for L/M, red for S); two affected cones keep neutral only; all three
+    follow the rod-cell approximation."""
+    cones = Cone(params.cones)
+    c = float(params.strength)
+    if cones == Cone.NONE:
+        return Matrix3x3(np.eye(3))
+    rgb2lms = _M_CAT16_ADAPT @ rgb_to_xyz_matrix(prim).m
+    lms_w = rgb2lms @ np.ones(3)
+    distort = np.eye(3)
+    single = {Cone.L: 0, Cone.M: 1, Cone.S: 2}
+    pair = {Cone.LM: (0, 1, 2), Cone.MS: (1, 2, 0), Cone.LS: (0, 2, 1)}
+    if cones in single:
+        k = single[cones]
+        others = [i for i in range(3) if i != k]
+        anchor = rgb2lms @ (np.array([0.0, 0.0, 1.0]) if k != 2
+                            else np.array([1.0, 0.0, 0.0]))
+        A = np.array([[lms_w[others[0]], lms_w[others[1]]],
+                      [anchor[others[0]], anchor[others[1]]]])
+        ab = np.linalg.solve(A, np.array([lms_w[k], anchor[k]]))
+        row = np.zeros(3)
+        row[k] = c
+        row[others[0]] = (1.0 - c) * ab[0]
+        row[others[1]] = (1.0 - c) * ab[1]
+        distort[k] = row
+    elif cones in pair:
+        i1, i2, j = pair[cones]
+        for i in (i1, i2):
+            row = np.zeros(3)
+            row[i] = c
+            row[j] = (1.0 - c) * lms_w[i] / lms_w[j]
+            distort[i] = row
+    else:
+        w = np.array([0.3605, 0.6415, -0.002])
+        distort = (1.0 - c) * w[None, :] * lms_w[:, None] / lms_w[None, :] \
+            + c * np.eye(3)
+    return Matrix3x3(np.linalg.inv(rgb2lms) @ distort @ rgb2lms)

@@ -25,6 +25,10 @@ class RectF:
     def h(self) -> float:
         return abs(self.y1 - self.y0)
 
+    def normalized(self) -> "RectF":
+        return RectF(min(self.x0, self.x1), min(self.y0, self.y1),
+                     max(self.x0, self.x1), max(self.y0, self.y1))
+
 
 def _ident3() -> np.ndarray:
     return np.eye(3, dtype=np.float64)

@@ -27,7 +27,7 @@ from ..core.colorspace import (COLOR_SDR_WHITE, ColorPrimaries, ColorRepr,
                                luma_coeffs, primaries_get,
                                rgb_to_xyz_matrix, xyz_to_rgb_matrix)
 
-__all__ = ["mat_pointwise", "decode_color",
+__all__ = ["mat_pointwise", "decode_color", "cone_distort",
            "encode_color", "linearize", "delinearize", "nominal_luma_norm",
            "hlg_constants", "SigmoidParams", "sigmoidize", "desigmoidize"]
 
@@ -99,7 +99,21 @@ def _mat_traced(img, mat: np.ndarray, off=None):
     return torch.stack(chans, dim=-3)
 
 
-def _decode_dovi(img, repr: ColorRepr, dovi_packed):
+def cone_distort(img, csp: ColorSpace, params, already_linear=False):
+    """Color-blindness simulation (reference pl_shader_cone_distort): the
+    cone matrix in linear light; with `already_linear` the image is
+    linear already (the renderer's linear-light section), else it is
+    linearized and delinearized around the matrix."""
+    from ..core.colorspace import Cone, cone_matrix
+    if params is None or Cone(params.cones) == Cone.NONE:
+        return img
+    m = cone_matrix(params, primaries_get(csp.infer().primaries))
+    if already_linear:
+        return mat_pointwise(img, m.m)
+    return delinearize(mat_pointwise(linearize(img, csp), m.m), csp)
+
+
+def _decode_dovi(img, repr: ColorRepr, dovi_packed, adjustment=None):
     """Dolby Vision: reshape -> the nonlinear (YCC -> RGB) matrix -> PQ
     linearize -> the linear (LMS -> RGB) matrix -> back to PQ-encoded
     RGB, so the uniform linearize downstream applies (reference
@@ -114,7 +128,7 @@ def _decode_dovi(img, repr: ColorRepr, dovi_packed):
         rgb = _mat_traced(lms, dovi_packed.linear)
         return tf.pq_oetf_fast(torch.clamp_min(rgb, 0.0))
     img = ops_dovi.dovi_reshape(img, repr.dovi)
-    tr, _ = color_repr_decode(repr)
+    tr, _ = color_repr_decode(repr, adjustment)
     img = mat_pointwise(img, tr.mat.m, tr.c)
     lms = tf.pq_eotf_fast(torch.clamp_min(img, 0.0))
     rgb = mat_pointwise(lms, np.asarray(repr.dovi.linear,
@@ -124,17 +138,20 @@ def _decode_dovi(img, repr: ColorRepr, dovi_packed):
 
 def decode_color(img, repr: ColorRepr,
                  prim: ColorPrimaries = ColorPrimaries.UNKNOWN,
-                 dovi_packed=None):
+                 dovi_packed=None, adjustment=None):
     """Encoded (sampled, normalized) planes -> full-range RGB, with the
     non-linear steps of ICtCp, BT.2020-C, XYZ and Dolby Vision (reference
     pl_shader_decode_color, shaders/colorspace.c:275).  ICtCp runs the
-    exact PQ curves, as the reference's container transforms do."""
+    exact PQ curves, as the reference's container transforms do.  The
+    color adjustment (core.colorspace.ColorAdjustment) is folded into
+    the decode matrix (a per-frame RPU's packed matrices leave it out,
+    as in the reference); its gamma ends the matrix systems' decode."""
     sys = repr.sys
     if sys == ColorSystem.DOLBYVISION:
         if repr.dovi is None and dovi_packed is None:
             raise ValueError("DOLBYVISION repr requires dovi metadata")
-        return _decode_dovi(img, repr, dovi_packed)
-    tr, _ = color_repr_decode(repr)
+        return _decode_dovi(img, repr, dovi_packed, adjustment)
+    tr, _ = color_repr_decode(repr, adjustment)
     img = mat_pointwise(img, tr.mat.m, tr.c)
     if sys == ColorSystem.XYZ:
         # ST 428 linearization, XYZ -> RGB, back to a 2.6 gamma signal
@@ -160,7 +177,17 @@ def decode_color(img, repr: ColorRepr,
         yl, bl, rl = _bt2020_eotf(yp), _bt2020_eotf(bp), _bt2020_eotf(rp)
         gl = fma(bl, -0.0593, fma(rl, -0.2627, yl)) * rcp(0.6780)
         return torch.stack([rp, _bt2020_oetf(gl), bp], dim=-3)
-    return img
+    return _apply_gamma(img, adjustment)
+
+
+def _apply_gamma(img, adjustment):
+    """The adjustment's aesthetic gamma, in non-linear light at the end
+    of the decode (reference shaders/colorspace.c:440-456)."""
+    if adjustment is None or adjustment.gamma == 1.0:
+        return img
+    if adjustment.gamma == 0.0:
+        return torch.zeros_like(img)
+    return tf.pow_pos(torch.clamp_min(img, 0.0), 1.0 / adjustment.gamma)
 
 
 def encode_color(img, repr: ColorRepr,

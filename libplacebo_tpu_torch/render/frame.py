@@ -18,7 +18,8 @@ from ..core.common import RectF
 from ..core.film_grain import FilmGrainData
 from ..utils.device import raw_to_device, resolve_device
 
-__all__ = ["Plane", "Frame", "frame_from_yuv420p", "icc_key"]
+__all__ = ["Plane", "Frame", "Overlay", "OverlayPart", "frame_from_yuv420p",
+           "frame_from_rgb", "icc_key"]
 
 
 @dataclass
@@ -40,9 +41,69 @@ class Plane:
         return self.data.shape[-1]
 
 
+@dataclass(frozen=True)
+class OverlayPart:
+    """One overlay quad (reference pl_overlay_part): `src` addresses the
+    overlay texture in texels, `dst` lies in the overlay's `coords`
+    space; `color` paints a monochrome overlay's coverage."""
+    src: RectF
+    dst: RectF
+    color: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+
+
+@dataclass
+class Overlay:
+    """A subtitle or OSD bitmap (reference pl_overlay).
+
+    `data` is a (4, H, W) RGBA tensor for mode "normal" (premultiplied
+    when `repr.alpha` says so), or a (1, H, W) coverage map for
+    "monochrome", each part's `color` painting it (libass's bitmaps).
+    `coords` is the space of the parts' `dst`: "auto" (src_frame on a
+    frame, dst_frame on a target), "src_frame", "src_crop", "dst_frame"
+    or "dst_crop".  Without `parts`, the whole texture is drawn at
+    `rect` in target coordinates.  `repr` / `color` are the overlay's
+    own encoding, converted to the target's when they differ.  The
+    bitmap (a tensor, or an array the renderer uploads) is per-frame
+    data: only its shape keys the render plan."""
+    data: torch.Tensor
+    rect: Optional[RectF] = None
+    color: ColorSpace = field(default_factory=ColorSpace)
+    repr: ColorRepr = field(default_factory=ColorRepr)
+    mode: str = "normal"                 # "normal" | "monochrome"
+    coords: str = "auto"
+    parts: Tuple[OverlayPart, ...] = ()
+
+    _MODES = ("normal", "monochrome")
+    _COORDS = ("auto", "src_frame", "src_crop", "dst_frame", "dst_crop")
+
+    def get_parts(self) -> Tuple[OverlayPart, ...]:
+        """The parts to draw; the whole-texture `rect` shorthand becomes
+        one part.  An unknown mode or coords raises ValueError."""
+        if self.mode not in self._MODES:
+            raise ValueError(f"unknown overlay mode {self.mode!r}; "
+                             f"one of {self._MODES}")
+        if self.coords not in self._COORDS:
+            raise ValueError(f"unknown overlay coords {self.coords!r}; "
+                             f"one of {self._COORDS}")
+        if self.parts:
+            return tuple(self.parts)
+        h, w = self.data.shape[-2], self.data.shape[-1]
+        dst = self.rect or RectF(0.0, 0.0, float(w), float(h))
+        return (OverlayPart(RectF(0.0, 0.0, float(w), float(h)), dst),)
+
+    def key(self) -> tuple:
+        """What shapes the plan: the bitmap's shape (not its pixels),
+        mode, coords, encoding and geometry."""
+        return (tuple(self.data.shape), self.mode, self.coords,
+                self.repr.sys, self.repr.levels, self.repr.alpha,
+                self.color.primaries, self.color.transfer, self.color.hdr,
+                self.rect if not self.parts else None,
+                tuple((p.src, p.dst, p.color) for p in self.parts))
+
+
 @dataclass
 class Frame:
-    """Reference pl_frame, cut to the fields the main path reads."""
+    """Reference pl_frame."""
     planes: List[Plane]
     repr: ColorRepr = field(default_factory=ColorRepr)
     color: ColorSpace = field(default_factory=ColorSpace)
@@ -53,9 +114,12 @@ class Frame:
     # image ICC profile (core.icc.IccProfile): when set, the renderer
     # linearizes through it instead of the nominal transfer
     icc: Optional[object] = None
-    # outside the ported slice: the renderer raises when these are set
+    # quarter turns counter-clockwise (reference pl_rotation); the crop
+    # lies in the rotated image
     rotation: int = 0
-    overlays: list = field(default_factory=list)
+    # subtitles drawn with the frame (Overlay); their bitmaps are
+    # per-frame data
+    overlays: List[Overlay] = field(default_factory=list)
     # interlacing (reference pl_frame.field + pl_frame_mix's temporal
     # neighbors): the field shown now (ops.deinterlace.Field), the
     # stream's first field, and the previous / next frames
@@ -63,6 +127,9 @@ class Frame:
     first_field: Optional[object] = None
     prev: Optional["Frame"] = None
     next: Optional["Frame"] = None
+    # presentation time and identity, for frame mixing
+    pts: float = 0.0
+    signature: int = 0
 
     @property
     def ref_plane(self) -> Plane:
@@ -118,7 +185,8 @@ class Frame:
             self.color.primaries, self.color.transfer,
             self.color.hdr, self.get_crop(), str(self.device), grain_static,
             icc_key(self.icc), self.field, self.first_field,
-            self.prev is not None, self.next is not None)
+            self.prev is not None, self.next is not None,
+            int(self.rotation) % 4, tuple(o.key() for o in self.overlays))
 
 
 def icc_key(icc) -> Optional[int]:
@@ -162,3 +230,19 @@ def frame_from_yuv420p(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         Plane(norm(v)[None], (2,), shift_x=-0.5),
     ]
     return Frame(planes=planes, repr=repr, color=color)
+
+
+def frame_from_rgb(rgb: np.ndarray, color: Optional[ColorSpace] = None,
+                   levels: ColorLevels = ColorLevels.FULL,
+                   device=None) -> Frame:
+    """A frame from an interleaved (H, W, 3 or 4) or planar (3 or 4, H,
+    W) RGB(A) float array on `device` (None = "cuda"); a fourth
+    component is alpha."""
+    rgb = np.asarray(rgb, dtype=np.float32)
+    if rgb.ndim == 3 and rgb.shape[-1] in (3, 4):
+        rgb = np.moveaxis(rgb, -1, 0)
+    data = torch.from_numpy(np.ascontiguousarray(rgb)).to(
+        resolve_device(device))
+    return Frame(planes=[Plane(data, tuple(range(rgb.shape[0])))],
+                 repr=ColorRepr(sys=ColorSystem.RGB, levels=levels),
+                 color=color or ColorSpace())

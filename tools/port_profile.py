@@ -4,7 +4,8 @@
 Run from the root of a checkout:
     python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2
                                            | --config3 | --pathA | --pathB
-                                           | --pathC | --pathD]
+                                           | --pathC | --pathD | --pathE
+                                           | --pathF]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
 Lanczos, K1 tail) or, with --config5, config 5 (the same frame carrying
@@ -27,8 +28,13 @@ Vision profile 5, a new RPU parsed every frame -> 3840x2160 sRGB, EWA
 Lanczos, K1's <spline, perceptual> tail) or with --pathD path D (1080i
 BT.709 with an H.274 SEI, a new seed every frame, each source frame's
 fields rendered in turn with bwdif, then config 2's path; both defined by
-chip_smoke.py's path_c_* and path_d_* helpers) after two warm-up frames,
-twice over:
+chip_smoke.py's path_c_* and path_d_* helpers), with --pathE path E
+(10-bit PQ at 23.976 fps with subtitles and an OSD -> a 60 Hz 3840x2160
+sRGB display through render_image_mix, a FrameMix a vsync, oversample:
+a "frame" below is a vsync) or with --pathF path F (1920x800 10-bit
+HDR10 letterboxed into 3840x2160 sRGB with HIGH_QUALITY_PARAMS; both
+defined by chip_smoke.py's path_e_* and path_f_cell) after two warm-up
+frames, twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
@@ -61,7 +67,8 @@ def main() -> int:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if flags and flags not in (["--config5"], ["--config4"], ["--config2"],
                                ["--config3"], ["--pathA"], ["--pathB"],
-                               ["--pathC"], ["--pathD"]):
+                               ["--pathC"], ["--pathD"], ["--pathE"],
+                               ["--pathF"]):
         print(f"port_profile: unknown options {flags}", file=sys.stderr)
         return 2
     config = flags[0][2:] if flags else "flagship"
@@ -133,11 +140,29 @@ def main() -> int:
                                ("TOP", "BOTTOM")[k % 2])
                   for k in range(count)]
         params = path_d_params(lt)
+    elif config == "pathF":
+        from chip_smoke import _flagship_yuv, path_f_cell
+        color, repr, _, target, params = path_f_cell(lt, 2 * W, 2 * H, 280)
+        y, u, v = _flagship_yuv(1, 800, W, seed=19, bits=10)[0]
+        frames = [lt.frame_from_yuv420p(y, u, v, color=color, bit_depth=10,
+                                        repr=repr)] * count
     r = lt.Renderer()
     frame_iter = iter(frames)
 
     def render():
         r.render(next(frame_iter), target, params)
+    if config == "pathE":
+        from chip_smoke import (_flagship_yuv, path_e_frames, path_e_mix,
+                                path_e_params, PATH_E_SPACING)
+        src = path_e_frames(lt, _flagship_yuv(
+            int(count / PATH_E_SPACING) + 2, H, W, seed=17, bits=10),
+            "cuda", 2 * W)
+        params = path_e_params(lt)
+        vsyncs = iter(range(count))
+
+        def render():
+            lt.render_image_mix(r, path_e_mix(lt, src, next(vsyncs)),
+                                target, params)
 
     for _ in range(2):
         render()
