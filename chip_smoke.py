@@ -126,9 +126,40 @@ Phases (each runs uncaught: any failure exits non-zero):
     border, tiles, corner rounding, an RGBA frame blended onto the
     target's contents, cone distortion, the tone-curve visualizer)
     against the CPU renders on a small input, and timings.
-On every path but B, F and the distortion phase the renderer must count
-K1 tails only (no plain tails); their tails count as ineligible (plain
-in the reference).
+18. path G, "a player's loop": a 23.976 fps HDR10 film (config 4's
+    content, 10-bit limited BT.2020-NC PQ, 24 seeded source frames) on a
+    60 Hz SDR 4K display, driven as mpv drives libplacebo: the params
+    from an option string (Options().parse, `PATH_G_OPTIONS`: EWA
+    Lanczos, the mitchell_clamp frame mixer, spline + perceptual), a
+    decoder thread push_blocking lazy SourceFrames into a FrameQueue
+    (`PathGDecoder`: planes "decoded" into pinned host memory, uploaded
+    by `map`), 60 vsyncs each a queue update (INTERPOLATE) and
+    render_image_mix, telemetry installed; counted as one run (K1's
+    <spline, perceptual> instance without dither once a source frame,
+    every other mix entry a mix-cache hit; each frame mapped once and
+    unmapped, the rest discarded), vsyncs 1-29 timed synchronized and
+    30-59 back to back; K1 bit for bit against its plain version;
+19. path H, "config 5 with user hooks": config 5's frames and params (8
+    frames, a new grain seed each) with a LUMA_INPUT 2x luma doubler (a
+    seeded 3x3 convolution to 4 channels and a pixel shuffle, declaring
+    its offset) and a PRE_OUTPUT auto-exposure carrying a running mean
+    across frames (`path_h_hooks`): the hooked tail plain, as in the
+    reference (counted ineligible), K2 once and K3 twice a frame, each
+    exact against its plain version on the frame's own input;
+    then paths G's and H's GPU renders against the CPU renders on a
+    small input, and timings (path G: the vsyncs, the telemetry beside a
+    new frame's render timed by CUDA events, a source frame's map alone;
+    path H: the frames);
+20. the degradation ladder, last: deband made to raise RuntimeError
+    recovers (get_errors() shows it, the log records it); K1's launcher
+    made to raise KernelError, and the exception torch raises for a
+    CUDA error, each propagate out of Renderer.render with get_errors()
+    empty, and so does an out-of-memory error raised inside K1's wrapper
+    (as a KernelError); everything restored, and no renderer of any path
+    has a feature or a hook disabled.
+On every path but B, F, H and the distortion phase the renderer must
+count K1 tails only (no plain tails); their tails count as ineligible
+(plain in the reference).
 
 Prints the card's name and power limit (nvidia-smi), a `kernels` JSON
 line, a `timings` JSON line, and last `{"ok": true, "device": ...}`.
@@ -659,6 +690,172 @@ def presentation_cases(lt, yuv, device):
                       lt.RenderParams(visualize_lut=True, **ewa))}
 
 
+# path G: a 23.976 fps HDR10 film on a 60 Hz SDR 4K display, driven as
+# mpv drives libplacebo: the user's settings as an option string, a
+# decoder thread feeding the frame queue, a queue update a vsync
+PATH_G_FPS = 24000 / 1001
+PATH_G_HZ = 60.0
+PATH_G_OPTIONS = ("preset=default,upscaler=ewa_lanczos,frame_mixer="
+                  "mitchell_clamp,tone_mapping=spline,"
+                  "gamut_mapping=perceptual")
+
+
+def path_g_params(lt):
+    opts = lt.Options()
+    opts.parse(PATH_G_OPTIONS)
+    return opts.params
+
+
+class PathGDecoder:
+    """Path G's producer: source frame k (config 4's content, 10-bit
+    limited BT.2020-NC PQ 4:2:0, pts k / 23.976 s) is "decoded" into
+    pinned host memory (plain host memory on the CPU) and push_blocked
+    as a lazy SourceFrame, whose `map` uploads its planes and sets its
+    signature to the frame number (k + 1); maps, unmaps and discards are
+    counted."""
+
+    def __init__(self, lt, yuvs, device):
+        import torch
+        self.lt, self.yuvs = lt, yuvs
+        self.device = torch.device(device)
+        self.counts = {"map": 0, "unmap": 0, "discard": 0}
+        self.rep = lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
+                                levels=lt.ColorLevels.LIMITED,
+                                bits=lt.BitEncoding(10, 10, 0))
+
+    def decode(self, k):
+        """Frame k's planes as int16 tensors in pinned host memory."""
+        import torch
+        pin = self.device.type == "cuda"
+        return [torch.from_numpy(p.astype(np.int16)).pin_memory() if pin
+                else torch.from_numpy(p.astype(np.int16))
+                for p in self.yuvs[k]]
+
+    def source(self, k, planes):
+        lt = self.lt
+
+        def map_frame():
+            self.counts["map"] += 1
+            f = lt.frame_from_yuv420p(*planes, color=lt.CSP_BT2100_PQ,
+                                      repr=self.rep, bit_depth=10,
+                                      device=self.device)
+            f.signature = k + 1
+            return f
+
+        def unmap(frame):
+            self.counts["unmap"] += 1
+
+        def discard():
+            self.counts["discard"] += 1
+        return lt.SourceFrame(pts=k / PATH_G_FPS, map=map_frame,
+                              unmap=unmap, discard=discard)
+
+    def run(self, queue, stop):
+        """The decoder thread's body: every frame, then EOF, each
+        push_block retried with a 0.1 s timeout until `stop` is set."""
+        for item in [k for k in range(len(self.yuvs))] + [None]:
+            src = None if item is None else self.source(item,
+                                                        self.decode(item))
+            while not stop.is_set():
+                if queue.push_block(src, timeout=0.1):
+                    break
+
+
+def path_g_update(lt, queue, params, v):
+    """Vsync v's queue update: (status, FrameMix or None)."""
+    return queue.update(lt.QueueParams(
+        pts=v / PATH_G_HZ, radius=lt.frame_mix_radius(params),
+        vsync_duration=1 / PATH_G_HZ), lt.QueueMode.INTERPOLATE)
+
+
+def path_g_play(lt, renderer, decoder, target, params, vsyncs,
+                threaded=True, on_vsync=None):
+    """Play vsyncs through a frame queue fed by `decoder` (on a thread,
+    started after it has buffered FrameQueue.MAX_AHEAD frames, as a
+    player pre-buffers; or, with threaded=False, every frame pushed up
+    front): each vsync's queue update, then render_image_mix of its mix.
+    `on_vsync(v, status, mix, out)` sees each vsync (mix and out None
+    unless the status is OK).  Returns the statuses, in order."""
+    import threading
+    queue = lt.FrameQueue()
+    stop = threading.Event()
+    thread = None
+    if threaded:
+        thread = threading.Thread(target=decoder.run, args=(queue, stop),
+                                  daemon=True)
+        thread.start()
+        deadline = time.monotonic() + 60.0
+        while queue.num_frames < min(queue.MAX_AHEAD, len(decoder.yuvs)):
+            assert time.monotonic() < deadline, "path G: decoder stalled"
+            time.sleep(0.001)
+    else:
+        for k in range(len(decoder.yuvs)):
+            queue.push(decoder.source(k, decoder.decode(k)))
+        queue.push(None)
+    statuses = []
+    try:
+        for v in vsyncs:
+            status, mix = path_g_update(lt, queue, params, v)
+            statuses.append(status)
+            out = None
+            if status == lt.QueueStatus.OK:
+                out = lt.render_image_mix(renderer, mix, target, params)
+            if on_vsync is not None:
+                on_vsync(v, status, mix, out)
+    finally:
+        stop.set()
+        if thread is not None:
+            thread.join(timeout=5.0)
+            assert not thread.is_alive(), "path G: decoder did not stop"
+        queue.reset()
+    return statuses
+
+
+# path H: config 5 with user hooks — a luma doubler and an
+# auto-exposure with state carried across frames
+PATH_H_SEED = 4242
+
+
+def path_h_hooks(lt, device):
+    """Path H's hooks, as a user writes them in plain torch ops: a
+    LUMA_INPUT 2x luma doubler shaped like FSRCNNX (a seeded 3x3
+    convolution to 4 channels over the edge-padded luma, then a pixel
+    shuffle; its phases sample half a texel right and down of each input
+    texel, so it declares //!OFFSET -0.5 -0.5 of the doubled grid), and a
+    PRE_OUTPUT auto-exposure (a running mean of the frame's intensity,
+    carried across frames in its `state_spec`, sets a small gain)."""
+    import torch
+    import torch.nn.functional as F
+    rng = np.random.default_rng(PATH_H_SEED)
+    w = rng.random((4, 1, 3, 3)) + 0.25
+    w = (w / w.sum(axis=(1, 2, 3), keepdims=True)).astype(np.float32)
+    weight = torch.from_numpy(w).to(device)
+
+    def doubler(img, params):
+        x = F.pad(img[None], (1, 1, 1, 1), mode="replicate")
+        out = F.pixel_shuffle(F.conv2d(x, weight), 2)[0]
+        params.rect.apply_pass(2.0, 2.0, off=(-0.5, -0.5))
+        return out
+
+    def exposure(img, params):
+        mean = params.state_in["mean"] * 0.875 + img.mean() * 0.125
+        params.state_out["mean"] = mean
+        return img * (1.0 + (0.25 - mean) * 0.1)
+    auto = lt.Hook(lt.HookStage.PRE_OUTPUT, exposure, name="auto_exposure")
+    auto.state_spec = {"mean": np.float32(0.25)}
+    return [lt.Hook(lt.HookStage.LUMA_INPUT, doubler, name="luma_doubler"),
+            auto], w
+
+
+def path_h_params(lt, hooks):
+    """Config 5's params (deband, AV1 grain, Floyd-Steinberg to 8 bits)
+    with path H's hooks."""
+    return lt.RenderParams(upscaler="ewa_lanczos",
+                           deband=lt.DebandParams(iterations=2),
+                           film_grain=True, error_diffusion="floyd-steinberg",
+                           hooks=tuple(hooks))
+
+
 # the K1 tails chip_smoke holds on the generic instance beside path A's:
 # name -> (source (primaries, transfer, max nits or 0), target (primaries,
 # transfer, max nits or 0), RenderParams fields, bit depth, target
@@ -883,9 +1080,14 @@ def main() -> int:
             "k3f": k3.shear_to_colmaj, "k3i": k3.unshear_from_colmaj,
             "ewa": polar.sample_polar}
 
+    # at most this many K1 inputs kept (None: all): path G keeps two, so
+    # its timed vsyncs copy no frame
+    k1_keep = [None]
+
     def cap_k1(img, plan, tone, lut):
-        captured["k1"].append((img.clone(), plan, tone.clone()
-                               if tone is not None else None, lut))
+        if k1_keep[0] is None or len(captured["k1"]) < k1_keep[0]:
+            captured["k1"].append((img.clone(), plan, tone.clone()
+                                   if tone is not None else None, lut))
         return real["k1"](img, plan, tone, lut)
 
     def cap_k2(colmaj, kernel, depth, w, h):
@@ -1017,6 +1219,69 @@ def main() -> int:
         rendererF = lt.Renderer(device=dev)
         outsF, pf_launches, pf_tails = _render_run(
             rendererF, framesF, targetF, paramsF, counters)
+        # 18. path G: a player's loop — the user's option string, a
+        # decoder thread push_blocking lazy source frames (10-bit HDR10,
+        # 23.976 fps) from pinned memory into the frame queue, a queue
+        # update and render_image_mix a vsync at 60 Hz, telemetry on.
+        # A warm-up on another renderer first (plans and caches shared
+        # by every renderer), then the counted run: vsyncs 0-29 each
+        # synchronized, 30-59 back to back between two CUDA events
+        paramsG = path_g_params(lt)
+        yuvsG = _flagship_yuv(24, H, W, seed=23, bits=10)
+        path_g_play(lt, lt.Renderer(device=dev),
+                    PathGDecoder(lt, yuvsG[:4], dev), target, paramsG,
+                    range(4), threaded=False)
+        captured["k1"].clear()
+        decoderG = PathGDecoder(lt, yuvsG, dev)
+        rendererG = lt.Renderer(device=dev)
+        rendererG.telemetry = lt.Telemetry()
+        pg = {"ms": [], "outs": {}, "refs": 0, "t": None,
+              "start": torch.cuda.Event(enable_timing=True),
+              "end": torch.cuda.Event(enable_timing=True)}
+
+        def on_vsync_g(v, status, mix, out):
+            if mix is not None:
+                pg["refs"] += len(mix.frames)
+            if v % 10 == 9 and out is not None:
+                pg["outs"][v] = out
+            if v < 30:
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                if pg["t"] is not None:
+                    pg["ms"].append((now - pg["t"]) * 1e3)
+                pg["t"] = now
+                if v == 29:
+                    pg["start"].record()
+            elif v == 59:
+                pg["end"].record()
+        k1_keep[0] = 2
+        for mod in counters.values():
+            mod.launches = 0
+        trender.k1_tails = trender.plain_tails = trender.ineligible_tails = 0
+        pg_statuses = path_g_play(lt, rendererG, decoderG, target, paramsG,
+                                  range(60), on_vsync=on_vsync_g)
+        torch.cuda.synchronize()
+        pg_launches = {n: m.launches for n, m in counters.items()}
+        pg_tails = (trender.k1_tails, trender.plain_tails,
+                    trender.ineligible_tails)
+        pg_frames = dict(decoderG.counts)
+        k1_keep[0] = None
+        pg_k1 = captured["k1"][1]
+        captured["k1"].clear()
+        # 19. path H: config 5 with user hooks (a LUMA_INPUT doubler, a
+        # PRE_OUTPUT auto-exposure with carried state), 8 frames
+        hooksH, _ = path_h_hooks(lt, dev)
+        paramsH = path_h_params(lt, hooksH)
+        yuvsH = _flagship_yuv(8, H, W, seed=29)
+        framesH = [_frame(lt, f, dev, cfg.sample_grain(GRAIN_SEED + 100 + i))
+                   for i, f in enumerate(yuvsH)]
+        rendererH = lt.Renderer(device=dev)
+        k2_at, k3_at = len(captured["k2"]), len(captured["k3"])
+        outsH, ph_launches, ph_tails = _render_run(
+            rendererH, framesH, target, paramsH, counters)
+        ph_k2 = captured["k2"][k2_at + 2]
+        ph_k3 = captured["k3"][k3_at + 4:k3_at + 6]
+        del captured["k2"][k2_at:], captured["k3"][k3_at:]
     finally:
         polar.sample_polar = real["ewa"]
         k1.color_map_tail = real["k1"]
@@ -1043,6 +1308,38 @@ def main() -> int:
         pe_k1[2] is not None and pe_k1[3] is None
     assert pf_launches == {"k1": 0, "k2": 0, "k3": 0}, pf_launches
     assert pf_tails == (0, 0, 3), pf_tails
+    # path G: every vsync emitted a mix; each source frame shown was
+    # mapped once and rendered once on K1 (<spline, perceptual> without
+    # dither), the rest of each mix from the mix cache; the queue's reset
+    # unmapped every mapped frame and discarded the rest unseen
+    from collections import Counter
+    pg_status_count = {st.value: n for st, n in Counter(pg_statuses).items()}
+    assert pg_status_count == {"ok": 60}, pg_status_count
+    pg_hits = pg["refs"] - pg_tails[0]
+    assert pg_launches["k2"] == pg_launches["k3"] == 0, pg_launches
+    assert pg_launches["k1"] == pg_tails[0] == pg_frames["map"] \
+        and pg_tails[1:] == (0, 0), (pg_launches, pg_tails, pg_frames)
+    assert 20 <= pg_tails[0] <= 24 and pg_hits > 0, (pg_tails, pg_hits)
+    assert pg_frames["unmap"] == pg_frames["map"] and \
+        pg_frames["map"] + pg_frames["discard"] == 24, pg_frames
+    assert len(rendererG._cache) == 1
+    assert (pg_k1[1].tone, pg_k1[1].gamut) == (1, 2) and \
+        pg_k1[2] is not None and pg_k1[3] is None
+    assert paramsG.frame_mixer == "mitchell_clamp" and \
+        paramsG.upscaler == "ewa_lanczos"
+    # path H: the hooked tail plain, as in the reference (counted
+    # ineligible), then K2 and K3 a frame; one plan for the 8 frames
+    # (the auto-exposure's state is frame data)
+    assert ph_launches == {"k1": 0, "k2": 8, "k3": 16}, ph_launches
+    assert ph_tails == (0, 0, 8), ph_tails
+    assert len(rendererH._cache) == 1
+    for out in list(pg["outs"].values()) + outsH:
+        assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
+        assert bool(torch.isfinite(out).all())
+        assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+        codes = out * 255.0
+        assert float((codes - torch.round(codes)).abs().max()) <= 255e-6
+    assert sorted(pg["outs"]) == [9, 19, 29, 39, 49, 59]
     # every tail of every path ran on K1, but path B's, which the
     # reference runs plain too (an ICC target)
     for tails in (flag_tails, c5_tails, c4_tails, c2_tails, c3_tails,
@@ -1291,6 +1588,61 @@ def main() -> int:
         gate(name, lt.Renderer(device=dev).render(f, t, p).cpu().numpy(),
              lt.Renderer(device="cpu").render(*cases_c[name]).numpy())
 
+    # 18b/19b. path G's K1 launch vs its plain version (no dither: bit
+    # for bit) and path H's K2 and K3 vs theirs on frame 2's own inputs
+    # (exact), then both paths' GPU renders vs the CPU renders on a
+    # small input: path G over 12 vsyncs (the flagship's gate), path H
+    # over 3 frames (config 5's gate: error diffusion turns ulp
+    # differences upstream into 1-LSB flips)
+    pg_err, pg_frac, pg_part = _check_k1(k1, pg_k1)
+    assert pg_err == 0.0, pg_err
+    ph_k2_args = ph_k2
+    got = k2.wavefront(*ph_k2_args)
+    want = k2.wavefront_plain(*ph_k2_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "K2 on path H"
+    ph_k2_err = float((got.float() - want.float()).abs().max())
+    del got, want
+    ph_k3_err = 0.0
+    for x, w_out, s, w, h, fwd in ph_k3:
+        got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(
+            x, w_out, s, w, h)
+        want = k3.shear_plain(x, w_out, s, w, h, fwd)
+        ph_k3_err = max(ph_k3_err,
+                        float((got.float() - want.float()).abs().max()))
+        assert torch.equal(got, want), "K3 on path H"
+    assert ph_k3[0][5] and not ph_k3[1][5]
+    del got, want
+    yuvG_s = _flagship_yuv(8, 64, 128, seed=7, bits=10)
+    outs_g = {}
+    for name, d in (("gpu", dev), ("cpu", "cpu")):
+        outs_g[name] = []
+        path_g_play(lt, lt.Renderer(device=d), PathGDecoder(lt, yuvG_s, d),
+                    lt.Target(w=256, h=128, color=lt.CSP_SRGB, bit_depth=8),
+                    paramsG, range(12), threaded=False,
+                    on_vsync=lambda v, status, mix, out, acc=outs_g[name]:
+                    acc.append(out.cpu().numpy()))
+    assert len(outs_g["gpu"]) == len(outs_g["cpu"]) == 12
+    for g, c in zip(outs_g["gpu"], outs_g["cpu"]):
+        gate("G", g, c)
+    hooks_c, _ = path_h_hooks(lt, "cpu")
+    hooks_g, _ = path_h_hooks(lt, dev)
+    rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+    small_paths["H"] = []
+    for i, f in enumerate(_flagship_yuv(3, 64, 128, seed=7)):
+        grain = cfg.sample_grain(GRAIN_SEED + i)
+        g = rg.render(_frame(lt, f, dev, grain), st,
+                      path_h_params(lt, hooks_g)).cpu().numpy()
+        c = rc.render(_frame(lt, f, "cpu", grain), st,
+                      path_h_params(lt, hooks_c)).numpy()
+        d = np.abs(g - c)
+        small_paths["H"].append({
+            "max": float(d.max()), "differing": float((d > 1e-6).mean()),
+            "above_1lsb": float((d > LSB + 1e-6).mean())})
+        assert (d > LSB + 1e-6).mean() <= 5e-4 and \
+            (d > 1e-6).mean() < 0.12, small_paths["H"][-1]
+    assert rg.get_errors() == rc.get_errors() == (frozenset(), frozenset())
+
     # 6. timings (their launches are not counted).  Config 5's frames
     # carry a new grain seed each, as an AV1 stream's do, so every frame
     # generates and uploads its grain tables
@@ -1369,10 +1721,59 @@ def main() -> int:
     pf_ms, pf_window_ms = frame_times(
         rendererF, [framesF[k % 3] for k in range(n_timed)], paramsF,
         targetF)
+    # path G: its counted run's vsyncs (1-29 synchronized, 30-59 back to
+    # back), the telemetry's frame times beside a new frame's render
+    # timed here by CUDA events, and a source frame's map (the pinned
+    # upload and normalize) alone
+    pg_ms = pg["ms"]
+    pg_window_ms = pg["start"].elapsed_time(pg["end"]) / 30
+    rendererG.flush_telemetry()
+    pg_tel = rendererG.telemetry.passes["frame"]
+    pg_telemetry = {"summary": rendererG.telemetry.summary(),
+                    "average_ms": pg_tel.average * 1e3,
+                    "peak_ms": pg_tel.peak * 1e3, "count": pg_tel.count}
+    rendererG.telemetry = None
+    import dataclasses
+    planesG = decoderG.decode(3)
+    fG = decoderG.source(3, planesG).map()
+    inter_tG = lt.Target(w=target.w, h=target.h, repr=target.repr,
+                         color=target.color)
+    inter_pG = dataclasses.replace(paramsG, dither=None,
+                                   error_diffusion=None)
+    pg_render_ms = _cuda_ms(lambda: rendererG.render(fG, inter_tG, inter_pG),
+                            10)
+    pg_map_ms = _cuda_ms(lambda: decoderG.source(3, planesG).map(), 10)
+    pg_map_host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decoderG.source(3, planesG).map()
+        pg_map_host_ms.append((time.perf_counter() - t) * 1e3)
+    del fG, planesG
+    k1_pg_ms = _cuda_ms(lambda: k1.color_map_tail(*pg_k1), 20)
+    k1_pg_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        pg_k1[0], pg_k1[1].consts, *pg_k1[2:], pg_k1[1].instance), 3)
+    # path H: 12 frames, a new grain seed each (stream traffic)
+    ph_ms, ph_window_ms = frame_times(
+        rendererH, [_frame(lt, yuvsH[k % 8], dev,
+                           cfg.sample_grain(GRAIN_SEED + 300 + k))
+                    for k in range(n_timed)], paramsH)
+    k2_ph_ms = _cuda_ms(lambda: k2.wavefront(*ph_k2_args), 5)
+    k2_ph_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*ph_k2_args), 1)
+    k3_ph_ms = k3_ph_plain_ms = k3_ph_lib_ms = 0.0
+    k3_ph_bytes = 0
+    for x, w_out, s, w, h, fwd in ph_k3:
+        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
+        k3_ph_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
+        k3_ph_plain_ms += _cuda_ms(
+            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
+        k3_ph_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
+        C = x.shape[1]
+        k3_ph_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
+                        else 2 * w * C * h) * x.element_size()
     # path F's stages by ablation: the back-to-back frame without
     # contrast recovery, without deband, and without both (the crop
     # keeps the tail plain)
-    import dataclasses
     pf_ablation_ms = {}
     for name, p in (
             ("no_recovery", dataclasses.replace(paramsF,
@@ -1630,6 +2031,96 @@ def main() -> int:
     k2_ops = n_px * (7 + 2 * n_taps)
     k2_bound, k2_by = _bound(k2_bytes, k2_ops)
     k3_bound, k3_by = _bound(k3_bytes, 0)
+    # K2 and K3 on path H's frame 2: the same counts as config 5's
+    n_px_h = ph_k2_args[3] * ph_k2_args[0].shape[1] * ph_k2_args[4]
+    k2_ph_bound, k2_ph_by = _bound(n_px_h * (4 + codes_k.element_size()),
+                                   n_px_h * (7 + 2 * n_taps))
+    k3_ph_bound, k3_ph_by = _bound(k3_ph_bytes, 0)
+
+    # 20. the degradation ladder, last, everything restored after it:
+    # (a) a plain stage made to fail (deband raising RuntimeError)
+    # recovers, get_errors() shows `deband` and the log records it;
+    # (b) K1's launcher raising KernelError and (c) raising the
+    # exception type torch uses for a CUDA error (simulated: a real one
+    # would leave the context unusable) each propagate out of
+    # Renderer.render with get_errors() empty
+    from libplacebo_tpu_torch.core import log as core_log
+    ladder = {}
+    logged = []
+    real_log, real_deband = core_log.default_log, ops_deband.deband
+    small_f = _flagship_yuv(1, 64, 128, seed=7)[0]
+
+    def broken_deband(*a, **k):
+        raise RuntimeError("synthetic deband failure")
+    core_log.default_log = lambda: core_log.Log(
+        level=core_log.LogLevel.ERR,
+        callback=lambda lvl, msg: logged.append(msg))
+    ops_deband.deband = broken_deband
+    try:
+        rl = lt.Renderer(device=dev)
+        out = rl.render(_frame(lt, small_f, dev), st, lt.RenderParams(
+            upscaler="ewa_lanczos", deband=lt.DebandParams()))
+        torch.cuda.synchronize()
+        ladder["a_errors"] = sorted(rl.get_errors()[0])
+        ladder["a_log"] = list(logged)
+        assert rl.get_errors() == (frozenset({"deband"}), frozenset())
+        assert len(logged) == 1 and "deband" in logged[0] and \
+            "synthetic deband failure" in logged[0], logged
+        assert bool(torch.isfinite(out).all())
+    finally:
+        core_log.default_log, ops_deband.deband = real_log, real_deband
+    cuda_error = getattr(torch, "AcceleratorError", RuntimeError)
+    for case, exc in (
+            ("b", lt.KernelError("K1 launch failed: synthetic")),
+            ("c", cuda_error("CUDA error: an illegal memory access was "
+                             "encountered (synthetic)"))):
+        def failing_launch(*a, exc=exc, **k):
+            raise exc
+        k1.color_map_tail = failing_launch
+        rl = lt.Renderer(device=dev)
+        try:
+            rl.render(_frame(lt, small_f, dev), st, params)
+            raised = None
+        except Exception as e:      # noqa: BLE001 - checked below
+            raised = e
+        finally:
+            k1.color_map_tail = real["k1"]
+        assert raised is exc, (case, raised)
+        assert rl.get_errors() == (frozenset(), frozenset()), case
+        ladder[f"{case}_raised"] = f"{type(raised).__name__}: {raised}"
+    # (d) an out-of-memory error inside K1's own wrapper (its library
+    # lookup made to raise one, after the wrapper's allocations) leaves
+    # it as a KernelError and propagates; nothing degrades
+    real_lib = k1._kernel_lib
+    oom = torch.OutOfMemoryError("CUDA out of memory. Tried to allocate "
+                                 "95.00 MiB (synthetic)")
+
+    def oom_lib(*a, **k):
+        raise oom
+    k1._kernel_lib = oom_lib
+    rl = lt.Renderer(device=dev)
+    try:
+        rl.render(_frame(lt, small_f, dev), st, params)
+        raised = None
+    except Exception as e:      # noqa: BLE001 - checked below
+        raised = e
+    finally:
+        k1._kernel_lib = real_lib
+    assert isinstance(raised, lt.KernelError) and \
+        raised.__cause__ is oom, raised
+    assert rl.get_errors() == (frozenset(), frozenset())
+    ladder["d_raised"] = f"{type(raised).__name__}: {raised}"
+    # restored: the same renderer renders on K1 again
+    k1.launches = 0
+    rl.render(_frame(lt, small_f, dev), st, params)
+    torch.cuda.synchronize()
+    assert k1.launches == 1 and rl.get_errors() == (frozenset(), frozenset())
+    # no feature and no hook was quietly disabled on any path
+    for r in (renderer, renderer5, renderer4, renderer2, renderer3,
+              rendererA, rendererB, rendererC, rendererD, rendererX,
+              rendererE, rendererF, rendererG, rendererH):
+        assert r.get_errors() == (frozenset(), frozenset()), r.get_errors()
+
     kernels = [
         _k1_entry(k1, "k1_color_map", flag_k1, k1_part,
                   flag_launches["k1"], k1_err, k1_ms, k1_plain_ms),
@@ -1649,6 +2140,21 @@ def main() -> int:
                   pd_launches["k1"], pd_err, k1_pd_ms, k1_pd_plain_ms),
         _k1_entry(k1, "k1_color_map_no_dither_path_e", pe_k1, pe_part,
                   pe_launches["k1"], pe_err, k1_pe_ms, k1_pe_plain_ms),
+        _k1_entry(k1, "k1_color_map_no_dither_path_g", pg_k1, pg_part,
+                  pg_launches["k1"], pg_err, k1_pg_ms, k1_pg_plain_ms),
+        {"name": "k2_error_diffusion_path_h", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
+         "launches": ph_launches["k2"], "max_abs_err": ph_k2_err,
+         "ms": k2_ph_ms, "plain_ms": k2_ph_plain_ms,
+         "bound_ms": k2_ph_bound, "bound_by": k2_ph_by, "library_ms": None},
+        {"name": "k3_shear_path_h", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/shear.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
+         "launches": ph_launches["k3"], "max_abs_err": ph_k3_err,
+         "ms": k3_ph_ms, "plain_ms": k3_ph_plain_ms,
+         "bound_ms": k3_ph_bound, "bound_by": k3_ph_by,
+         "library_ms": k3_ph_lib_ms},
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -1726,6 +2232,22 @@ def main() -> int:
         "path_f_frame_ms": pf_ms, "path_f_window_ms": pf_window_ms,
         "path_f_tails": pf_tails, "path_f_ablation_window_ms":
         pf_ablation_ms,
+        "path_g_vsync_ms_median": statistics.median(pg_ms),
+        "path_g_vsync_ms": pg_ms, "path_g_window_ms": pg_window_ms,
+        "path_g_k1_launches_per_vsync": pg_launches["k1"] / 60,
+        "path_g_mix_cache_hits": pg_hits, "path_g_tails": pg_tails,
+        "path_g_frames": pg_frames,
+        "path_g_queue_status": pg_status_count,
+        "path_g_telemetry": pg_telemetry,
+        "path_g_render_ms": pg_render_ms, "path_g_map_ms": pg_map_ms,
+        "path_g_map_host_ms": pg_map_host_ms,
+        "k1_path_g_ms": k1_pg_ms, "k1_path_g_plain_ms": k1_pg_plain_ms,
+        "path_h_frame_ms_median": statistics.median(ph_ms),
+        "path_h_frame_ms": ph_ms, "path_h_window_ms": ph_window_ms,
+        "path_h_k2_launches_per_frame": ph_launches["k2"] / 8,
+        "path_h_k3_launches_per_frame": ph_launches["k3"] / 8,
+        "path_h_tails": ph_tails, "k2_path_h_ms": k2_ph_ms,
+        "k3_path_h_ms": k3_ph_ms, "ladder": ladder,
         "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
         "h274_1080p_ms": h274_ms, "h274_host_ms": h274_host_ms,
         "deinterlace_1080p_ms": deint_ms, "distort_4k_ms": distort_ms,
@@ -1768,6 +2290,18 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "k1_sass.txt"), "w") as f:
         f.write(k1_sass_text)
 
+    print(f"path G: a vsync {statistics.median(pg_ms):.3f} ms synchronized "
+          f"(median of {len(pg_ms)}), {pg_window_ms:.3f} ms back to back; "
+          f"K1 {pg_launches['k1'] / 60:.3f} launches a vsync, {pg_hits} "
+          f"mix-cache hits; frames {pg_frames}; queue "
+          f"{pg_status_count}; telemetry's frame {pg_tel.average * 1e3:.3f}"
+          f" ms average ({pg_tel.count} frames) beside a new frame's render"
+          f" {pg_render_ms:.3f} ms (CUDA events); a map {pg_map_ms:.3f} ms")
+    print(f"path H: a frame {statistics.median(ph_ms):.3f} ms synchronized,"
+          f" {ph_window_ms:.3f} ms back to back; K2 "
+          f"{ph_launches['k2'] / 8:g} and K3 {ph_launches['k3'] / 8:g} "
+          f"launches a frame; tails (K1, plain, ineligible) {ph_tails}")
+    print(f"ladder: {ladder}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"timings": timings}))

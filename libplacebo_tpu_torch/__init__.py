@@ -27,7 +27,9 @@ from .core.dither import DitherMethod  # noqa: E402
 from .core.film_grain import (AV1GrainData, FilmGrainData,  # noqa: E402
                               H274GrainData)
 from .core.icc import IccProfile, parse_icc  # noqa: E402
+from .core.log import Log, LogLevel, default_log, log_create  # noqa: E402
 from .core.lut import CustomLut, parse_cube  # noqa: E402
+from .core.options import Options  # noqa: E402
 from .ops.deband import DebandParams  # noqa: E402
 from .ops.deinterlace import (DeinterlaceAlgo, DeinterlaceParams,  # noqa: E402
                               Field)
@@ -36,7 +38,12 @@ from .ops.dithering import DitherParams  # noqa: E402
 from .ops.peak_detect import PeakDetectParams  # noqa: E402
 from .render.frame import (Frame, Overlay, OverlayPart, Plane,  # noqa: E402
                            frame_from_rgb, frame_from_yuv420p)
-from .render.queue import FrameMix  # noqa: E402
+from .render.hooks import Hook, HookParams, HookRect, HookStage  # noqa: E402
+from .render.profiler import Telemetry  # noqa: E402
+from .render.queue import (FrameMix, FrameQueue, QueueMode,  # noqa: E402
+                           QueueParams, QueueStatus, SourceFrame,
+                           frame_mix_radius)
+from ._build import KernelError  # noqa: E402
 from .render.renderer import (ALPHA_OVERLAY, DEFAULT_PARAMS,  # noqa: E402
                               FAST_PARAMS, HIGH_QUALITY_PARAMS, RenderError,
                               RenderParams, Renderer, Target, clear_target,
@@ -61,4 +68,8 @@ __all__ = ["Renderer", "render_image", "render_image_mix", "RenderParams",
            "Field", "DistortParams", "RenderError",
            "PeakDetectParams", "BitEncoding", "ColorLevels",
            "ColorPrimaries", "ColorRepr", "ColorSpace", "ColorSystem",
-           "ColorTransfer", "CSP_BT2100_PQ", "CSP_SRGB", "HdrMetadata"]
+           "ColorTransfer", "CSP_BT2100_PQ", "CSP_SRGB", "HdrMetadata",
+           "Options", "FrameQueue", "SourceFrame", "QueueParams",
+           "QueueMode", "QueueStatus", "frame_mix_radius", "Hook",
+           "HookStage", "HookParams", "HookRect", "Telemetry", "Log",
+           "LogLevel", "log_create", "default_log", "KernelError"]

@@ -13,6 +13,7 @@ fresh checkout builds in the time of its slowest library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,8 +21,11 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["BUILD_DIR", "build_all", "build_log", "build_shared",
-           "generated_include", "load_shared", "nvcc_path"]
+import torch
+
+__all__ = ["BUILD_DIR", "KernelError", "is_kernel_failure", "kernel_work",
+           "build_all", "build_log", "build_shared", "generated_include",
+           "load_shared", "nvcc_path"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
@@ -31,12 +35,46 @@ _lock = threading.Lock()
 _loaded: dict = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
+
+
+# the exception type PyTorch raises for an error the CUDA runtime
+# reports (older versions raise a RuntimeError starting "CUDA error")
+_ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", None)
+
+
+def is_kernel_failure(exc: BaseException) -> bool:
+    """Whether `exc` is a kernel's failure or a CUDA error: after one
+    the context may be unusable, and a re-render would only hide the
+    cause."""
+    if isinstance(exc, KernelError):
+        return True
+    if _ACCELERATOR_ERROR is not None and isinstance(exc, _ACCELERATOR_ERROR):
+        return True
+    return isinstance(exc, RuntimeError) and str(exc).startswith("CUDA error")
+
+
+@contextlib.contextmanager
+def kernel_work(name: str):
+    """Raise whatever fails inside the block as a KernelError: the block
+    is a kernel's own work on the card (its outputs' allocation, its
+    library, its launch), and no caller may take such a failure, an
+    out-of-memory error included, for a plain stage's."""
+    try:
+        yield
+    except KernelError:
+        raise
+    except Exception as e:
+        raise KernelError(f"{name} failed: {type(e).__name__}: {e}") from e
+
+
 def nvcc_path() -> str:
     for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
                  "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set NVCC or install the CUDA "
+    raise KernelError("nvcc not found (set NVCC or install the CUDA "
                        "toolkit under /usr/local/cuda)")
 
 
@@ -90,12 +128,12 @@ def _finish(out: str, job) -> str:
     name, cmd, tmp, proc = job
     try:
         log, _ = proc.communicate(timeout=600)
-    except subprocess.TimeoutExpired:
+    except subprocess.TimeoutExpired as e:
         proc.kill()
         proc.communicate()
-        raise
+        raise KernelError(f"build of {name} timed out") from e
     if proc.returncode != 0:
-        raise RuntimeError(f"build of {name} failed ({' '.join(cmd)}):\n"
+        raise KernelError(f"build of {name} failed ({' '.join(cmd)}):\n"
                            f"{log}")
     with open(f"{tmp}.log", "w") as f:
         f.write(log)
@@ -135,6 +173,10 @@ def load_shared(name: str, sources, compiler: str, flags) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_shared(name, sources, compiler, flags))
+            path = build_shared(name, sources, compiler, flags)
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError(f"loading {path} failed: {e}") from e
             _loaded[name] = lib
         return lib

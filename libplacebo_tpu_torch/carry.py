@@ -4,8 +4,9 @@ The renderer has no weights; what crosses is the carried state (the
 peak-detection state (2,) and the temporal frame index), the input
 planes, the frame's film-grain description (AV1 or H.274), its Dolby
 Vision metadata, its overlays, the user's color adjustment and cone
-parameters, a frame-mix window and, for a test that wants to rule out
-the random draws, deband's random tables.  The dither LUT
+parameters, a frame-mix window, the hooks' carried state, the
+degradation flags and disabled hooks and, for a test that wants to rule
+out the random draws, deband's random tables.  The dither LUT
 and the grain tables are regenerated bit-identically from the same
 native sources.  The interface is numpy arrays and plain dicts, so this
 module — like the rest of the port — never imports JAX.
@@ -32,7 +33,8 @@ __all__ = ["renderer_state_from_jax", "frame_from_numpy",
            "deband_tables_from_numpy", "repr_from_fields",
            "colorspace_from_fields", "overlay_from_fields",
            "color_adjustment_from_fields", "cone_params_from_fields",
-           "frame_mix_from_fields"]
+           "frame_mix_from_fields", "hook_states_from_numpy",
+           "renderer_errors_from_jax"]
 
 
 def renderer_state_from_jax(peak_state: np.ndarray, frame_idx: int,
@@ -207,3 +209,27 @@ def frame_mix_from_fields(frames: Sequence[Frame], timestamps,
     return FrameMix(frames=list(frames),
                     timestamps=[float(t) for t in timestamps],
                     vsync_duration=float(vsync_duration))
+
+
+def hook_states_from_numpy(states: dict, renderer: Renderer = None,
+                           device=None) -> Renderer:
+    """Load a reference Renderer's carried hook state — {(hook
+    signature, name): np.asarray(value)} from r._hook_states — into
+    `renderer` (a new one on `device` if None) and return it."""
+    r = renderer if renderer is not None else Renderer(device)
+    r._hook_states = {
+        (sig, name): torch.from_numpy(np.array(v)).to(r.device)
+        for (sig, name), v in states.items()}
+    return r
+
+
+def renderer_errors_from_jax(errors, disabled_hooks,
+                             renderer: Renderer = None,
+                             device=None) -> Renderer:
+    """Load a reference Renderer's degradation state — r.errors and
+    r._disabled_hooks (or r.get_errors()), as plain sets — into
+    `renderer` (a new one on `device` if None) and return it."""
+    r = renderer if renderer is not None else Renderer(device)
+    r.errors = set(errors)
+    r._disabled_hooks = set(disabled_hooks)
+    return r

@@ -45,6 +45,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..._build import KernelError, kernel_work
 from ...core import transfer as tf
 from ...core.fastmath import f32_mul, fma, mix, rcp, sqrt
 from ...core.colorspace import (COLOR_SDR_WHITE, ColorTransfer,
@@ -1214,13 +1215,14 @@ def sqrt_check(device) -> int:
     sqrt_in_range) rounds otherwise than sqrtf over the range the PQ
     curves clamp its operands into (csrc: kSqrtLo..kSqrtHi): 0 is
     exact."""
-    lib = _kernel_lib()
-    bad = torch.zeros(1, dtype=torch.int64, device=device)
-    rc = lib.k1_sqrt_check_launch(
-        bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("K1 sqrt check failed: " +
-                           lib.k1_error_string(rc).decode())
+    with kernel_work("K1"):
+        lib = _kernel_lib()
+        bad = torch.zeros(1, dtype=torch.int64, device=device)
+        rc = lib.k1_sqrt_check_launch(
+            bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise KernelError("K1 sqrt check failed: " +
+                               lib.k1_error_string(rc).decode())
     return int(bad.item())
 
 
@@ -1273,27 +1275,28 @@ def color_map_tail(img, plan, tone, lut):
         raise ValueError(f"K1: a {H}x{W} frame does not split into "
                          f"{bh}-row stripes of {_COLS}-column blocks")
     stripes = H // bh
-    out = torch.empty_like(img)
-    sub = partials = None
-    if plan.tone:
-        sub = torch.empty((stripes, W // _COLS, _SUB), dtype=torch.float32,
-                          device=img.device)
-        partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
-                               device=img.device)
-    lib = _kernel_lib(plan.tone)
-    rows = plan.rows
-    rc = lib.k1_color_map_launch(
-        img.data_ptr(), out.data_ptr(),
-        sub.data_ptr() if sub is not None else None,
-        partials.data_ptr() if partials is not None else None,
-        consts.ctypes.data, tone.data_ptr() if tone is not None else None,
-        lut.data_ptr() if lut is not None else None,
-        n, H, W, bh, rows.src_kept, rows.dst_kept, rows.src_swap,
-        rows.dst_swap, rows.mat_swap | (plan.flags << FLAG_SHIFT),
-        plan.gamut, torch.cuda.current_stream(img.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("K1 launch failed: " +
-                           lib.k1_error_string(rc).decode())
+    with kernel_work("K1"):
+        out = torch.empty_like(img)
+        sub = partials = None
+        if plan.tone:
+            sub = torch.empty((stripes, W // _COLS, _SUB), dtype=torch.float32,
+                              device=img.device)
+            partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
+                                   device=img.device)
+        lib = _kernel_lib(plan.tone)
+        rows = plan.rows
+        rc = lib.k1_color_map_launch(
+            img.data_ptr(), out.data_ptr(),
+            sub.data_ptr() if sub is not None else None,
+            partials.data_ptr() if partials is not None else None,
+            consts.ctypes.data, tone.data_ptr() if tone is not None else None,
+            lut.data_ptr() if lut is not None else None,
+            n, H, W, bh, rows.src_kept, rows.dst_kept, rows.src_swap,
+            rows.dst_swap, rows.mat_swap | (plan.flags << FLAG_SHIFT),
+            plan.gamut, torch.cuda.current_stream(img.device).cuda_stream)
+        if rc != 0:
+            raise KernelError("K1 launch failed: " +
+                               lib.k1_error_string(rc).decode())
     launches += 1
     return out, partials
 
@@ -1322,27 +1325,29 @@ def _launch_generic(img, plan, tone, bias):
         raise ValueError(f"K1: a {H}x{W} frame does not split into "
                          f"{bh}-row stripes of {_COLS}-column blocks")
     stripes = H // bh
-    out = torch.empty_like(img)
-    sub = partials = None
-    if mode.flags & GFLAG_PEAK:
-        sub = torch.empty((stripes, W // _COLS, _SUB), dtype=torch.float32,
-                          device=img.device)
-        partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
-                               device=img.device)
-    lib = _kernel_lib(GENERIC)
-    rows = plan.rows
-    rc = lib.k1_generic_launch(
-        img.data_ptr(), out.data_ptr(),
-        sub.data_ptr() if sub is not None else None,
-        partials.data_ptr() if partials is not None else None,
-        plan.consts.ctypes.data,
-        tone.data_ptr() if tone is not None else None,
-        bias.data_ptr() if bias is not None else None,
-        n, H, W, bh, rows.src_kept, rows.dst_kept, rows.src_swap,
-        rows.dst_swap, *mode, torch.cuda.current_stream(img.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("K1 launch failed: " +
-                           lib.k1_error_string(rc).decode())
+    with kernel_work("K1"):
+        out = torch.empty_like(img)
+        sub = partials = None
+        if mode.flags & GFLAG_PEAK:
+            sub = torch.empty((stripes, W // _COLS, _SUB), dtype=torch.float32,
+                              device=img.device)
+            partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
+                                   device=img.device)
+        lib = _kernel_lib(GENERIC)
+        rows = plan.rows
+        rc = lib.k1_generic_launch(
+            img.data_ptr(), out.data_ptr(),
+            sub.data_ptr() if sub is not None else None,
+            partials.data_ptr() if partials is not None else None,
+            plan.consts.ctypes.data,
+            tone.data_ptr() if tone is not None else None,
+            bias.data_ptr() if bias is not None else None,
+            n, H, W, bh, rows.src_kept, rows.dst_kept, rows.src_swap,
+            rows.dst_swap, *mode,
+            torch.cuda.current_stream(img.device).cuda_stream)
+        if rc != 0:
+            raise KernelError("K1 launch failed: " +
+                               lib.k1_error_string(rc).decode())
     launches += 1
     return out, partials
 
@@ -1354,13 +1359,14 @@ def static_tone_on_card(x, plan):
     if mode.tone_kind != 2:
         raise ValueError("K1: the plan has no static tone curve")
     _check(x, "x")
-    y = torch.empty_like(x)
-    lib = _kernel_lib(GENERIC)
-    rc = lib.k1_static_tone_launch(
-        x.data_ptr(), y.data_ptr(), x.numel(), plan.consts.ctypes.data,
-        mode.curve, mode.scaling,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("K1 launch failed: " +
-                           lib.k1_error_string(rc).decode())
+    with kernel_work("K1"):
+        y = torch.empty_like(x)
+        lib = _kernel_lib(GENERIC)
+        rc = lib.k1_static_tone_launch(
+            x.data_ptr(), y.data_ptr(), x.numel(), plan.consts.ctypes.data,
+            mode.curve, mode.scaling,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise KernelError("K1 launch failed: " +
+                               lib.k1_error_string(rc).decode())
     return y

@@ -37,6 +37,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..._build import KernelError, kernel_work
 from ...core.dither import ERROR_DIFFUSION_KERNELS, ErrorDiffusionKernel
 from ...core.fastmath import fma, rcp
 
@@ -203,20 +204,21 @@ def wavefront(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
         index, custom = ERROR_DIFFUSION_KERNELS.index(kernel), None
     else:
         index, custom = -1, custom_taps(kernel)
-    scale = float((1 << new_depth) - 1)
-    dt = code_dtype(new_depth)
-    out = torch.empty((Wsp, C, Hp), dtype=dt, device=colmaj.device)
-    # the band ticket and the boundary words, zero at every launch
-    scratch = torch.zeros(geometry(Wsp, C, Hp)[0], dtype=torch.int32,
-                          device=colmaj.device)
-    lib = _kernel_lib()
-    rc = lib.k2_wavefront_launch(
-        colmaj.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        int(dt == torch.int32), index, Wsp, C, Hp, W, H, scale, rcp(scale),
-        None if custom is None else custom.ctypes.data,
-        torch.cuda.current_stream(colmaj.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("K2 launch failed: " +
-                           lib.k2_error_string(rc).decode())
+    with kernel_work("K2"):
+        scale = float((1 << new_depth) - 1)
+        dt = code_dtype(new_depth)
+        out = torch.empty((Wsp, C, Hp), dtype=dt, device=colmaj.device)
+        # the band ticket and the boundary words, zero at every launch
+        scratch = torch.zeros(geometry(Wsp, C, Hp)[0], dtype=torch.int32,
+                              device=colmaj.device)
+        lib = _kernel_lib()
+        rc = lib.k2_wavefront_launch(
+            colmaj.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            int(dt == torch.int32), index, Wsp, C, Hp, W, H, scale, rcp(scale),
+            None if custom is None else custom.ctypes.data,
+            torch.cuda.current_stream(colmaj.device).cuda_stream)
+        if rc != 0:
+            raise KernelError("K2 launch failed: " +
+                               lib.k2_error_string(rc).decode())
     launches += 1
     return out

@@ -27,6 +27,8 @@ import functools
 
 import torch
 
+from ..._build import KernelError, kernel_work
+
 __all__ = ["shear_to_colmaj", "unshear_from_colmaj", "shear_plain",
            "launches", "build", "build_spec"]
 
@@ -93,15 +95,16 @@ def _shear(x: torch.Tensor, w_out: int, s: int, W: int, H: int,
             W > (w_in if forward else w_out) or s < 0:
         raise ValueError(f"K3: widths {w_in}->{w_out} cannot hold a "
                          f"{W}x{H} image sheared by {s}")
-    out = torch.empty((w_out, C, Hp), dtype=x.dtype, device=x.device)
-    lib = _kernel_lib()
-    rc = lib.k3_shear_launch(
-        x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], int(forward),
-        w_in, w_out, C, Hp, s, W, H,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("K3 launch failed: " +
-                           lib.k3_error_string(rc).decode())
+    with kernel_work("K3"):
+        out = torch.empty((w_out, C, Hp), dtype=x.dtype, device=x.device)
+        lib = _kernel_lib()
+        rc = lib.k3_shear_launch(
+            x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], int(forward),
+            w_in, w_out, C, Hp, s, W, H,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise KernelError("K3 launch failed: " +
+                               lib.k3_error_string(rc).decode())
     launches += 1
     return out
 

@@ -205,10 +205,18 @@ def frame_from_yuv420p(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     "cuda").  Integer planes upload raw and normalize on the device by a
     true divide by 2^depth - 1 — the divisor is a device tensor, since a
     Python scalar divisor lets CUDA multiply by the reciprocal instead,
-    one ulp off."""
+    one ulp off.  Planes may be numpy arrays or integer torch tensors;
+    a tensor in pinned host memory uploads without holding the host."""
     dev = resolve_device(device)
 
     def norm(x):
+        if isinstance(x, torch.Tensor):
+            raw = x.to(dev, non_blocking=x.is_pinned())
+            if raw.is_floating_point():
+                return raw.to(torch.float32)
+            div = torch.full((), float(2 ** bit_depth - 1),
+                             dtype=torch.float32, device=dev)
+            return raw.to(torch.float32) / div
         x = np.asarray(x)
         if np.issubdtype(x.dtype, np.integer):
             raw = raw_to_device(x, dev)
@@ -217,7 +225,7 @@ def frame_from_yuv420p(y: np.ndarray, u: np.ndarray, v: np.ndarray,
             return raw.to(torch.float32) / div
         return torch.from_numpy(x.astype(np.float32)).to(dev)
 
-    h, w = np.shape(y)
+    h, w = tuple(y.shape) if isinstance(y, torch.Tensor) else np.shape(y)
     repr = repr or ColorRepr(
         sys=ColorSystem.BT_709 if w >= 1280 else ColorSystem.BT_601,
         levels=ColorLevels.LIMITED,

@@ -29,22 +29,28 @@ and is cached, on the card where it is an image; the per-frame inputs
 cached by seed as the reference caches them; H.274's block hash)
 uploaded every frame, the neighbor frames of a field, the frame's Dolby
 Vision RPU, packed on the host, the target's contents to blend onto and
-the overlay bitmaps.  PyTorch then runs the stages eagerly.  User hooks
-raise NotImplementedError naming their ROADMAP item; the reference's
-degradation ladder is not ported (a kernel's failure propagates).
-`render_image_mix` blends a FrameMix window of rendered frames (frame
-interpolation).
+the overlay bitmaps and the hooks' carried state.  PyTorch then runs the
+stages eagerly.  User hooks (render/hooks.py) run at the reference's
+sixteen sites; a hooked frame's tail is plain, as in the reference.  A
+render that fails on a plain stage goes down the reference's degradation
+ladder (`errors`, `get_errors`); a kernel's failure to build or launch
+and CUDA errors never degrade: they propagate.  `telemetry` times each
+frame, one frame late.  `render_image_mix` blends a FrameMix window of
+rendered frames (frame interpolation).
 """
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field, replace
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .._build import KernelError, is_kernel_failure
 from ..core import filters as flt
+from ..core import log as core_log
 from ..core.colorspace import (COLOR_HDR_BLACK, COLOR_SDR_WHITE, CSP_SRGB,
                                AlphaMode, ColorLevels, ColorPrimaries,
                                ColorRepr, ColorSpace, ColorSystem,
@@ -82,6 +88,7 @@ from ..ops.dithering import DitherParams
 from ..ops.peak_detect import PeakDetectParams
 from ..utils.device import resolve_device
 from .frame import Frame, icc_key
+from .hooks import HookRect, HookStage, run_hooks
 from .queue import frame_mix_nearest
 
 __all__ = ["RenderParams", "Target", "Renderer", "render_image",
@@ -117,8 +124,9 @@ class FrameInputs(NamedTuple):
     """What a render plan takes every frame besides the planes: the AV1
     grain tables and H.274 block inputs (per plane, or None), the
     neighbor frames' planes of a field, the packed Dolby Vision RPU,
-    the target's contents to blend onto, and the bitmaps of the frame's
-    then the target's overlays."""
+    the target's contents to blend onto, the bitmaps of the frame's then
+    the target's overlays, and the values of the hooks' carried state
+    (each stateful hook's names in sorted order)."""
     grain_tables: Optional[tuple] = None
     h274_tables: Optional[tuple] = None
     prev_planes: Optional[tuple] = None
@@ -126,6 +134,7 @@ class FrameInputs(NamedTuple):
     dovi_packed: Optional[ops_dovi.DoviPacked] = None
     target_data: Optional[torch.Tensor] = None
     overlay_datas: tuple = ()
+    hook_states: tuple = ()
 
 
 @dataclass(frozen=True)
@@ -157,8 +166,8 @@ class Target:
 
 @dataclass(frozen=True)
 class RenderParams:
-    """The reference's RenderParams (pl_render_params); `hooks` lie
-    outside the ported slices (they raise)."""
+    """The reference's RenderParams (pl_render_params), field for field;
+    `hooks` are render.hooks.Hook instances."""
     upscaler: str = "lanczos"
     downscaler: str = "hermite"
     plane_upscaler: Optional[str] = "bilinear"
@@ -175,6 +184,10 @@ class RenderParams:
     tone_mapping_function: str = "spline"
     tone_map_metadata: str = "any"
     gamut_mapping: str = "perceptual"
+    # options accepted for compatibility (the reference's LUT, FBO and
+    # shader machinery knobs; the ICC sizing knobs ops/icc.params_kwargs
+    # reads): a sorted (key, value) tuple, so option strings round-trip
+    compat_flags: Tuple = ()
     tone_constants: ToneMapConstants = field(
         default_factory=ToneMapConstants)
     gamut_constants: GamutMapConstants = field(
@@ -219,6 +232,7 @@ class RenderParams:
     tile_size: int = 32
     blur_radius: float = 16.0
     skip_target_clearing: bool = False   # = border "skip"
+    force_dither: bool = False
     # rounded corners, 0..1 of min(w, h) / 2
     corner_rounding: float = 0.0
     hooks: Tuple = ()
@@ -229,14 +243,15 @@ class RenderParams:
     # params, and not filled by a lone frame
     preserve_mixing_cache: bool = False
     skip_caching_single_frame: bool = False
-    force_dither: bool = False
+    skip_anti_aliasing: bool = False
     disable_linear_scaling: bool = False
     disable_fused_colormap: bool = False
 
     def key(self):
         return tuple(getattr(self, f) for f in self.__dataclass_fields__
                      if f not in ("hooks", "lut")) + (
-            self.lut.signature if self.lut is not None else None,)
+            tuple(h.signature for h in self.hooks),
+            self.lut.signature if self.lut is not None else None)
 
 
 # preset bundles (reference renderer.c:203-224)
@@ -251,15 +266,64 @@ HIGH_QUALITY_PARAMS = RenderParams(
     contrast_recovery=0.30)
 
 
-def _outside(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
+# The degradation ladder (reference renderer.py:60-90, pl_render_error,
+# renderer.c:95-115): when a render fails, the renderer re-renders
+# without one feature at a time, most expendable first, records the
+# feature in `errors` and logs it.  Each rung is (flag, strip).
+_DEGRADE_LADDER = (
+    ("fused_colormap", lambda p: replace(p, disable_fused_colormap=True)),
+    ("error_diffusion", lambda p: replace(p, error_diffusion=None)),
+    ("contrast_recovery", lambda p: replace(p, contrast_recovery=0.0)),
+    ("film_grain", lambda p: replace(p, film_grain=False)),
+    ("deband", lambda p: replace(p, deband=None)),
+    ("peak_detect", lambda p: replace(p, peak_detect=None)),
+    ("gamut_mapping", lambda p: replace(p, gamut_mapping="clip")),
+    ("dither", lambda p: replace(p, dither=None)),
+    ("sampling", lambda p: replace(p, upscaler="bilinear",
+                                   downscaler="bilinear",
+                                   linear_scaling=False,
+                                   sigmoid=None)),
+)
+
+# failures the ladder never degrades: the user's errors, as in the
+# reference, and a kernel's failure to build, allocate or launch
+# (KernelError, whatever failed inside the wrapper's work on the card) —
+# the first rung would otherwise hide K1's failures behind a plain tail,
+# the second K2's and K3's.  CUDA errors too (`is_kernel_failure`).
+_NON_DEGRADABLE = (RenderError, ValueError, TypeError, KeyError, KernelError)
 
 
-def _check_slice(params: RenderParams):
-    """Raise for every requested feature outside the ported slices."""
-    if params.hooks:
-        raise _outside("user hooks", "slice 3 item 22")
+def _ladder(device: torch.device) -> tuple:
+    """The rungs a renderer on `device` may take.  On the card the first
+    rung would only swap K1 for its plain version: K1's own failures
+    propagate (KernelError), so there it could only hide another stage's
+    failure behind a plain tail, and it is left out."""
+    return _DEGRADE_LADDER[1:] if device.type == "cuda" else _DEGRADE_LADDER
+
+
+def _degradable(exc: BaseException) -> bool:
+    return not isinstance(exc, _NON_DEGRADABLE) and \
+        not is_kernel_failure(exc)
+
+
+def _state_init(value, device) -> torch.Tensor:
+    """A hook state's declared initial value as a tensor on `device`,
+    64-bit types narrowed to 32 as the reference's arrays are."""
+    t = torch.as_tensor(np.asarray(value))
+    if t.dtype == torch.float64:
+        t = t.float()
+    elif t.dtype == torch.int64:
+        t = t.int()
+    return t.to(device)
+
+
+# frames whose telemetry may wait for the card before the oldest is
+# waited for
+_MAX_PENDING_TIMINGS = 8
+
+
+def _no_hook(stage, img, rect=None):
+    return img
 
 
 def _find_scaler(name: str) -> flt.FilterConfig:
@@ -560,9 +624,10 @@ def _corner_mask(strength: float, h: int, w: int, device) -> torch.Tensor:
 
 
 class Renderer:
-    """Holds the plan cache and the temporal state carried across
-    frames: the peak-detection state (2,) on the device and the frame
-    index that rotates a temporal dither."""
+    """Holds the plan cache and the state carried across frames: the
+    peak-detection state (2,) on the device, the frame index that
+    rotates a temporal dither, the hooks' carried state, the degradation
+    flags and disabled hooks, and the telemetry's pending frame."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -573,6 +638,16 @@ class Renderer:
         # its dither's bias
         self._mix_cache: Dict[tuple, torch.Tensor] = {}
         self._mix_bias: Dict[tuple, torch.Tensor] = {}
+        # features the degradation ladder disabled, and hooks disabled
+        # by signature after they raised (reference rr->disabled_hooks)
+        self.errors: set = set()
+        self._disabled_hooks: set = set()
+        # cross-frame hook state: (hook signature, name) -> tensor
+        self._hook_states: Dict[tuple, torch.Tensor] = {}
+        # render.profiler.Telemetry, or None
+        self.telemetry = None
+        # (start, end) of the frames timed but not yet recorded
+        self._telemetry_pending: list = []
 
     @staticmethod
     def _ref_plane_index(plane_metas):
@@ -583,28 +658,49 @@ class Renderer:
                 ref_i = i
         return ref_i
 
+    @staticmethod
+    def _plane_hook_stage(mapping, repr_sys=None):
+        """(input stage, scaled stage) of the hooks a plane feeds
+        (reference PL_HOOK_{LUMA,CHROMA,ALPHA,RGB,XYZ}_INPUT,
+        renderer.c:1431; an XYZ frame's planes hook at XYZ_INPUT)."""
+        ms = set(mapping)
+        if ms == {0}:
+            return HookStage.LUMA_INPUT, HookStage.LUMA_INPUT
+        if ms <= {1, 2}:
+            return HookStage.CHROMA_INPUT, HookStage.CHROMA_SCALED
+        if ms == {3}:
+            return HookStage.ALPHA_INPUT, HookStage.ALPHA_SCALED
+        if {0, 1, 2} <= ms:
+            if repr_sys == ColorSystem.XYZ:
+                return HookStage.XYZ_INPUT, None
+            return HookStage.RGB_INPUT, None
+        return None, None
+
     def _merge_planes(self, planes, plane_metas, params: RenderParams,
-                      deband=None, grain=None, fields=None, h274=None):
-        """Per-plane deinterlacing, deband and film grain, then alignment
-        of every plane to the reference plane's grid and channel stacking
-        (reference pass_read_image, renderer.c:1553, and _merge_planes,
-        renderer.py:639-681: deinterlace -> plane_deband -> H.274 grain
-        -> AV1 grain -> sampler).  `fields` is None or (field, first
-        field, the previous frame's planes or None, the next's or None);
-        `deband` holds per plane None or (DebandParams, neutral values,
-        random tables); `h274` is None or (the grain data, per-plane
-        H274Tables or None, whether the system is YCbCr-like); `grain`
-        is None or (per-plane GrainCfg or None, the frame's AV1 grain
-        tables, scaling shift).  Chroma grain scales with the frame's
-        input luma, not the processed one."""
+                      deband=None, grain=None, fields=None, h274=None,
+                      hook=None, repr_sys=None):
+        """Per-plane deinterlacing, deband, film grain and input hooks,
+        then alignment of every plane to the reference plane's grid and
+        channel stacking (reference pass_read_image, renderer.c:1553, and
+        _merge_planes, renderer.py:617-753: deinterlace -> plane_deband
+        -> H.274 grain -> AV1 grain -> plane hooks -> sampler ->
+        *_SCALED hooks).  `fields` is None or (field, first field, the
+        previous frame's planes or None, the next's or None); `deband`
+        holds per plane None or (DebandParams, neutral values, random
+        tables); `h274` is None or (the grain data, per-plane H274Tables
+        or None, whether the system is YCbCr-like); `grain` is None or
+        (per-plane GrainCfg or None, the frame's AV1 grain tables,
+        scaling shift); `hook` is the frame's hook runner, hook(stage,
+        img, rect=None), or None for none.  Chroma grain scales with the
+        frame's input luma, not the processed one.  Returns the stacked
+        image, the (possibly hook-resized) reference grid (H, W) and the
+        reference plane's declared offset, which shifts the main crop."""
+        hook = hook or _no_hook
         ref_i = self._ref_plane_index(plane_metas)
-        H, W = planes[ref_i].shape[-2], planes[ref_i].shape[-1]
         ref_mapping = plane_metas[ref_i][1]
         luma_full = planes[ref_i][..., ref_mapping.index(0), :, :] \
             if 0 in ref_mapping else None
-        up_cfg = _find_scaler(params.plane_upscaler or params.upscaler)
-        down_cfg = _find_scaler(params.plane_downscaler or params.downscaler)
-        channels = {}
+        processed = []
         for i, ((shape, mapping, sx, sy), data) in enumerate(
                 zip(plane_metas, planes)):
             ph, pw = data.shape[-2], data.shape[-1]
@@ -631,13 +727,38 @@ class Renderer:
                         luma_full, cfgs[i].sub_x, cfgs[i].sub_y, ph, pw)
                 data = ops_fg.apply_av1_grain(data, tables[i], cfgs[i],
                                               scaling_shift, luma=luma)
-            if (ph, pw) == (H, W) and (sx or sy) and \
-                    not params.correct_subpixel_offsets:
+            # input hooks may resize the plane (a luma doubler); each
+            # plane's //!OFFSET accumulator (custom_mpv.c:1533-1551)
+            stage_in, stage_scaled = self._plane_hook_stage(mapping, repr_sys)
+            hr = HookRect()
+            if stage_in is not None:
+                data = hook(stage_in, data, rect=hr)
+            processed.append((sx, sy, mapping, data, stage_scaled, hr))
+        H, W = processed[ref_i][3].shape[-2], processed[ref_i][3].shape[-1]
+        # the reference plane's own offset shifts the main crop instead;
+        # it is never resampled at the merge
+        hr_ref = processed[ref_i][5]
+        if hr_ref.align:
+            hr_ref.ox = hr_ref.oy = 0.0
+        ref_off = (hr_ref.ox, hr_ref.oy)
+        up_cfg = _find_scaler(params.plane_upscaler or params.upscaler)
+        down_cfg = _find_scaler(params.plane_downscaler or params.downscaler)
+        channels = {}
+        for sx, sy, mapping, data, stage_scaled, hr in processed:
+            ph, pw = data.shape[-2], data.shape[-1]
+            if hr.align:
+                sx = sy = 0.0     # ALIGN pins the plane to the ref grid
+            # the plane's declared offset against the (offset) reference
+            # grid, in its own texels
+            ox = 0.0 if hr is hr_ref else hr.ox - ref_off[0] * pw / W
+            oy = 0.0 if hr is hr_ref else hr.oy - ref_off[1] * ph / H
+            if (ph, pw) == (H, W) and (sx or sy) and not ox and not oy \
+                    and not params.correct_subpixel_offsets:
                 pass    # a same-size subpixel siting snaps to the texel
-            elif (ph, pw) != (H, W) or sx or sy:
+            elif (ph, pw) != (H, W) or sx or sy or ox or oy:
                 cfg = down_cfg if (ph > H or pw > W) else up_cfg
-                s0x = -sx * pw / W
-                s0y = -sy * ph / H
+                s0x = -sx * pw / W + ox
+                s0y = -sy * ph / H + oy
                 rect = RectF(s0x, s0y, s0x + pw, s0y + ph)
                 antiring = params.antiringing_strength or cfg.antiring
                 if cfg.polar:
@@ -646,10 +767,13 @@ class Renderer:
                 else:
                     data = ops_sampling.resize_separable(
                         data, H, W, cfg, rect, antiring=antiring)
+                if stage_scaled is not None:
+                    data = hook(stage_scaled, data)
             for ci, ch in enumerate(mapping):
                 channels[ch] = data[..., ci, :, :]
         order = sorted(channels)
-        return torch.stack([channels[c] for c in order], dim=-3)
+        return torch.stack([channels[c] for c in order], dim=-3), (H, W), \
+            ref_off
 
     def _grain_cfgs(self, plane_metas, frame_repr: ColorRepr,
                     frame_grain):
@@ -678,8 +802,9 @@ class Renderer:
                         rotation: int = 0, overlays=()):
         """Plan one signature on the host and return the per-frame stage
         function pipeline(peak_state, inputs: FrameInputs, *planes) ->
-        (image, new_state).  `overlays` is ((Overlay, is_target), ...),
-        the frame's then the target's; their bitmaps come per frame."""
+        (image, new_state, the hooks' states out).  `overlays` is
+        ((Overlay, is_target), ...), the frame's then the target's; their
+        bitmaps come per frame."""
         if params.ignore_icc_profiles:
             # both ends fall back to their colorimetric metadata
             frame_icc = None
@@ -729,15 +854,30 @@ class Renderer:
         dst_w = int(round(dst_crop.w))
         dst_h = int(round(dst_crop.h))
         x0, y0 = int(round(dst_crop.x0)), int(round(dst_crop.y0))
-        src_w, src_h = crop.x1 - crop.x0, crop.y1 - crop.y0
-        needs_scale = (abs(src_h - dst_h) > 1e-6 or abs(src_w - dst_w) > 1e-6
-                       or crop.x0 != 0 or crop.y0 != 0)
-        upscaling = dst_w > src_w or dst_h > src_h
-        use_linear = (params.linear_scaling and needs_scale
-                      and not params.disable_linear_scaling)
-        sig = ops_color.SigmoidParams(*params.sigmoid) \
-            if use_linear and params.sigmoid is not None and \
-            not src_color.is_hdr() else None
+        hdr_src = src_color.is_hdr()
+
+        def scale_plan(c: RectF, needs=None):
+            """(needs_scale, use_linear, sigmoid, scaler, cfg_down,
+            antiring) for the source crop `c`; `needs` forces the
+            scale."""
+            src_w, src_h = c.x1 - c.x0, c.y1 - c.y0
+            if needs is None:
+                needs = (abs(src_h - dst_h) > 1e-6 or
+                         abs(src_w - dst_w) > 1e-6 or c.x0 != 0 or c.y0 != 0)
+            up = dst_w > src_w or dst_h > src_h
+            lin = (params.linear_scaling and needs
+                   and not params.disable_linear_scaling)
+            sg = ops_color.SigmoidParams(*params.sigmoid) \
+                if lin and params.sigmoid is not None and not hdr_src \
+                else None
+            scaler = down = None
+            antiring = 0.0
+            if needs:
+                scaler = _find_scaler(params.upscaler if up
+                                      else params.downscaler)
+                down = _find_scaler(params.downscaler)
+                antiring = params.antiringing_strength or scaler.antiring
+            return needs, lin, sg, scaler, down, antiring
         # ICC profiles replace the nominal transfer on their side, so
         # they force the conversion even between equal colorspaces
         need_color_map = (src_color.primaries != dst_color.primaries or
@@ -770,12 +910,6 @@ class Renderer:
                                           dst_crop, has_alpha, dither_phase)
         src_max_pq = hdr_rescale(HdrScaling.NITS, HdrScaling.PQ,
                                  src_color.hdr.max_luma)
-        scaler = cfg_down = None
-        if needs_scale:
-            scaler = _find_scaler(params.upscaler if upscaling
-                                  else params.downscaler)
-            cfg_down = _find_scaler(params.downscaler)
-            antiring = params.antiringing_strength or scaler.antiring
         dp = _dither_params(params, dst_color) if params.dither else None
         quantize = target.bit_depth and (target.bit_depth < 16 or
                                          params.force_dither)
@@ -805,8 +939,15 @@ class Renderer:
             border = "skip" if params.skip_target_clearing else \
                 (params.border or params.background)
         frame_hw = (ref_shape[-2], ref_shape[-1])
+        hooks = tuple(params.hooks)
+        # cross-frame hook state: each stateful hook's names, in the
+        # order FrameInputs.hook_states carries their values
+        hook_state_specs = tuple(
+            (h, tuple(sorted(getattr(h, "state_spec", None) or ())))
+            for h in hooks if getattr(h, "state_spec", None))
 
         def pipeline(peak_state, inputs: FrameInputs, *planes):
+            """-> (image, new peak state, the hook states carried out)."""
             global k1_tails, plain_tails, ineligible_tails
             grain = (grain_cfgs, inputs.grain_tables, scaling_shift) \
                 if grain_cfgs is not None else None
@@ -814,8 +955,19 @@ class Renderer:
                 if h274_grain is not None else None
             fields = (field, first_field or field, inputs.prev_planes,
                       inputs.next_planes) if deinterlace else None
-            img = self._merge_planes(planes, plane_metas, params, deband,
-                                     grain, fields, h274)
+            hstates = None
+            if hook_state_specs:
+                vals = iter(inputs.hook_states)
+                hstates = {h.signature: ({n: next(vals) for n in names}, {})
+                           for h, names in hook_state_specs}
+
+            def hook(stage, x, rect=None):
+                return run_hooks(hooks, stage, x, self._disabled_hooks,
+                                 states=hstates, rect=rect, dst_w=dst_w,
+                                 dst_h=dst_h)
+            img, (h_act, w_act), ref_off = self._merge_planes(
+                planes, plane_metas, params, deband, grain, fields, h274,
+                hook, frame_repr.sys)
             alpha = None
             if has_alpha:
                 # the alpha plane runs beside the color, un-premultiplied
@@ -824,6 +976,23 @@ class Renderer:
                 img = img[..., :3, :, :]
                 if frame_repr.alpha == AlphaMode.PREMULTIPLIED:
                     img = img / torch.clamp_min(alpha, 1e-6)
+            # input hooks may resize the reference plane (a luma doubler):
+            # the crop scales into the hooked grid
+            crop_eff = crop
+            if (h_act, w_act) != frame_hw:
+                fy, fx = h_act / frame_hw[0], w_act / frame_hw[1]
+                crop_eff = RectF(crop.x0 * fx, crop.y0 * fy,
+                                 crop.x1 * fx, crop.y1 * fy)
+            # the main image's //!OFFSET accumulator, seeded with the
+            # reference plane's offset
+            hr_main = HookRect(*ref_off)
+            h_pre, w_pre = img.shape[-2], img.shape[-1]
+            img = hook(HookStage.NATIVE, img, rect=hr_main)
+            # a NATIVE resize folds into the crop, on the turned axes
+            sx_n = img.shape[-1] / w_pre
+            sy_n = img.shape[-2] / h_pre
+            if rotation % 2:
+                sx_n, sy_n = sy_n, sx_n
             img = ops_color.decode_color(img, frame_repr,
                                          src_color.primaries,
                                          dovi_packed=inputs.dovi_packed,
@@ -834,29 +1003,61 @@ class Renderer:
                 img = torch.rot90(img, rotation, dims=(-2, -1))
                 if alpha is not None:
                     alpha = torch.rot90(alpha, rotation, dims=(-2, -1))
+                hr_main.rotate(rotation)
+            h_rot, w_rot = img.shape[-2], img.shape[-1]
+            img = hook(HookStage.RGB, img, rect=hr_main)
+
+            def crop_with_hooks(c, img_now):
+                """The main stages' resizes and the accumulated offset
+                folded into the sampling crop (custom_mpv.c:1533-1541)."""
+                fx = sx_n * (img_now.shape[-1] / w_rot)
+                fy = sy_n * (img_now.shape[-2] / h_rot)
+                if (fx, fy) == (1.0, 1.0) and \
+                        not hr_main.ox and not hr_main.oy:
+                    return c
+                return RectF(c.x0 * fx + hr_main.ox, c.y0 * fy + hr_main.oy,
+                             c.x1 * fx + hr_main.ox, c.y1 * fy + hr_main.oy)
             if params.lut is not None and params.lut_type == "native":
                 img = ops_lut.apply_lut(img, params.lut)
+            crop_probe = crop_with_hooks(crop_eff, img)
+            needs_scale, use_linear, sig, scaler, cfg_down, antiring = \
+                scale_plan(crop_probe)
             if use_linear:
                 img = linearize_src(img)
+                img = hook(HookStage.LINEAR, img, rect=hr_main)
                 if sig is not None:
                     img = ops_color.sigmoidize(img, sig)
-            if scaler is not None:
+                    img = hook(HookStage.SIGMOID, img, rect=hr_main)
+            img = hook(HookStage.PRE_KERNEL, img, rect=hr_main)
+            # the final sampling crop: every main-stage resize and offset
+            # up to here folded in
+            crop_eff = crop_with_hooks(crop_eff, img)
+            if not needs_scale and (
+                    crop_eff.x0 or crop_eff.y0 or
+                    abs(crop_eff.h - dst_h) > 1e-6 or
+                    abs(crop_eff.w - dst_w) > 1e-6):
+                needs_scale = True
+                _, _, _, scaler, cfg_down, antiring = scale_plan(
+                    crop_probe, needs=True)
+            if needs_scale:
                 if scaler.polar:
                     img = ops_polar.sample_polar(img, scaler, dst_h, dst_w,
-                                                 crop, antiring=antiring)
+                                                 crop_eff, antiring=antiring)
                     if alpha is not None:
                         alpha = ops_polar.sample_polar(alpha, scaler, dst_h,
-                                                       dst_w, crop)
+                                                       dst_w, crop_eff)
                 else:
                     img = ops_sampling.resize_separable(
-                        img, dst_h, dst_w, scaler, crop, cfg_down=cfg_down,
-                        antiring=antiring)
+                        img, dst_h, dst_w, scaler, crop_eff,
+                        cfg_down=cfg_down, antiring=antiring)
                     if alpha is not None:
                         alpha = ops_sampling.resize_separable(
-                            alpha, dst_h, dst_w, scaler, crop,
+                            alpha, dst_h, dst_w, scaler, crop_eff,
                             cfg_down=cfg_down)
+            img = hook(HookStage.POST_KERNEL, img)
             if sig is not None:
                 img = ops_color.desigmoidize(img, sig)
+            img = hook(HookStage.SCALED, img)
             if params.cone is not None:
                 img = ops_color.cone_distort(img, src_color, params.cone,
                                              already_linear=use_linear)
@@ -896,12 +1097,14 @@ class Renderer:
                         ineligible_tails += 1
             elif use_linear:
                 img = delinearize_to(img, src_color)
+            img = hook(HookStage.PRE_OUTPUT, img)
             if fused_tail is None:
                 if params.lut is not None and \
                         params.lut_type == "conversion":
                     img = ops_lut.apply_lut(img, params.lut)
                 img = ops_color.encode_color(img, target.repr,
                                              dst_color.primaries)
+            img = hook(HookStage.OUTPUT, img)
             if alpha is not None:
                 if target.repr.alpha == AlphaMode.PREMULTIPLIED:
                     img = img * alpha
@@ -956,7 +1159,13 @@ class Renderer:
                 img = self._blend_overlay(img, ov_data, ov, is_tgt, target,
                                           dst_color, params, crop, dst_crop,
                                           rotation, frame_hw)
-            return torch.clamp(img, 0.0, 1.0), new_state
+            hs_out = ()
+            if hook_state_specs:
+                # a disabled or skipped hook carries its state through
+                hs_out = tuple(
+                    hstates[h.signature][1].get(n, hstates[h.signature][0][n])
+                    for h, names in hook_state_specs for n in names)
+            return torch.clamp(img, 0.0, 1.0), new_state, hs_out
 
         return pipeline
 
@@ -1284,8 +1493,61 @@ class Renderer:
                params: Optional[RenderParams] = None) -> torch.Tensor:
         """Render `frame` into a (C, target.h, target.w) tensor on the
         renderer's device, C = 3, or 4 with alpha (reference
-        pl_render_image)."""
-        return self._render_once(frame, target, params or RenderParams())
+        pl_render_image).
+
+        A render that fails on a plain stage degrades as the reference's
+        does: the renderer re-renders without one feature at a time (then
+        cumulatively), records the feature in `errors`, logs it, and
+        leaves it out of later frames.  The user's errors, a kernel's
+        failure and CUDA errors propagate (`_NON_DEGRADABLE`); on the card
+        no rung swaps a kernel for its plain version (`_ladder`)."""
+        params = params or DEFAULT_PARAMS
+        ladder = _ladder(self.device)
+        for flag, strip in ladder:
+            if flag in self.errors:
+                params = strip(params)
+        try:
+            return self._render_once(frame, target, params)
+        except Exception as e:
+            if not _degradable(e):
+                raise
+            first_exc = e
+        log = core_log.default_log()
+        # one feature at a time, so that a broken stage does not take
+        # unrelated features with it
+        for flag, strip in ladder:
+            stripped = strip(params)
+            if stripped.key() == params.key():
+                continue
+            try:
+                out = self._render_once(frame, target, stripped)
+            except Exception as e:
+                if not _degradable(e):
+                    raise
+                continue
+            self.errors.add(flag)
+            log.error(f"render failed ({type(first_exc).__name__}: "
+                      f"{first_exc}); disabled {flag!r} and recovered")
+            return out
+        # a compound failure: strip cumulatively
+        flags, cur = [], params
+        for flag, strip in ladder:
+            stripped = strip(cur)
+            if stripped.key() == cur.key():
+                continue
+            cur = stripped
+            flags.append(flag)
+            try:
+                out = self._render_once(frame, target, cur)
+            except Exception as e:
+                if not _degradable(e):
+                    raise
+                continue
+            self.errors.update(flags)
+            log.error(f"render failed ({type(first_exc).__name__}: "
+                      f"{first_exc}); disabled {flags} and recovered")
+            return out
+        raise first_exc
 
     def _render_once(self, frame: Frame, target: Target,
                      params: RenderParams) -> torch.Tensor:
@@ -1293,7 +1555,6 @@ class Renderer:
                 frame.device.type == self.device.type == "cuda"):
             raise ValueError(f"frame lives on {frame.device}, the renderer "
                              f"on {self.device}")
-        _check_slice(params)
         dither_phase = 0
         if params.dither is not None and params.dither.temporal and \
                 target.bit_depth and target.bit_depth < 16:
@@ -1314,9 +1575,32 @@ class Renderer:
         self._cache[key] = fn
         while len(self._cache) > _MAX_CACHED_PIPELINES:
             self._cache.pop(next(iter(self._cache)))
-        out, self._peak_state = fn(self._peak_state,
-                                   self._frame_inputs(frame, params, target),
-                                   *[p.data for p in frame.planes])
+        inputs = self._frame_inputs(frame, params, target)
+        timed = self.telemetry is not None
+        if timed:
+            if self.device.type == "cuda":
+                t0 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+            else:
+                t0 = time.perf_counter()
+        out, self._peak_state, hs_out = fn(self._peak_state, inputs,
+                                           *[p.data for p in frame.planes])
+        if hs_out:
+            names = [(h.signature, n) for h in params.hooks
+                     for n in sorted(getattr(h, "state_spec", None) or ())]
+            self._hook_states.update(zip(names, hs_out))
+        if timed:
+            if self.device.type == "cuda":
+                t1 = torch.cuda.Event(enable_timing=True)
+                t1.record()
+            else:
+                t1 = time.perf_counter()
+            # recorded one frame late (reference renderer.py:1787-1799):
+            # the earlier frames are read now that this one is queued,
+            # each once the card has finished it, so the measurement
+            # never holds the host back
+            self._harvest_telemetry(block=False)
+            self._telemetry_pending.append((t0, t1))
         return out
 
     def _frame_inputs(self, frame: Frame, params: RenderParams,
@@ -1363,18 +1647,83 @@ class Renderer:
             if deinterlace and frame.next is not None else None,
             dovi_packed, target_data,
             tuple(torch.as_tensor(o.data, dtype=torch.float32,
-                                  device=self.device) for o in overlays))
+                                  device=self.device) for o in overlays),
+            self._hook_state_inputs(params))
+
+    def _hook_state_inputs(self, params: RenderParams) -> tuple:
+        """The carried values of every stateful hook, in spec order; a
+        value whose shape no longer matches its spec starts over from the
+        spec (reference renderer.py:1766-1775)."""
+        vals = []
+        for h in params.hooks:
+            spec = getattr(h, "state_spec", None) or {}
+            for n in sorted(spec):
+                cur = self._hook_states.get((h.signature, n))
+                if cur is None or tuple(cur.shape) != np.shape(spec[n]):
+                    cur = _state_init(spec[n], self.device)
+                vals.append(cur)
+        return tuple(vals)
+
+    def _harvest_telemetry(self, block: bool):
+        """Record the pending frames' times, oldest first: all of them
+        when `block`, else those the card has finished (with
+        _MAX_PENDING_TIMINGS pending, the oldest is waited for)."""
+        pending = self._telemetry_pending
+        if self.telemetry is None:
+            pending.clear()
+        while pending:
+            t0, t1 = pending[0]
+            if isinstance(t1, float):
+                seconds = t1 - t0
+            else:
+                if not (block or t1.query() or
+                        len(pending) >= _MAX_PENDING_TIMINGS):
+                    break
+                t1.synchronize()
+                seconds = t0.elapsed_time(t1) / 1e3
+            pending.pop(0)
+            self.telemetry.record("frame", seconds)
+
+    def flush_telemetry(self):
+        """Record every pending frame's time (telemetry runs one frame
+        late); waits for those the card has not finished."""
+        self._harvest_telemetry(block=True)
 
     def reset_peak_detection(self):
         """Forget the peak-detection state (reference
         pl_renderer_flush_cache's peak reset)."""
         self._peak_state = ops_peak.peak_detect_state_init(self.device)
 
+    def reset_hook_state(self):
+        """Drop the hooks' carried state: each starts over from its
+        declared value on the next frame."""
+        self._hook_states.clear()
+
+    def get_errors(self) -> tuple:
+        """(degradation flags, disabled hook signatures): the features
+        and hooks disabled after a failure (reference
+        pl_renderer_get_errors)."""
+        return (frozenset(self.errors), frozenset(self._disabled_hooks))
+
+    def reset_errors(self, errors=None, hooks=None) -> None:
+        """Clear degradation flags and disabled hooks so that they are
+        tried again (reference pl_renderer_reset_errors): all of them, or
+        the named flags and hook signatures."""
+        if errors is None and hooks is None:
+            self.errors.clear()
+            self._disabled_hooks.clear()
+            return
+        for flag in errors or ():
+            self.errors.discard(flag)
+        for sig in hooks or ():
+            self._disabled_hooks.discard(sig)
+
     def flush_cache(self):
-        """Drop every render plan and the peak state (reference
-        pl_renderer_flush_cache)."""
+        """Drop every render plan, the peak state and the hooks' state
+        (reference pl_renderer_flush_cache)."""
         self._cache.clear()
         self.reset_peak_detection()
+        self.reset_hook_state()
 
     def get_hdr_metadata(self) -> Optional[HdrMetadata]:
         """The measured HDR metadata of the peak-detection state, None

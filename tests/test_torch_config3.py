@@ -145,9 +145,9 @@ def test_config3_chroma_merge_antiring_is_off():
         *[p.data for p in jf.planes])
     tr = lt.Renderer(device="cpu")
     planes = [torch.from_numpy(np.array(p.data)) for p in jf.planes]
-    out = tr._merge_planes(planes, mk, lt.RenderParams(**CONFIG3))
+    out = tr._merge_planes(planes, mk, lt.RenderParams(**CONFIG3))[0]
     plain = tr._merge_planes(planes, mk, lt.RenderParams(
-        upscaler="ewa_lanczos4sharpest"))
+        upscaler="ewa_lanczos4sharpest"))[0]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
     assert torch.equal(out, plain)
 

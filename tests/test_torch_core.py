@@ -213,23 +213,27 @@ def test_tf32_is_off():
 @pytest.mark.parametrize("feature", [
     {"blend": ("src_alpha", "one_minus_src_alpha", "one", "zero")},
     {"frame.rotation": 1},
-    dict(hooks=(object(),)), dict(corner_rounding=0.5),
+    dict(hooks="scaled"), dict(corner_rounding=0.5),
     dict(contrast_recovery=0.3),
     dict(color_adjustment=dict(brightness=0.02, contrast=1.05,
                                saturation=1.1, hue=0.2, gamma=1.1,
                                temperature=0.3)),
     dict(visualize_lut=True), dict(cone=(1, 0.3))])
 def test_outside_the_slice_raises(feature, monkeypatch):
-    """User hooks, the one feature still outside the ported slices,
-    raise NotImplementedError naming their ROADMAP item — nothing
-    silently takes another path.  The other seven cases were outside the
-    slice until item 21 (target blending onto the target's contents,
+    """Features that were outside the ported slices render on the CPU
+    and match the JAX renderer on the same input within the flagship's
+    gate (tests/test_torch_render.py: every value within 1 LSB, fewer
+    than 1e-3 of them differing; measured <= 5.7e-4).  Seven were
+    outside until item 21 (target blending onto the target's contents,
     frame rotation, corner rounding, contrast recovery, color
-    adjustment, the tone-curve visualizer, cone distortion) and now
-    render on the CPU and match the JAX renderer on the same input
-    within the flagship's gate (tests/test_torch_render.py: every value
-    within 1 LSB, fewer than 1e-3 of them differing; measured <= 5.7e-4).
-    A "frame." key sets the frame's field of that name."""
+    adjustment, the tone-curve visualizer, cone distortion); user hooks
+    raised NotImplementedError until item 22 and now run — here the same
+    SCALED hook, img * 0.9 + 0.05, in both packages, held to the share
+    of differing values that tests/test_torch_presentation.py allows the
+    perceptual tail after an EWA (< 1.2e-3; the shifted light moves more
+    pixels onto F1's knife edges).  Nothing raises, and nothing silently
+    takes another path.  A "frame." key sets the
+    frame's field of that name."""
     from libplacebo_tpu.render import frame as jframe
     from libplacebo_tpu.render import renderer as jrender
     monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
@@ -267,11 +271,14 @@ def test_outside_the_slice_raises(feature, monkeypatch):
                                      feature["cone"][1])
         tkw["cone"] = lt.ConeParams(lt.Cone(feature["cone"][0]),
                                     feature["cone"][1])
-    params = lt.RenderParams(upscaler="ewa_lanczos", **tkw)
     if "hooks" in feature:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lt.Renderer(device="cpu").render(frame, target, params)
-        return
+        from libplacebo_tpu.render import hooks as jhooks
+
+        def hook(img, params):
+            return img * 0.9 + 0.05
+        jkw["hooks"] = (jhooks.Hook(jhooks.HookStage.SCALED, hook),)
+        tkw["hooks"] = (lt.Hook(lt.HookStage.SCALED, hook),)
+    params = lt.RenderParams(upscaler="ewa_lanczos", **tkw)
     out = lt.Renderer(device="cpu").render(frame, target, params).numpy()
     ref = np.asarray(jrender.Renderer().render(
         jf, jrender.Target(w=128, h=32, color=jcs.CSP_SRGB, bit_depth=8,
@@ -280,7 +287,10 @@ def test_outside_the_slice_raises(feature, monkeypatch):
     assert out.shape == ref.shape == (3, 32, 128)
     diff = np.abs(out - ref)
     assert diff.max() <= 1.0 / 255.0 + 1e-6, diff.max()
-    assert (diff > 1e-6).mean() < 1e-3, (diff > 1e-6).mean()
+    # the hook's case: the share of tests/test_torch_presentation.py's
+    # gate for the perceptual tail after an EWA (measured 1.06e-3)
+    frac = 1.2e-3 if "hooks" in feature else 1e-3
+    assert (diff > 1e-6).mean() < frac, (diff > 1e-6).mean()
 
 
 _SASS = """

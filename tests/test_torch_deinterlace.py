@@ -222,7 +222,7 @@ def test_merge_keeps_each_planes_parity():
         [p.data for p in tf_.planes], tf_.meta_key()[0], tp,
         fields=(tf_.field, tf_.first_field, inputs.prev_planes,
                 inputs.next_planes),
-        h274=(tf_.film_grain, inputs.h274_tables, True)).numpy()
+        h274=(tf_.film_grain, inputs.h274_tables, True))[0].numpy()
     np.testing.assert_array_equal(out, ref)
 
 

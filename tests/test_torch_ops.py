@@ -115,7 +115,7 @@ def test_chroma_merge_bilinear():
         *[p.data for p in jf.planes])
     tr = lt.Renderer(device="cpu")
     out = tr._merge_planes([_t(p.data) for p in jf.planes], mk,
-                           lt.RenderParams(upscaler="ewa_lanczos"))
+                           lt.RenderParams(upscaler="ewa_lanczos"))[0]
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 

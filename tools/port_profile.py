@@ -5,7 +5,8 @@ Run from the root of a checkout:
     python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2
                                            | --config3 | --pathA | --pathB
                                            | --pathC | --pathD | --pathE
-                                           | --pathF]
+                                           | --pathF | --pathG | --pathH]
+                                          [--telemetry]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
 Lanczos, K1 tail) or, with --config5, config 5 (the same frame carrying
@@ -33,14 +34,23 @@ chip_smoke.py's path_c_* and path_d_* helpers), with --pathE path E
 sRGB display through render_image_mix, a FrameMix a vsync, oversample:
 a "frame" below is a vsync) or with --pathF path F (1920x800 10-bit
 HDR10 letterboxed into 3840x2160 sRGB with HIGH_QUALITY_PARAMS; both
-defined by chip_smoke.py's path_e_* and path_f_cell) after two warm-up
+defined by chip_smoke.py's path_e_* and path_f_cell), with --pathG path
+G (a player's loop: the option string's params, lazy 10-bit HDR10
+source frames at 23.976 fps in a FrameQueue, each mapped from pinned
+memory when first shown, a queue update and render_image_mix a 60 Hz
+vsync, mitchell_clamp mixer: a "frame" below is a vsync) or with
+--pathH path H (config 5 with a LUMA_INPUT luma doubler and a
+PRE_OUTPUT auto-exposure, a new grain seed every frame; both defined by
+chip_smoke.py's path_g_* and path_h_* helpers) after two warm-up
 frames, twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
    name.
-The device busy share is the profiled kernel time over the unprofiled
-window (the profiler's own host cost lengthens its wall time, so that
+With --telemetry the renderer carries a `Telemetry` (its cost: compare
+runs with and without it in one call; the output file name gains
+`_telemetry`).  The device busy share is the profiled kernel time over
+the unprofiled window (the profiler's own host cost lengthens its wall time, so that
 wall time is not the denominator).  Prints both, the table by kernel and
 the card's name and power limit; the lot is also written to
 chiprun_out/port_profile.txt (port_profile_<config>.txt with a config
@@ -64,15 +74,16 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
+    telemetry = "--telemetry" in flags
+    flags = [a for a in flags if a != "--telemetry"]
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if flags and flags not in (["--config5"], ["--config4"], ["--config2"],
                                ["--config3"], ["--pathA"], ["--pathB"],
                                ["--pathC"], ["--pathD"], ["--pathE"],
-                               ["--pathF"]):
+                               ["--pathF"], ["--pathG"], ["--pathH"]):
         print(f"port_profile: unknown options {flags}", file=sys.stderr)
         return 2
     config = flags[0][2:] if flags else "flagship"
-    config5 = config == "config5"
     n = int(args[0]) if args else 4
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -115,7 +126,7 @@ def main() -> int:
     # RPU and path D's field change every frame
     count = 2 + 2 * n
     frames = [frame] * count
-    if config5:
+    if config in ("config5", "pathH"):
         import copy
         from libplacebo_tpu_torch.core.film_grain import sample_grain
         frames = [copy.copy(frame) for _ in range(count)]
@@ -125,6 +136,9 @@ def main() -> int:
                                  deband=lt.DebandParams(iterations=2),
                                  film_grain=True,
                                  error_diffusion="floyd-steinberg")
+        if config == "pathH":
+            from chip_smoke import path_h_hooks, path_h_params
+            params = path_h_params(lt, path_h_hooks(lt, "cuda")[0])
     elif config == "pathC":
         from chip_smoke import path_c_frame, path_c_rpus, path_c_yuv
         yuv = path_c_yuv(1, H, W)[0]
@@ -147,6 +161,8 @@ def main() -> int:
         frames = [lt.frame_from_yuv420p(y, u, v, color=color, bit_depth=10,
                                         repr=repr)] * count
     r = lt.Renderer()
+    if telemetry:
+        r.telemetry = lt.Telemetry()
     frame_iter = iter(frames)
 
     def render():
@@ -163,6 +179,24 @@ def main() -> int:
         def render():
             lt.render_image_mix(r, path_e_mix(lt, src, next(vsyncs)),
                                 target, params)
+
+    if config == "pathG":
+        from chip_smoke import (PATH_G_FPS, PATH_G_HZ, PathGDecoder,
+                                _flagship_yuv, path_g_params, path_g_update)
+        params = path_g_params(lt)
+        decoder = PathGDecoder(lt, _flagship_yuv(
+            int(count * PATH_G_FPS / PATH_G_HZ) + 4, H, W, seed=23,
+            bits=10), "cuda")
+        queue = lt.FrameQueue()
+        for k in range(len(decoder.yuvs)):
+            queue.push(decoder.source(k, decoder.decode(k)))
+        queue.push(None)
+        vsyncs = iter(range(count))
+
+        def render():
+            status, mix = path_g_update(lt, queue, params, next(vsyncs))
+            assert status == lt.QueueStatus.OK, status
+            lt.render_image_mix(r, mix, target, params)
 
     for _ in range(2):
         render()
@@ -194,9 +228,12 @@ def main() -> int:
              f"({dev_ms / n:.3f} ms/frame); device busy "
              f"{dev_ms / window_ms:.1%} of the unprofiled window",
              table]
+    if telemetry:
+        r.flush_telemetry()
+        lines.insert(3, f"telemetry: {r.telemetry.summary()}")
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "port_profile.txt" if config == "flagship" else \
-        f"port_profile_{config}.txt"
+    name = "port_profile" + ("" if config == "flagship" else f"_{config}") \
+        + ("_telemetry" if telemetry else "") + ".txt"
     with open(os.path.join("chiprun_out", name), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines))
