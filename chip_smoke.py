@@ -150,7 +150,31 @@ Phases (each runs uncaught: any failure exits non-zero):
     small input, and timings (path G: the vsyncs, the telemetry beside a
     new frame's render timed by CUDA events, a source frame's map alone;
     path H: the frames);
-20. the degradation ladder, last: deband made to raise RuntimeError
+20. path I, "a 4K HDR10 clip transcoded to 1080p SDR" (ffmpeg's
+    vf_libplacebo with tonemapping and w=1920:h=1080, for an SDR
+    client): 8 seeded 3840x2160 10-bit limited BT.2020-NC PQ 4:2:0 frames
+    written with the port's Y4MWriter (C420p10, XCOLORRANGE=LIMITED) to
+    a temporary directory, each read back as raw planes, mapped as a
+    decoder's AVFrame with HDR10 side data (interop.
+    frame_from_avframe_like, pinned staging), rendered with
+    RenderParams() on Renderer(ctx=runtime.create()) to 1920x1080 8-bit
+    BT.709 BT.1886 (hermite downscale in linear light, spline +
+    perceptual, peak detection, blue noise: K1's <spline, perceptual>
+    instance with dither), encoded to limited BT.709 YCbCr on the card,
+    downloaded through a pinned buffer and written as a 420jpeg y4m
+    (`PathITranscoder`), counted on its own (K1 8 times, no plain tail,
+    acquire and release 8 times each); the file read back (header, 8
+    frames, frame 0's codes), the context's cache (the transcoder's
+    gamut LUT) through save() and a fresh renderer's load(), the context
+    alive; timed (synchronized and back to back, the context's timer
+    beside CUDA events, each host stage); a small clip's GPU transcode
+    against the CPU one (the flagship's gate); K1's launch against its
+    plain version;
+21. the GPU-vs-JAX gate (tools/gpu_vs_cpu.py): seven presets rendered
+    by the port on the card against the JAX package's CPU renders
+    committed in libplacebo_tpu_torch/data/gpu_vs_cpu.npz, PSNR >= 45 dB
+    and the LSB guards;
+22. the degradation ladder, last: deband made to raise RuntimeError
     recovers (get_errors() shows it, the log records it); K1's launcher
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
@@ -854,6 +878,388 @@ def path_h_params(lt, hooks):
                            deband=lt.DebandParams(iterations=2),
                            film_grain=True, error_diffusion="floyd-steinberg",
                            hooks=tuple(hooks))
+
+
+# path I: a transcoder (ffmpeg's vf_libplacebo, tonemapping with
+# w=1920:h=1080) taking a 4K HDR10 clip to 1080p SDR for an SDR client
+PATH_I_SEED = 31
+PATH_I_FRAMES = 8
+PATH_I_FPS = (24000, 1001)
+# 10-bit limited luma codes: 64 black, 572 ~ 203 nits (SDR white), 722 ~
+# 1000 nits (the mastering peak)
+PATH_I_LUMA = (64, 722)
+
+
+def path_i_yuv(n, h, w, seed=PATH_I_SEED):
+    """n seeded 10-bit limited 4:2:0 frames, the flagship's kind of
+    content (noise over the code range) with luma up to the 1000-nit
+    mastering peak, ~23% of it above SDR white, and chroma over its whole
+    range (colors outside BT.709)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = PATH_I_LUMA
+    out = []
+    for _ in range(n):
+        y = (rng.random((h, w)) * (hi - lo) + lo).astype(np.uint16)
+        u = (rng.random((h // 2, w // 2)) * 896 + 64).astype(np.uint16)
+        v = (rng.random((h // 2, w // 2)) * 896 + 64).astype(np.uint16)
+        out.append((y, u, v))
+    return out
+
+
+def path_i_write_clip(path_or_file, yuvs):
+    """The source clip through the port's Y4MWriter from integer planes:
+    C420p10 with XCOLORRANGE=LIMITED."""
+    from libplacebo_tpu_torch.utils import y4m
+    h, w = yuvs[0][0].shape
+    with y4m.Y4MWriter(path_or_file, w, h, fps=PATH_I_FPS, csp="420p10",
+                       extensions=("COLORRANGE=LIMITED",)) as wr:
+        for planes in yuvs:
+            wr.write(planes)
+
+
+def path_i_avframe(raw):
+    """A decoder's AVFrame for raw planes (Y4MReader.read_raw): 10-bit
+    4:2:0 BT.2020-NC PQ, limited range, left chroma siting, HDR10 side
+    data (mastering display P3-D65 0.0001-1000 nits; MaxCLL 1000, MaxFALL
+    400)."""
+    return {"format": "yuv420p10le", "data": list(raw),
+            "colorspace": "bt2020nc", "color_primaries": "bt2020",
+            "color_trc": "smpte2084", "color_range": "tv",
+            "chroma_location": "left",
+            "mastering_display_metadata": {
+                "display_primaries": [[0.680, 0.320], [0.265, 0.690],
+                                      [0.150, 0.060]],
+                "white_point": [0.3127, 0.3290],
+                "min_luminance": 0.0001, "max_luminance": 1000.0},
+            "content_light_level": {"max_cll": 1000.0, "max_fall": 400.0}}
+
+
+def path_i_target(lt, w, h):
+    """1920x1080 (or w x h) 8-bit BT.709 BT.1886: an SDR client."""
+    return lt.Target(w=w, h=h, color=lt.ColorSpace(lt.ColorPrimaries.BT_709,
+                                                   lt.ColorTransfer.BT_1886),
+                     bit_depth=8)
+
+
+def path_i_yuv_repr(lt):
+    """The output's encoding: 8-bit BT.709 limited YCbCr."""
+    return lt.ColorRepr(sys=lt.ColorSystem.BT_709,
+                        levels=lt.ColorLevels.LIMITED,
+                        bits=lt.BitEncoding(8, 8, 0))
+
+
+def path_i_gamut_lut(lt):
+    """The transcoder's BT.2020 -> BT.709 perceptual gamut LUT (the host
+    3D-LUT generator), as a (cache key, bytes) pair it keeps in its
+    context's cache across runs."""
+    import hashlib
+    from libplacebo_tpu_torch.core import gamut_mapping as gm
+    from libplacebo_tpu_torch.core.colorspace import primaries_get
+    params = gm.GamutMapParams(
+        function=gm.find_gamut_map_function("perceptual"),
+        input_gamut=primaries_get(lt.ColorPrimaries.BT_2020),
+        output_gamut=primaries_get(lt.ColorPrimaries.BT_709),
+        min_luma=float(gm._pq_oetf(1e-8)), max_luma=float(gm._pq_oetf(0.1)))
+    key = int.from_bytes(hashlib.sha256(repr(params).encode()).digest()[:8],
+                         "little")
+    return key, gm.generate(params).tobytes()
+
+
+class PathITranscoder:
+    """Path I's loop over the y4m `src` into `dst`, a frame a `step()`:
+    read the frame's raw planes (Y4MReader.read_raw), map them as a
+    decoder's AVFrame (interop.frame_from_avframe_like, onto the
+    renderer's device, with acquire / release counted), render to 1080p
+    SDR (the target's size is the source's halved), encode to BT.709
+    limited YCbCr on the device, download through a pinned buffer and
+    write (Y4MWriter, 420jpeg).  With a `stats` dict, each stage's host
+    time is appended under its name (the device synchronized around the
+    render: "render_ms"), the context timer's readings under "timer_s",
+    and the first frame's downloaded YCbCr kept as "first_yuv".  `frames`
+    keeps the mapped frames."""
+
+    def __init__(self, lt, src, dst, renderer, params=None, stats=None):
+        import torch
+        from libplacebo_tpu_torch.ops.color import encode_color
+        from libplacebo_tpu_torch.utils import interop, y4m
+        self.lt, self.renderer, self.stats = lt, renderer, stats
+        self.params = params or lt.RenderParams()
+        self.encode, self.interop = encode_color, interop
+        self.dev = renderer.device
+        self.cuda = self.dev.type == "cuda"
+        self.counts = {"acquire": 0, "release": 0}
+        self.frames = []
+        self.timer = renderer.ctx.timer() if renderer.ctx is not None \
+            else None
+        self.reader = y4m.Y4MReader(src)
+        info = self.reader.info
+        self.target = path_i_target(lt, info.width // 2, info.height // 2)
+        self.host = torch.empty((3, self.target.h, self.target.w),
+                                dtype=torch.float32, pin_memory=self.cuda)
+        self.writer = y4m.Y4MWriter(
+            dst, self.target.w, self.target.h,
+            fps=(info.fps.numerator, info.fps.denominator), csp="420jpeg")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self):
+        self.reader.close()
+        self.writer.close()
+
+    def _acquire(self, frame):
+        self.counts["acquire"] += 1
+        return True
+
+    def _release(self, frame):
+        self.counts["release"] += 1
+
+    def _clock(self, name, t0):
+        if self.stats is not None:
+            self.stats.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
+    def _sync(self):
+        import torch
+        if self.cuda and self.stats is not None:
+            torch.cuda.synchronize(self.dev)
+
+    def _harvest(self):
+        while self.stats is not None and self.timer is not None:
+            reading = self.timer.query()
+            if reading is None:
+                return
+            self.stats.setdefault("timer_s", []).append(reading)
+
+    def step(self) -> bool:
+        """Transcode the next frame; False at the end of the clip."""
+        import torch
+        t0 = time.perf_counter()
+        raw = self.reader.read_raw()
+        if raw is None:
+            return False
+        self._clock("read_host_ms", t0)
+        t0 = time.perf_counter()
+        frame = self.interop.frame_from_avframe_like(path_i_avframe(raw),
+                                                     device=self.dev)
+        frame.acquire, frame.release = self._acquire, self._release
+        self._clock("map_host_ms", t0)
+        self._sync()
+        t0 = time.perf_counter()
+        if self.timer is not None:
+            self.timer.start()
+        out = self.renderer.render(frame, self.target, self.params)
+        if self.timer is not None:
+            self.timer.stop(out)
+        self._sync()
+        self._clock("render_ms", t0)
+        t0 = time.perf_counter()
+        self.host.copy_(self.encode(out, path_i_yuv_repr(self.lt)),
+                        non_blocking=self.cuda)
+        if self.cuda:
+            torch.cuda.current_stream(self.dev).synchronize()
+        self._clock("encode_download_ms", t0)
+        t0 = time.perf_counter()
+        self.writer.write(self.host.numpy())
+        self._clock("write_host_ms", t0)
+        if self.stats is not None and "first_yuv" not in self.stats:
+            self.stats["first_yuv"] = self.host.numpy().copy()
+        self.frames.append(frame)
+        self._harvest()
+        return True
+
+
+def path_i_transcode(lt, src, dst, renderer, params=None, stats=None):
+    """The whole clip through PathITranscoder: (mapped frames, acquire /
+    release counts)."""
+    with PathITranscoder(lt, src, dst, renderer, params, stats) as t:
+        while t.step():
+            pass
+    if stats is not None and t.timer is not None:
+        if t.cuda:
+            import torch
+            torch.cuda.synchronize(t.dev)
+        t._harvest()
+    return t.frames, t.counts
+
+
+def _y4m_codes(y4m, path):
+    """(info, [each frame's planes joined as one uint8 array])."""
+    with y4m.Y4MReader(path) as rd:
+        out = []
+        while (raw := rd.read_raw()) is not None:
+            out.append(np.concatenate([p.reshape(-1) for p in raw]))
+        return rd.info, out
+
+
+def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
+    """Path I at full size: an 8-frame 3840x2160 10-bit HDR10 clip written
+    with the port's Y4MWriter into a temporary directory, transcoded to
+    1920x1080 8-bit BT.709 SDR (PathITranscoder) on a Renderer built on
+    runtime.create(), whose cache holds the transcoder's gamut LUT.  The
+    launch counts are set to 0 just before the counted run (after a
+    one-frame warm-up on another renderer) and read just after.  Checks:
+    K1 once a frame and no plain tail, acquire and release 8 times each,
+    the written file read back (header, 8 frames, frame 0's codes),
+    save() restored by a fresh renderer's load(), the context alive, the
+    GPU transcode of a small clip (output 256 wide) against the CPU one
+    at the small-input gate; K1's launch against its plain version.
+    Returns the figures, K1's captured input and its launches."""
+    import shutil
+    import tempfile
+    from fractions import Fraction
+    import torch
+    from libplacebo_tpu_torch import runtime
+    from libplacebo_tpu_torch.render import renderer as trender
+    from libplacebo_tpu_torch.utils import y4m
+    tmp = tempfile.mkdtemp(prefix="path_i_")
+    try:
+        src, dst = os.path.join(tmp, "in.y4m"), os.path.join(tmp, "out.y4m")
+        yuvs = path_i_yuv(PATH_I_FRAMES, H, W)
+        path_i_write_clip(src, yuvs)
+        path_i_write_clip(os.path.join(tmp, "warm.y4m"), yuvs[:1])
+        path_i_transcode(lt, os.path.join(tmp, "warm.y4m"),
+                         os.path.join(tmp, "warm_out.y4m"),
+                         lt.Renderer(ctx=runtime.create(device=dev)))
+        ctx = runtime.create(device=dev)
+        lut_key, lut = path_i_gamut_lut(lt)
+        ctx.cache.set(lut_key, lut)
+        renderer = lt.Renderer(ctx=ctx)
+        captured, real = [], k1.color_map_tail
+
+        def cap_k1(img, plan, tone, lut_t):
+            if len(captured) < 2:
+                captured.append((img.clone(), plan, tone.clone()
+                                 if tone is not None else None, lut_t))
+            return real(img, plan, tone, lut_t)
+        stats = {}
+        k1.color_map_tail = cap_k1
+        try:
+            for mod in counters.values():
+                mod.launches = 0
+            trender.k1_tails = trender.plain_tails = \
+                trender.ineligible_tails = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames, counts = path_i_transcode(lt, src, dst, renderer,
+                                              stats=stats)
+            loop_s = time.perf_counter() - t0
+            counts = dict(counts)      # the window below acquires again
+            launches = {n: m.launches for n, m in counters.items()}
+            tails = (trender.k1_tails, trender.plain_tails,
+                     trender.ineligible_tails)
+        finally:
+            k1.color_map_tail = real
+        assert launches == {"k1": 8, "k2": 0, "k3": 0}, launches
+        assert tails == (8, 0, 0), tails
+        assert counts == {"acquire": 8, "release": 8}, counts
+        k1_args = captured[1]
+        plan = k1_args[1]
+        if plan.tone == k1.GENERIC:
+            mode = plan.generic.mode
+            instance = (f"generic (kind {mode.kind}, gamut "
+                        f"{k1.G_GAMUTS[mode.gamut]}, tone kind "
+                        f"{mode.tone_kind} {plan.generic.dynamic}, trc "
+                        f"{k1.G_TRCS[mode.trc]}, encode "
+                        f"{k1.G_ENCODES[mode.encode]}, dither "
+                        f"{k1.G_DITHER[mode.dither]})")
+        else:
+            instance = k1.instance_name(plan.tone, plan.gamut,
+                                        k1_args[3] is not None)
+        # the written file, read back
+        info, codes = _y4m_codes(y4m, dst)
+        assert (info.width, info.height, info.csp, info.bit_depth) == \
+            (W // 2, H // 2, "420jpeg", 8), info
+        assert info.fps == Fraction(*PATH_I_FPS), info.fps
+        assert len(codes) == PATH_I_FRAMES, len(codes)
+        import io
+        want = io.BytesIO()
+        y4m.Y4MWriter(want, W // 2, H // 2, csp="420jpeg").write(
+            stats["first_yuv"])
+        want = np.frombuffer(want.getvalue().split(b"FRAME\n", 1)[1],
+                             np.uint8)
+        assert np.array_equal(codes[0], want)
+        # the context's cache through save() and a fresh renderer's load()
+        blob = renderer.save()
+        fresh = lt.Renderer(ctx=runtime.create(device=dev))
+        restored = fresh.load(blob)
+        assert restored == ctx.cache.num_objects == \
+            fresh.ctx.cache.num_objects == 1, restored
+        assert fresh.ctx.cache.get(lut_key) == lut
+        # back to back: the 8 mapped frames again, each bracketed by the
+        # context's timer and by a pair of CUDA events
+        target = path_i_target(lt, W // 2, H // 2)
+        params = lt.RenderParams()
+        timer = ctx.timer()
+        assert timer.query() is None
+        pairs = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for f in frames:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            timer.start()
+            out = renderer.render(f, target, params)
+            timer.stop(out)
+            e1.record()
+            pairs.append((e0, e1))
+        end.record()
+        torch.cuda.synchronize()
+        window_ms = start.elapsed_time(end) / len(frames)
+        event_ms = [a.elapsed_time(b) for a, b in pairs]
+        timer_ms = [timer.query() * 1e3 for _ in frames]
+        assert timer.query() is None
+        assert tuple(out.shape) == (3, H // 2, W // 2), out.shape
+        assert bool(torch.isfinite(out).all())
+        c = out * 255.0
+        assert float((c - torch.round(c)).abs().max()) <= 255e-6
+        assert ctx.check_alive() and not ctx.is_failed
+        del frames, out
+        # the small-input gate: a 2-frame clip with a 256-wide output
+        small_src = os.path.join(tmp, "small.y4m")
+        path_i_write_clip(small_src, path_i_yuv(2, 128, 512, seed=7))
+        small = {}
+        for name, d in (("gpu", dev), ("cpu", "cpu")):
+            out_path = os.path.join(tmp, f"small_{name}.y4m")
+            ctx_s = runtime.create(device=d) if name == "gpu" else \
+                runtime.create_dummy()
+            _, n = path_i_transcode(lt, small_src, out_path,
+                                    lt.Renderer(ctx=ctx_s))
+            assert n == {"acquire": 2, "release": 2}, n
+            small[name] = _y4m_codes(y4m, out_path)[1]
+        small_gate = []
+        for g, c_ in zip(small["gpu"], small["cpu"]):
+            d = np.abs(g.astype(np.float64) - c_) / 255.0
+            small_gate.append({"max": float(d.max()), "mean": float(d.mean()),
+                               "above_1lsb": float((d > LSB + 1e-5).mean())})
+            assert d.mean() < 1e-4 and (d > LSB + 1e-5).mean() <= 5e-4, \
+                small_gate[-1]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    med = statistics.median
+    figures = {
+        "path_i_frame_ms": med(stats["render_ms"]),
+        "path_i_frame_ms_samples": stats["render_ms"],
+        "path_i_window_ms": window_ms,
+        "path_i_timer_ms": timer_ms, "path_i_event_ms": event_ms,
+        "path_i_loop_timer_ms": [t * 1e3 for t in stats["timer_s"]],
+        "path_i_fps": PATH_I_FRAMES / loop_s,
+        "path_i_read_host_ms": med(stats["read_host_ms"]),
+        "path_i_map_ms": med(stats["map_host_ms"]),
+        "path_i_encode_download_ms": med(stats["encode_download_ms"]),
+        "path_i_write_host_ms": med(stats["write_host_ms"]),
+        "path_i_stage_ms": {k: v for k, v in stats.items()
+                            if k.endswith("_ms")},
+        "path_i_tails": tails, "path_i_acquire_release": counts,
+        "path_i_k1_instance": instance,
+        "path_i_cache_objects_restored": restored,
+        "path_i_small_render": small_gate}
+    return figures, k1_args, launches["k1"]
 
 
 # the K1 tails chip_smoke holds on the generic instance beside path A's:
@@ -2037,7 +2443,37 @@ def main() -> int:
                                    n_px_h * (7 + 2 * n_taps))
     k3_ph_bound, k3_ph_by = _bound(k3_ph_bytes, 0)
 
-    # 20. the degradation ladder, last, everything restored after it:
+    # 20. path I: a 4K HDR10 clip transcoded to 1080p SDR (counted on its
+    # own), K1's launch against its plain version, timed
+    # (the tail into a BT.1886 target runs K1's generic instance: bit for
+    # bit against its plain version, as path A's)
+    path_i, pi_k1, pi_launches = path_i_phase(lt, dev, counters, k1)
+    if pi_k1[1].tone == k1.GENERIC:
+        pi_err, pi_part = _check_generic(k1, pi_k1)
+        pi_frac = 0.0
+        k1_pi_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pi_k1), 3)
+    else:
+        pi_err, pi_frac, pi_part = _check_k1(k1, pi_k1)
+        k1_pi_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+            pi_k1[0], pi_k1[1].consts, *pi_k1[2:], pi_k1[1].instance), 3)
+    k1_pi_ms = _cuda_ms(lambda: k1.color_map_tail(*pi_k1), 20)
+
+    # 21. the GPU-vs-JAX gate: the port's renders on the card against the
+    # JAX package's CPU renders committed as fixtures (tools/gpu_vs_cpu.py)
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "gpu_vs_cpu", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tools", "gpu_vs_cpu.py"))
+    gpu_vs_cpu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gpu_vs_cpu)
+    t = time.perf_counter()
+    gate_lines, gate_ok = gpu_vs_cpu.run("cuda")
+    gate_s = time.perf_counter() - t
+    for line in gate_lines:
+        print(json.dumps({"gpu_vs_jax": line}))
+    assert gate_ok, gate_lines
+
+    # 22. the degradation ladder, last, everything restored after it:
     # (a) a plain stage made to fail (deband raising RuntimeError)
     # recovers, get_errors() shows `deband` and the log records it;
     # (b) K1's launcher raising KernelError and (c) raising the
@@ -2142,6 +2578,8 @@ def main() -> int:
                   pe_launches["k1"], pe_err, k1_pe_ms, k1_pe_plain_ms),
         _k1_entry(k1, "k1_color_map_no_dither_path_g", pg_k1, pg_part,
                   pg_launches["k1"], pg_err, k1_pg_ms, k1_pg_plain_ms),
+        _k1_entry(k1, "k1_color_map_path_i", pi_k1, pi_part, pi_launches,
+                  pi_err, k1_pi_ms, k1_pi_plain_ms),
         {"name": "k2_error_diffusion_path_h", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -2248,6 +2686,12 @@ def main() -> int:
         "path_h_k3_launches_per_frame": ph_launches["k3"] / 8,
         "path_h_tails": ph_tails, "k2_path_h_ms": k2_ph_ms,
         "k3_path_h_ms": k3_ph_ms, "ladder": ladder,
+        **path_i, "k1_path_i_ms": k1_pi_ms,
+        "k1_path_i_plain_ms": k1_pi_plain_ms,
+        "k1_path_i_differing_fraction": pi_frac,
+        "k1_path_i_ops_per_pixel": k1.ops_per_pixel(pi_k1[1].consts,
+                                                    pi_k1[1].instance),
+        "gpu_vs_jax": gate_lines, "gpu_vs_jax_s": gate_s,
         "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
         "h274_1080p_ms": h274_ms, "h274_host_ms": h274_host_ms,
         "deinterlace_1080p_ms": deint_ms, "distort_4k_ms": distort_ms,
@@ -2301,6 +2745,20 @@ def main() -> int:
           f" {ph_window_ms:.3f} ms back to back; K2 "
           f"{ph_launches['k2'] / 8:g} and K3 {ph_launches['k3'] / 8:g} "
           f"launches a frame; tails (K1, plain, ineligible) {ph_tails}")
+    pi_entry = next(k for k in kernels if k["name"] == "k1_color_map_path_i")
+    print(f"path I ({card}): a frame {path_i['path_i_frame_ms']:.3f} ms "
+          f"synchronized (median of {PATH_I_FRAMES}), "
+          f"{path_i['path_i_window_ms']:.3f} ms back to back; "
+          f"{path_i['path_i_fps']:.3f} fps read->write; host ms: read "
+          f"{path_i['path_i_read_host_ms']:.3f}, map "
+          f"{path_i['path_i_map_ms']:.3f}, encode+download "
+          f"{path_i['path_i_encode_download_ms']:.3f}, write "
+          f"{path_i['path_i_write_host_ms']:.3f}; timer ms "
+          f"{[round(t, 4) for t in path_i['path_i_timer_ms']]} beside CUDA "
+          f"events {[round(t, 4) for t in path_i['path_i_event_ms']]}; K1 "
+          f"{path_i['path_i_k1_instance']} {pi_entry['ms']:.4f} ms (bound "
+          f"{pi_entry['bound_ms']:.4f} ms on {pi_entry['bound_by']}), "
+          f"{pi_launches} launches; tails {path_i['path_i_tails']}")
     print(f"ladder: {ladder}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -21,8 +21,8 @@ from .core.colorspace import (AlphaMode, BitEncoding,  # noqa: E402
                               ColorRepr, ColorSpace, ColorSystem,
                               ColorTransfer, Cone, ConeParams,
                               CSP_BT2100_PQ, CSP_BT709, CSP_SRGB,
-                              DoviMetadata, HdrMetadata)
-from .core.common import RectF  # noqa: E402
+                              DoviMetadata, HdrBezier, HdrMetadata)
+from .core.common import Rect, RectF, Rotation  # noqa: E402
 from .core.dither import DitherMethod  # noqa: E402
 from .core.film_grain import (AV1GrainData, FilmGrainData,  # noqa: E402
                               H274GrainData)
@@ -59,7 +59,7 @@ __all__ = ["Renderer", "render_image", "render_image_mix", "RenderParams",
            "frames_infer_mix", "clear_target", "clear_target_tiles",
            "FAST_PARAMS", "DEFAULT_PARAMS", "HIGH_QUALITY_PARAMS",
            "ALPHA_OVERLAY", "ColorAdjustment", "Cone", "ConeParams",
-           "AlphaMode", "RectF", "CSP_BT709", "DitherParams", "DitherMethod",
+           "AlphaMode", "Rect", "RectF", "Rotation", "HdrBezier", "CSP_BT709", "DitherParams", "DitherMethod",
            "DebandParams", "CustomLut", "parse_cube", "IccProfile",
            "parse_icc",
            "FilmGrainData", "AV1GrainData", "H274GrainData",

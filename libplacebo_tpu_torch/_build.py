@@ -25,7 +25,7 @@ import torch
 
 __all__ = ["BUILD_DIR", "KernelError", "is_kernel_failure", "kernel_work",
            "build_all", "build_log", "build_shared", "generated_include",
-           "load_shared", "nvcc_path"]
+           "load_shared", "nvcc_path", "set_build_dir"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
@@ -33,6 +33,20 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
 
 _lock = threading.Lock()
 _loaded: dict = {}
+
+
+def set_build_dir(path: str) -> str:
+    """Build into `path` from now on (runtime.GpuContext.set_disk_cache).
+    Libraries this process has already loaded stay loaded; the setting
+    applies to builds it has not made yet.  Libraries are named by the
+    hash of their sources and flags, so the directory can be shared
+    between processes and machines with the same toolchain."""
+    global BUILD_DIR
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    with _lock:
+        BUILD_DIR = path
+    return path
 
 
 class KernelError(RuntimeError):

@@ -3,10 +3,12 @@
 The renderer has no weights; what crosses is the carried state (the
 peak-detection state (2,) and the temporal frame index), the input
 planes, the frame's film-grain description (AV1 or H.274), its Dolby
-Vision metadata, its overlays, the user's color adjustment and cone
-parameters, a frame-mix window, the hooks' carried state, the
-degradation flags and disabled hooks and, for a test that wants to rule
-out the random draws, deband's random tables.  The dither LUT
+Vision metadata, its overlays, rotation and pixel aspect, its HDR
+metadata (mastering primaries and an HDR10+ curve included), the user's
+color adjustment and cone parameters, a frame-mix window, the hooks'
+carried state, the degradation flags and disabled hooks, a context's
+cache (as its saved bytes) and, for a test that wants to rule out the
+random draws, deband's random tables.  The dither LUT
 and the grain tables are regenerated bit-identically from the same
 native sources.  The interface is numpy arrays and plain dicts, so this
 module — like the rest of the port — never imports JAX.
@@ -18,10 +20,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .core.colorspace import (BitEncoding, ColorAdjustment, ColorRepr,
-                              ColorSpace, Cone, ConeParams, DoviMetadata,
-                              HdrMetadata)
-from .core.common import RectF
+from .core.cache import Cache
+from .core.colorspace import (BitEncoding, CIExy, ColorAdjustment,
+                              ColorRepr, ColorSpace, Cone, ConeParams,
+                              DoviMetadata, HdrBezier, HdrMetadata,
+                              RawPrimaries)
+from .core.common import RectF, Rotation
 from .core.film_grain import AV1GrainData, FilmGrainData, H274GrainData
 from .render.frame import Frame, Overlay, OverlayPart, Plane
 from .render.queue import FrameMix
@@ -34,7 +38,7 @@ __all__ = ["renderer_state_from_jax", "frame_from_numpy",
            "colorspace_from_fields", "overlay_from_fields",
            "color_adjustment_from_fields", "cone_params_from_fields",
            "frame_mix_from_fields", "hook_states_from_numpy",
-           "renderer_errors_from_jax"]
+           "renderer_errors_from_jax", "cache_from_saved"]
 
 
 def renderer_state_from_jax(peak_state: np.ndarray, frame_idx: int,
@@ -51,18 +55,22 @@ def renderer_state_from_jax(peak_state: np.ndarray, frame_idx: int,
 
 
 def frame_from_numpy(planes: Sequence, repr: ColorRepr, color: ColorSpace,
-                     device=None, shifts=None) -> Frame:
+                     device=None, shifts=None, rotation: int = 0,
+                     pixel_aspect_ratio: float = 0.0) -> Frame:
     """A Frame from normalized float planes: `planes` is a sequence of
     (data (C, H, W) float32, component_mapping) pairs, as
     [(np.asarray(p.data), p.component_mapping) for p in frame.planes];
-    `shifts` optionally gives each plane's (shift_x, shift_y)."""
+    `shifts` optionally gives each plane's (shift_x, shift_y);
+    `rotation` and `pixel_aspect_ratio` are the reference frame's."""
     dev = resolve_device(device)
     out = []
     for i, (data, mapping) in enumerate(planes):
         sx, sy = shifts[i] if shifts is not None else (0.0, 0.0)
         t = torch.from_numpy(np.array(data, np.float32)).to(dev)
         out.append(Plane(t, tuple(mapping), shift_x=sx, shift_y=sy))
-    return Frame(planes=out, repr=repr, color=color)
+    return Frame(planes=out, repr=repr, color=color,
+                 rotation=Rotation(int(rotation)),
+                 pixel_aspect_ratio=float(pixel_aspect_ratio))
 
 
 def _ints(v):
@@ -154,15 +162,28 @@ _HDR_SCALARS = ("min_luma", "max_luma", "max_cll", "max_fall", "scene_avg",
                 "max_pq_y", "avg_pq_y")
 
 
+def _xy(d) -> CIExy:
+    return CIExy(float(d["x"]), float(d["y"])) if d else CIExy()
+
+
 def colorspace_from_fields(d: dict) -> ColorSpace:
     """The port's ColorSpace from dataclasses.asdict() of a reference
-    one: primaries, transfer and the HDR metadata's scalars and scene
-    maxima (mastering primaries and HDR10+ curves do not cross)."""
+    one: primaries, transfer and the HDR metadata (its scalars, scene
+    maxima, mastering primaries and HDR10+ curve)."""
     hdr = d.get("hdr") or {}
+    prim = hdr.get("prim") or {}
+    ootf = hdr.get("ootf")
     return ColorSpace(_value(d["primaries"]), _value(d["transfer"]),
-                      HdrMetadata(scene_max=tuple(
-                          float(v) for v in hdr.get("scene_max",
-                                                    (0.0, 0.0, 0.0))),
+                      HdrMetadata(
+                          prim=RawPrimaries(*(_xy(prim.get(k)) for k in (
+                              "red", "green", "blue", "white"))),
+                          scene_max=tuple(
+                              float(v) for v in hdr.get("scene_max",
+                                                        (0.0, 0.0, 0.0))),
+                          ootf=None if ootf is None else HdrBezier(
+                              float(ootf["target_luma"]),
+                              float(ootf["knee_x"]), float(ootf["knee_y"]),
+                              tuple(float(a) for a in ootf["anchors"])),
                           **{k: float(hdr.get(k, 0.0))
                              for k in _HDR_SCALARS}))
 
@@ -233,3 +254,12 @@ def renderer_errors_from_jax(errors, disabled_hooks,
     r.errors = set(errors)
     r._disabled_hooks = set(disabled_hooks)
     return r
+
+
+def cache_from_saved(blob: bytes, cache: Cache = None) -> Cache:
+    """A reference context's cache — its `ctx.cache.save()` bytes (the
+    two packages share the wire format) — loaded into `cache` (a new one
+    if None), returned."""
+    c = cache if cache is not None else Cache()
+    c.load(blob)
+    return c

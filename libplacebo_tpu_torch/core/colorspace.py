@@ -32,7 +32,9 @@ __all__ = [
     "transfer_nominal_peak", "levels_guess", "system_is_ycbcr_like",
     "ColorAdjustment", "COLOR_ADJUSTMENT_NEUTRAL", "white_from_temp",
     "daylight_from_temp", "blackbody_from_temp", "Cone", "ConeParams",
-    "cone_matrix", "CSP_BT709",
+    "cone_matrix", "CSP_BT709", "HdrBezier", "primaries_valid",
+    "primaries_superset", "system_is_linear", "system_guess_ycbcr",
+    "get_scaled_decoding_matrix",
 ]
 
 COLOR_SDR_WHITE = 203.0   # cd/m² of SDR reference white
@@ -227,6 +229,26 @@ class RawPrimaries:
         return bool(self.red) and bool(self.green) and bool(self.blue) \
             and bool(self.white)
 
+    def merge(self, update: "RawPrimaries") -> "RawPrimaries":
+        """Zero coordinates filled from `update`, one scalar at a time
+        (reference pl_raw_primaries_merge)."""
+        def pick(a: CIExy, b: CIExy) -> CIExy:
+            return CIExy(a.x or b.x, a.y or b.y)
+        return RawPrimaries(pick(self.red, update.red),
+                            pick(self.green, update.green),
+                            pick(self.blue, update.blue),
+                            pick(self.white, update.white))
+
+    def similar(self, other: "RawPrimaries") -> bool:
+        """Whether the summed |dx| + |dy| over the four points is below
+        0.001 (reference pl_raw_primaries_similar)."""
+        delta = sum(abs(a - b) for a, b in (
+            (self.red.x, other.red.x), (self.red.y, other.red.y),
+            (self.green.x, other.green.x), (self.green.y, other.green.y),
+            (self.blue.x, other.blue.x), (self.blue.y, other.blue.y),
+            (self.white.x, other.white.x), (self.white.y, other.white.y)))
+        return delta < 0.001
+
 
 _PRIMARIES_TABLE = {
     ColorPrimaries.BT_470M: RawPrimaries(CIExy(0.670, 0.330), CIExy(0.210, 0.710), CIExy(0.140, 0.080), CIE_C),
@@ -360,6 +382,17 @@ def color_mapping_matrix(src: RawPrimaries, dst: RawPrimaries) -> Matrix3x3:
     return back @ adapt @ xyz
 
 
+def primaries_valid(p: RawPrimaries) -> bool:
+    return p.valid()
+
+
+def primaries_superset(a: RawPrimaries, b: RawPrimaries) -> bool:
+    """Whether gamut `a` contains gamut `b`: every primary of `b` maps to
+    non-negative RGB in `a` (reference pl_primaries_superset)."""
+    m = color_mapping_matrix(b, a).m
+    return bool(np.all(m @ np.eye(3) > -1e-6))
+
+
 def _test_point_line(p: CIExy, a: CIExy, b: CIExy) -> float:
     return (p.x - b.x) * (a.y - b.y) - (a.x - b.x) * (p.y - b.y)
 
@@ -457,9 +490,37 @@ class ColorRepr:
         object.__setattr__(self, "alpha", coerce_enum(
             self.alpha, AlphaMode, "alpha mode"))
 
+    def merge(self, update: "ColorRepr") -> "ColorRepr":
+        """Unknown fields filled from `update` (pl_color_repr_merge)."""
+        return ColorRepr(
+            sys=self.sys if self.sys != ColorSystem.UNKNOWN else update.sys,
+            levels=self.levels if self.levels != ColorLevels.UNKNOWN
+            else update.levels,
+            alpha=self.alpha if self.alpha != AlphaMode.UNKNOWN
+            else update.alpha,
+            bits=self.bits if self.bits else update.bits,
+            dovi=self.dovi or update.dovi)
+
 
 def system_is_ycbcr_like(sys: ColorSystem) -> bool:
     return sys not in (ColorSystem.UNKNOWN, ColorSystem.RGB, ColorSystem.XYZ)
+
+
+def system_is_linear(sys: ColorSystem) -> bool:
+    """Whether the system is a matrix transform of RGB (reference
+    pl_color_system_is_linear)."""
+    return sys in (
+        ColorSystem.UNKNOWN, ColorSystem.BT_601, ColorSystem.BT_709,
+        ColorSystem.SMPTE_240M, ColorSystem.BT_2020_NC, ColorSystem.YCGCO,
+        ColorSystem.YCGCO_RE, ColorSystem.YCGCO_RO, ColorSystem.RGB)
+
+
+def system_guess_ycbcr(width: int, height: int) -> ColorSystem:
+    """The YCbCr matrix guessed from the size, never BT.2020 (reference
+    pl_color_system_guess_ycbcr)."""
+    if width >= 1280 or height > 576:
+        return ColorSystem.BT_709
+    return ColorSystem.BT_601
 
 
 def levels_guess(repr: ColorRepr) -> ColorLevels:
@@ -650,6 +711,15 @@ def color_repr_decode(repr: ColorRepr,
     return Transform3x3(Matrix3x3(full), full_off), out_repr
 
 
+def get_scaled_decoding_matrix(repr: ColorRepr,
+                               prim: ColorPrimaries = ColorPrimaries.UNKNOWN
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """color_repr_decode's (3x3 matrix, bias) as float32 numpy.  `prim`
+    is the reference's argument; no decoding matrix depends on it."""
+    tr, _ = color_repr_decode(repr)
+    return tr.mat.m.astype(np.float32), tr.c.astype(np.float32)
+
+
 _HLG_75 = 3.17955025
 
 _TRANSFER_PEAKS = {
@@ -670,6 +740,17 @@ def transfer_is_hdr(trc: ColorTransfer) -> bool:
 
 
 @dataclass(frozen=True)
+class HdrBezier:
+    """HDR10+ (SMPTE 2094-40) per-scene OOTF: the target luminance
+    (cd/m²), the knee point and the Bezier anchors (reference
+    pl_hdr_bezier)."""
+    target_luma: float = 0.0
+    knee_x: float = 0.0
+    knee_y: float = 0.0
+    anchors: Tuple[float, ...] = ()
+
+
+@dataclass(frozen=True)
 class HdrMetadata:
     """Static + dynamic HDR metadata (reference pl_hdr_metadata)."""
     prim: RawPrimaries = field(default_factory=RawPrimaries)
@@ -679,9 +760,45 @@ class HdrMetadata:
     max_fall: float = 0.0
     scene_max: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     scene_avg: float = 0.0
-    ootf: Optional[object] = None
+    ootf: Optional[HdrBezier] = None
     max_pq_y: float = 0.0
     avg_pq_y: float = 0.0
+
+    def __bool__(self):
+        return any((self.min_luma, self.max_luma, self.max_cll,
+                    self.max_fall, self.max_pq_y))
+
+    def merge(self, update: "HdrMetadata") -> "HdrMetadata":
+        """Unset fields filled from `update` (reference
+        pl_hdr_metadata_merge)."""
+        return HdrMetadata(
+            prim=self.prim.merge(update.prim),
+            min_luma=self.min_luma or update.min_luma,
+            max_luma=self.max_luma or update.max_luma,
+            max_cll=self.max_cll or update.max_cll,
+            max_fall=self.max_fall or update.max_fall,
+            scene_max=self.scene_max if self.scene_max[1]
+            else update.scene_max,
+            scene_avg=self.scene_avg or update.scene_avg,
+            ootf=self.ootf if (self.ootf and self.ootf.target_luma)
+            else update.ootf,
+            max_pq_y=self.max_pq_y or update.max_pq_y,
+            avg_pq_y=self.avg_pq_y or update.avg_pq_y)
+
+    def contains(self, kind: str) -> bool:
+        """Whether a class of metadata is present: "none", "any",
+        "hdr10", "hdr10plus" or "cie_y" (reference
+        pl_hdr_metadata_contains)."""
+        has_hdr10 = bool(self.max_luma)
+        has_hdr10plus = bool(self.scene_avg) and any(self.scene_max)
+        has_cie_y = bool(self.max_pq_y and self.avg_pq_y)
+        table = {"none": True,
+                 "any": has_hdr10 or has_hdr10plus or has_cie_y,
+                 "hdr10": has_hdr10, "hdr10plus": has_hdr10plus,
+                 "cie_y": has_cie_y}
+        if kind not in table:
+            raise ValueError(f"unknown HDR metadata type: {kind!r}")
+        return table[kind]
 
 
 @dataclass(frozen=True)
@@ -802,6 +919,20 @@ class ColorSpace:
         if avg_luma:
             avg_luma = min(max(avg_luma, min_luma), max_luma)
         return min_luma, max_luma, avg_luma
+
+    def merge(self, update: "ColorSpace") -> "ColorSpace":
+        """Unknown fields filled from `update` (pl_color_space_merge)."""
+        return ColorSpace(
+            primaries=self.primaries
+            if self.primaries != ColorPrimaries.UNKNOWN
+            else update.primaries,
+            transfer=self.transfer if self.transfer != ColorTransfer.UNKNOWN
+            else update.transfer,
+            hdr=self.hdr if self.hdr else update.hdr)
+
+    def equal(self, other: "ColorSpace") -> bool:
+        return self.primaries == other.primaries and \
+            self.transfer == other.transfer and self.hdr == other.hdr
 
 
 def color_space_infer_map(src: ColorSpace,

@@ -1,4 +1,4 @@
-"""Dither matrices (host numpy): Bayer and blue noise, and the
+"""Dither matrices (host numpy): Bayer, white and blue noise, and the
 error-diffusion kernels.
 
 Counterpart of libplacebo_tpu/core/dither.py.  Blue noise comes only
@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["DitherMethod", "bayer_matrix", "blue_noise",
+__all__ = ["DitherMethod", "bayer_matrix", "white_noise", "blue_noise",
            "ErrorDiffusionKernel", "ERROR_DIFFUSION_KERNELS",
            "ED_FLOYD_STEINBERG", "find_error_diffusion_kernel"]
 
@@ -38,6 +38,16 @@ def bayer_matrix(size: int) -> np.ndarray:
                       [4 * m + 3, 4 * m + 1]])
         n *= 2
     return (m.astype(np.float64) / (size * size)).astype(np.float32)
+
+
+def white_noise(size: int, seed: int = 0, width: Optional[int] = None
+                ) -> np.ndarray:
+    """(size, width or size) float32 white noise in [0,1): numpy's
+    default_rng(seed) draw, the reference's (core/dither.py::white_noise)
+    for a square."""
+    rng = np.random.default_rng(seed)
+    return rng.random((size, size if width is None else width),
+                      dtype=np.float32)
 
 
 @lru_cache(maxsize=8)

@@ -3,7 +3,9 @@ that the port's tables are bit-identical to it:
 
 - `dither.cc`: the void-and-cluster blue-noise generator;
 - `grain.cc`: AV1 film-grain table generation (the grain LUTs' LFSR and
-  auto-regressive filter, and the per-block offsets).
+  auto-regressive filter, and the per-block offsets);
+- `gamut.cc`: the gamut-mapping 3D LUT (core/gamut_mapping.generate),
+  each entry scalar with the reference's one-item per-hue peak cache.
 
 Each is built with g++ into `build/` at first use; a build that fails
 raises (there is no equivalent fallback).
@@ -19,7 +21,7 @@ import numpy as np
 from .._build import load_shared
 
 __all__ = ["build_specs", "blue_noise_native", "grain_y_native", "grain_uv_native",
-           "grain_offsets_native"]
+           "grain_offsets_native", "gamut_lut_native", "GAMUT_OP_IDS"]
 
 _CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
 
@@ -32,7 +34,8 @@ def _host_spec(name: str, source: str):
 def build_specs():
     """The host libraries' build specs (_build.build_all)."""
     return [_host_spec("plnative_dither", "dither.cc"),
-            _host_spec("plnative_grain", "grain.cc")]
+            _host_spec("plnative_grain", "grain.cc"),
+            _host_spec("plnative_gamut", "gamut.cc")]
 
 
 def _host_lib(name: str, source: str) -> ctypes.CDLL:
@@ -110,4 +113,47 @@ def grain_offsets_native(seed: int, blocks_w: int,
     """(blocks_h, blocks_w) packed per-block offsets, uint32."""
     out = np.zeros((blocks_h, blocks_w), np.uint32)
     _grain_lib().pl_av1_grain_offsets(seed & 0xFFFF, blocks_w, blocks_h, out)
+    return out
+
+
+# operator ids shared with gamut.cc (enum Op)
+GAMUT_OP_IDS = {
+    "clip": 0, "perceptual": 1, "softclip": 2, "relative": 3,
+    "saturation": 4, "absolute": 5, "desaturate": 6, "darken": 7,
+    "highlight": 8, "linear": 9,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _gamut_lib() -> ctypes.CDLL:
+    lib = _host_lib("plnative_gamut", "gamut.cc")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    c = ctypes
+    lib.plg_gamut_generate.argtypes = [
+        c.c_int, f64p, f64p, f64p, f64p, f64p, c.c_double, c.c_double,
+        f64p, c.c_int, c.c_int, c.c_int, f32p]
+    lib.plg_gamut_generate.restype = c.c_int
+    return lib
+
+
+def gamut_lut_native(op_name: str, src_rgb2lms, src_lms2rgb,
+                     dst_rgb2lms, dst_lms2rgb, adapt,
+                     min_luma: float, max_luma: float, consts,
+                     NI: int, NC: int, Nh: int) -> np.ndarray:
+    """The (Nh, NC, NI, 3) float32 gamut-mapping LUT from gamut.cc (the
+    reference package's native/__init__.py:164).  An unknown operator
+    raises KeyError, a non-zero return code RuntimeError."""
+    op = GAMUT_OP_IDS[op_name]
+    out = np.zeros((Nh, NC, NI, 3), np.float32)
+
+    def m9(x):
+        return np.ascontiguousarray(np.asarray(x, np.float64).reshape(9))
+    rc = _gamut_lib().plg_gamut_generate(
+        op, m9(src_rgb2lms), m9(src_lms2rgb), m9(dst_rgb2lms),
+        m9(dst_lms2rgb), m9(adapt), float(min_luma), float(max_luma),
+        np.ascontiguousarray(np.asarray(consts, np.float64).reshape(5)),
+        NI, NC, Nh, out)
+    if rc != 0:
+        raise RuntimeError(f"plg_gamut_generate returned {rc}")
     return out

@@ -21,6 +21,7 @@ import torch
 
 from ..core import transfer as tf
 from ..core.fastmath import fma, mix, rcp
+from ..core.gamut_mapping import LMS2IPT, ipt_rgb2lms
 from ..core.colorspace import (COLOR_SDR_WHITE, ColorPrimaries, ColorRepr,
                                ColorSpace, ColorSystem, ColorTransfer,
                                color_repr_decode, ictcp_matrices,
@@ -29,7 +30,8 @@ from ..core.colorspace import (COLOR_SDR_WHITE, ColorPrimaries, ColorRepr,
 
 __all__ = ["mat_pointwise", "decode_color", "cone_distort",
            "encode_color", "linearize", "delinearize", "nominal_luma_norm",
-           "hlg_constants", "SigmoidParams", "sigmoidize", "desigmoidize"]
+           "hlg_constants", "SigmoidParams", "sigmoidize", "desigmoidize",
+           "extract_features"]
 
 
 def mat_pointwise(img, mat, bias=None):
@@ -345,3 +347,19 @@ def desigmoidize(img, params: SigmoidParams = SigmoidParams()):
     x = torch.clamp(img, 0.0, 1.0)
     return (1.0 / scale) / (1.0 + torch.exp(
         (params.center - x) * params.slope)) - offset / scale
+
+
+def extract_features(img, csp: ColorSpace, already_linear: bool = False):
+    """The grayscale feature map of contrast recovery: the PQ-encoded
+    IPT intensity I (reference ops/color.py::extract_features,
+    pl_shader_extract_features).  `img` is (..., 3, H, W) in `csp`'s
+    signal encoding, or NORM-scaled linear light with `already_linear`;
+    returns (..., 1, H, W) on `img`'s device."""
+    lin = img if already_linear else linearize(img, csp)
+    # NORM (1.0 = 203 nits) -> 10k-normalized, through the IPT LMS matrix
+    rgb2lms = ipt_rgb2lms(primaries_get(csp.primaries)) * \
+        (COLOR_SDR_WHITE / 10000.0)
+    lms = mat_pointwise(lin[..., :3, :, :], rgb2lms)
+    lmsp = tf.pq_oetf_fast(torch.clamp(lms, min=0.0))
+    return mix([lmsp[..., k:k + 1, :, :] for k in range(3)],
+               [float(w) for w in LMS2IPT[0]])

@@ -77,8 +77,7 @@ def bias_matrix(params: DitherParams, h: int, w: int,
     (libplacebo_tpu/ops/dithering.py::_bias_matrix), so bit for bit the
     same frame."""
     if params.method == DitherMethod.WHITE_NOISE:
-        rng = np.random.default_rng(0x9E3779B9 ^ frame_index)
-        return rng.random((h, w), dtype=np.float32)
+        return dth.white_noise(h, 0x9E3779B9 ^ frame_index, width=w)
     lut = dither_lut(params, frame_index)
     size = lut.shape[0]
     reps = (h + size - 1) // size, (w + size - 1) // size

@@ -14,7 +14,7 @@ import torch
 
 from ..core.colorspace import (BitEncoding, ColorLevels, ColorRepr,
                                ColorSpace, ColorSystem)
-from ..core.common import RectF
+from ..core.common import RectF, Rotation
 from ..core.film_grain import FilmGrainData
 from ..utils.device import raw_to_device, resolve_device
 
@@ -31,6 +31,10 @@ class Plane:
     component_mapping: Tuple[int, ...] = (0,)
     shift_x: float = 0.0
     shift_y: float = 0.0
+
+    @property
+    def components(self) -> int:
+        return len(self.component_mapping)
 
     @property
     def h(self) -> int:
@@ -114,9 +118,19 @@ class Frame:
     # image ICC profile (core.icc.IccProfile): when set, the renderer
     # linearizes through it instead of the nominal transfer
     icc: Optional[object] = None
-    # quarter turns counter-clockwise (reference pl_rotation); the crop
-    # lies in the rotated image
-    rotation: int = 0
+    # quarter turns counter-clockwise (reference pl_rotation, an int);
+    # the crop lies in the rotated image
+    rotation: Rotation = Rotation(0)
+    # aspect ratio of a raw (encoded, unrotated) pixel, 0 = square or
+    # unknown: metadata for the application's target crop (reference
+    # pl_frame.pixel_aspect_ratio); the renderer does not read it
+    pixel_aspect_ratio: float = 0.0
+    # lazy mapping (reference pl_frame.acquire/release): acquire(frame)
+    # runs before the renderer reads the planes (False refuses the
+    # render), release(frame) after it, a failure included; a field's
+    # prev/next frames are acquired with it
+    acquire: Optional[object] = None     # Callable[[Frame], bool]
+    release: Optional[object] = None     # Callable[[Frame], None]
     # subtitles drawn with the frame (Overlay); their bitmaps are
     # per-frame data
     overlays: List[Overlay] = field(default_factory=list)
@@ -156,6 +170,31 @@ class Frame:
 
     def get_crop(self) -> RectF:
         return self.crop or RectF(0, 0, self.w, self.h)
+
+    def is_cropped(self) -> bool:
+        """Whether the rounded, normalized crop covers less than the
+        reference plane (reference pl_frame_is_cropped)."""
+        c = self.get_crop()
+        x0 = round(min(c.x0, c.x1))
+        y0 = round(min(c.y0, c.y1))
+        x1 = round(max(c.x0, c.x1))
+        y1 = round(max(c.y0, c.y1))
+        if not x0 and not x1:
+            x1 = self.w
+        if not y0 and not y1:
+            y1 = self.h
+        return x0 > 0 or y0 > 0 or x1 < self.w or y1 < self.h
+
+    def set_chroma_location(self, loc: str) -> None:
+        """Give every subsampled plane the siting `loc` ("left",
+        "center", "top_left", ...; utils.upload.CHROMA_OFFSETS) (reference
+        pl_frame_set_chroma_location)."""
+        from ..utils.upload import chroma_location_offset
+        sx, sy = chroma_location_offset(loc)
+        ref_w, ref_h = self.w, self.h
+        for p in self.planes:
+            if p.w < ref_w or p.h < ref_h:
+                p.shift_x, p.shift_y = sx, sy
 
     def meta_key(self) -> tuple:
         """Static signature of everything that shapes the render plan.

@@ -86,6 +86,7 @@ from ..ops.cuda import color_map as k1
 from ..ops.deband import DebandParams
 from ..ops.dithering import DitherParams
 from ..ops.peak_detect import PeakDetectParams
+from ..runtime import GpuContext
 from ..utils.device import resolve_device
 from .frame import Frame, icc_key
 from .hooks import HookRect, HookStage, run_hooks
@@ -331,7 +332,7 @@ def _find_scaler(name: str) -> flt.FilterConfig:
     (`find_filter_config` with its default usage, every use allowed)."""
     cfg = flt.find_filter_config(name)
     if cfg is None:
-        raise ValueError(f"unknown filter: {name}")
+        raise RenderError(f"unknown filter: {name}")
     return cfg
 
 
@@ -627,9 +628,25 @@ class Renderer:
     """Holds the plan cache and the state carried across frames: the
     peak-detection state (2,) on the device, the frame index that
     rotates a temporal dither, the hooks' carried state, the degradation
-    flags and disabled hooks, and the telemetry's pending frame."""
+    flags and disabled hooks, and the telemetry's pending frame.
 
-    def __init__(self, device=None):
+    Built on a runtime.GpuContext (`Renderer(ctx)` or `ctx=`, as the
+    reference's `Renderer(ctx)`), whose device it renders on and whose
+    cache `save` / `load` serialize, or on a device (`Renderer(device)`
+    or `device=`; None = "cuda") without a context."""
+
+    def __init__(self, ctx=None, device=None):
+        if ctx is not None and not isinstance(ctx, GpuContext):
+            if device is not None:
+                raise TypeError("Renderer takes a context or a device, "
+                                f"not {ctx!r} and {device!r}")
+            ctx, device = None, ctx
+        if ctx is not None:
+            if device is not None:
+                raise TypeError("Renderer takes a context or a device, "
+                                "not both")
+            device = ctx.device
+        self.ctx = ctx
         self.device = resolve_device(device)
         self._cache: Dict[tuple, object] = {}
         self._peak_state = ops_peak.peak_detect_state_init(self.device)
@@ -1495,13 +1512,33 @@ class Renderer:
         renderer's device, C = 3, or 4 with alpha (reference
         pl_render_image).
 
+        The frame and its fields' neighbor frames are acquired first
+        (`Frame.acquire`; a refusal raises RenderError), and each one's
+        `release` runs afterwards, after a failure too (reference
+        renderer.py:1637-1652); the failure then propagates."""
+        params = params or DEFAULT_PARAMS
+        acq = [f for f in (frame, frame.prev, frame.next)
+               if f is not None and f.acquire is not None]
+        try:
+            for f in acq:
+                if not f.acquire(f):
+                    raise RenderError("frame acquire() refused the frame")
+            return self._render_acquired(frame, target, params)
+        finally:
+            for f in (frame, frame.prev, frame.next):
+                if f is not None and f.release is not None:
+                    f.release(f)
+
+    def _render_acquired(self, frame: Frame, target: Target,
+                         params: RenderParams) -> torch.Tensor:
+        """`render` after the acquire.
+
         A render that fails on a plain stage degrades as the reference's
         does: the renderer re-renders without one feature at a time (then
         cumulatively), records the feature in `errors`, logs it, and
         leaves it out of later frames.  The user's errors, a kernel's
         failure and CUDA errors propagate (`_NON_DEGRADABLE`); on the card
         no rung swaps a kernel for its plain version (`_ladder`)."""
-        params = params or DEFAULT_PARAMS
         ladder = _ladder(self.device)
         for flag, strip in ladder:
             if flag in self.errors:
@@ -1734,6 +1771,23 @@ class Renderer:
         if avg_pq == 0.0:
             return None
         return HdrMetadata(max_pq_y=max_pq, avg_pq_y=avg_pq)
+
+    def save(self) -> bytes:
+        """The context's cache serialized (reference pl_renderer_save,
+        renderer.py:1860-1867); b"" without a context.  Compiled kernels
+        live in the build directory instead
+        (runtime.GpuContext.set_disk_cache)."""
+        if self.ctx is not None:
+            return self.ctx.cache.save()
+        return b""
+
+    def load(self, data: bytes) -> int:
+        """Restore a blob from `save()` into the context's cache
+        (reference pl_renderer_load); the number of objects restored, 0
+        without a context."""
+        if self.ctx is not None and data:
+            return self.ctx.cache.load(data)
+        return 0
 
 
 _default_renderers: Dict[str, Renderer] = {}

@@ -24,15 +24,36 @@ def resolve_device(device=None) -> torch.device:
 
 
 _TORCH_INTS = (np.uint8, np.int8, np.int16, np.int32, np.int64)
+# unsigned types torch lacks arithmetic for: uploaded as the signed type
+# of their width and widened on the device, (signed, wide, mask)
+_UNSIGNED = {np.dtype(np.uint16): (np.int16, torch.int32, 0xFFFF),
+             np.dtype(np.uint32): (np.int32, torch.int64, 0xFFFFFFFF)}
 
 
 def raw_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Upload integer texels as they are (unsigned types torch lacks
-    arithmetic for widen on the host first: 16-bit ones to int32)."""
-    arr = np.ascontiguousarray(arr)
-    if arr.dtype.type not in _TORCH_INTS:
-        arr = arr.astype(np.int32 if arr.dtype.itemsize <= 2 else np.int64)
-    return torch.from_numpy(arr).to(dev)
+    """Upload integer texels as they are: 16- and 32-bit unsigned ones
+    as their signed bits, widened on the device (int32, int64).  On a GPU
+    the bytes are staged in pinned memory and copied without waiting: a
+    copy from pageable memory would hold the host until the card had
+    finished the work queued before it.  Read-only arrays (a decoder's
+    np.frombuffer) are accepted."""
+    arr = np.asarray(arr)
+    widen = _UNSIGNED.get(arr.dtype)
+    if widen is not None:
+        arr = arr.view(widen[0])
+    elif arr.dtype.type not in _TORCH_INTS:
+        arr = arr.astype(np.int64)
+    if dev.type == "cuda":
+        host = torch.empty(arr.shape, dtype=torch.from_numpy(
+            np.empty(0, arr.dtype)).dtype, pin_memory=True)
+        host.numpy()[...] = arr
+        t = host.to(dev, non_blocking=True)
+    else:
+        t = torch.from_numpy(np.array(arr) if not arr.flags.writeable
+                             else np.ascontiguousarray(arr)).to(dev)
+    if widen is not None:
+        t = t.to(widen[1]) & widen[2]
+    return t
 
 
 def arrays_to_device(arrays, dev: torch.device) -> list:

@@ -24,6 +24,7 @@ from libplacebo_tpu_torch.core import filters as tflt
 from libplacebo_tpu_torch.core import transfer as ttf
 from libplacebo_tpu_torch.ops import gamut as tgamut
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PRIMS = ["BT_709", "BT_2020", "DISPLAY_P3", "BT_601_625"]
 
 
@@ -139,7 +140,8 @@ def test_build_all_starts_every_build_and_raises_on_failure():
     built); a spec that does not compile raises, naming its library."""
     from libplacebo_tpu_torch import _build, native
     paths = _build.build_all(native.build_specs())
-    assert len(paths) == 2 and all(os.path.exists(p) for p in paths)
+    assert len(paths) == len(native.build_specs()) == 3 and \
+        all(os.path.exists(p) for p in paths)
     bad = ("no_such_flag", ["native/dither.cc"], "g++",
            ["-fPIC", "--no-such-flag"])
     with pytest.raises(RuntimeError, match="build of no_such_flag failed"):
@@ -175,6 +177,9 @@ def test_arrays_to_device_keeps_values_types_and_shapes():
 
 
 def test_package_imports_no_jax():
+    """The package, chip_smoke.py and tools/gpu_vs_cpu.py's compare mode
+    (run on the CPU over the path I preset) import neither JAX nor the
+    JAX package."""
     code = ("import sys, libplacebo_tpu_torch, libplacebo_tpu_torch.carry, "
             "libplacebo_tpu_torch.utils.upload\n"
             "import libplacebo_tpu_torch.ops.deband, "
@@ -182,12 +187,24 @@ def test_package_imports_no_jax():
             "libplacebo_tpu_torch.ops.cuda.error_diffusion, "
             "libplacebo_tpu_torch.ops.cuda.shear, "
             "libplacebo_tpu_torch.core.threefry\n"
+            "import libplacebo_tpu_torch.runtime, "
+            "libplacebo_tpu_torch.core.cache, "
+            "libplacebo_tpu_torch.core.gamut_mapping, "
+            "libplacebo_tpu_torch.utils.y4m, "
+            "libplacebo_tpu_torch.utils.interop, chip_smoke\n"
+            "import importlib.util\n"
+            "spec = importlib.util.spec_from_file_location('gvc', "
+            "'tools/gpu_vs_cpu.py')\n"
+            "gvc = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(gvc)\n"
+            "lines, ok = gvc.run('cpu', ('path_i',))\n"
+            "assert ok, lines\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'libplacebo_tpu' or "
             "m.startswith('libplacebo_tpu.')]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
 
 
@@ -203,6 +220,25 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lt.render_image(frame, lt.Target(w=128, h=16))
     assert lt.Renderer(device="cpu").device.type == "cpu"
+    # the transcoder's entry points: the context, a y4m reader's frames,
+    # a decoder's AVFrame
+    from libplacebo_tpu_torch import runtime
+    from libplacebo_tpu_torch.utils import interop, y4m
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runtime.create()
+    assert runtime.create(device="cpu").device.type == "cpu"
+    import io
+    buf = io.BytesIO()
+    y4m.Y4MWriter(buf, 128, 16).write((y, uv, uv))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        y4m.Y4MReader(io.BytesIO(buf.getvalue())).read_frame()
+    assert y4m.Y4MReader(io.BytesIO(buf.getvalue()),
+                         device="cpu").read_frame().device.type == "cpu"
+    av = dict(format="yuv420p", data=[y, uv, uv])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.frame_from_avframe_like(av)
+    assert interop.frame_from_avframe_like(
+        av, device="cpu").device.type == "cpu"
 
 
 def test_tf32_is_off():

@@ -128,12 +128,15 @@ def test_two_broken_stages_strip_cumulatively(monkeypatch, logs):
 
 @pytest.mark.parametrize("case", ["value_error", "render_error"])
 def test_user_errors_propagate(case):
-    """A ValueError (an unknown filter) and a RenderError (a singular
-    distortion) leave Renderer.render unchanged; nothing degrades."""
+    """A ValueError (an unknown overlay mode) and a RenderError (a
+    singular distortion) leave Renderer.render unchanged; nothing
+    degrades.  (An unknown filter raises RenderError, as in the
+    reference: tests/test_torch_runtime.py::test_bad_scaler_name_raises.)"""
     _, _, tf, tt = _pair(0)
     r = lt.Renderer(device="cpu")
     if case == "value_error":
-        params, exc = lt.RenderParams(upscaler="not_a_filter"), ValueError
+        tf.overlays = [lt.Overlay(torch.zeros((4, 4, 4)), mode="bogus")]
+        params, exc = lt.RenderParams(), ValueError
     else:
         params, exc = lt.RenderParams(distort=lt.DistortParams(
             transform=((0.0, 0.0), (0.0, 0.0)))), lt.RenderError

@@ -5,7 +5,8 @@ Run from the root of a checkout:
     python3 tools/port_profile.py [frames] [--config5 | --config4 | --config2
                                            | --config3 | --pathA | --pathB
                                            | --pathC | --pathD | --pathE
-                                           | --pathF | --pathG | --pathH]
+                                           | --pathF | --pathG | --pathH
+                                           | --pathI]
                                           [--telemetry]
 
 Renders the flagship cell (1080p PQ yuv420p -> 3840x2160 sRGB, EWA
@@ -41,7 +42,12 @@ memory when first shown, a queue update and render_image_mix a 60 Hz
 vsync, mitchell_clamp mixer: a "frame" below is a vsync) or with
 --pathH path H (config 5 with a LUMA_INPUT luma doubler and a
 PRE_OUTPUT auto-exposure, a new grain seed every frame; both defined by
-chip_smoke.py's path_g_* and path_h_* helpers) after two warm-up
+chip_smoke.py's path_g_* and path_h_* helpers) or with --pathI path I
+(a transcoder's loop: a 3840x2160 10-bit HDR10 y4m clip in a temporary
+directory, each frame read, mapped as a decoder's AVFrame, rendered to
+1920x1080 8-bit BT.709 SDR on Renderer(ctx=runtime.create()), encoded to
+YCbCr on the card, downloaded and written as a y4m: a "frame" below is
+that whole step; chip_smoke.py's PathITranscoder) after two warm-up
 frames, twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
@@ -80,7 +86,8 @@ def main() -> int:
     if flags and flags not in (["--config5"], ["--config4"], ["--config2"],
                                ["--config3"], ["--pathA"], ["--pathB"],
                                ["--pathC"], ["--pathD"], ["--pathE"],
-                               ["--pathF"], ["--pathG"], ["--pathH"]):
+                               ["--pathF"], ["--pathG"], ["--pathH"],
+                               ["--pathI"]):
         print(f"port_profile: unknown options {flags}", file=sys.stderr)
         return 2
     config = flags[0][2:] if flags else "flagship"
@@ -198,6 +205,25 @@ def main() -> int:
             assert status == lt.QueueStatus.OK, status
             lt.render_image_mix(r, mix, target, params)
 
+    if config == "pathI":
+        import shutil
+        import tempfile
+        from chip_smoke import (PathITranscoder, path_i_write_clip,
+                                path_i_yuv)
+        from libplacebo_tpu_torch import runtime
+        tmp = tempfile.mkdtemp(prefix="path_i_")
+        src = os.path.join(tmp, "in.y4m")
+        path_i_write_clip(src, path_i_yuv(count, 2 * H, 2 * W))
+        r = lt.Renderer(ctx=runtime.create())
+        if telemetry:
+            r.telemetry = lt.Telemetry()
+        transcoder = PathITranscoder(lt, src, os.path.join(tmp, "out.y4m"),
+                                     r)
+
+        def render():
+            assert transcoder.step()
+            transcoder.frames.clear()
+
     for _ in range(2):
         render()
     torch.cuda.synchronize()
@@ -231,6 +257,9 @@ def main() -> int:
     if telemetry:
         r.flush_telemetry()
         lines.insert(3, f"telemetry: {r.telemetry.summary()}")
+    if config == "pathI":
+        transcoder.close()
+        shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs("chiprun_out", exist_ok=True)
     name = "port_profile" + ("" if config == "flagship" else f"_{config}") \
         + ("_telemetry" if telemetry else "") + ".txt"
