@@ -170,18 +170,37 @@ Phases (each runs uncaught: any failure exits non-zero):
     beside CUDA events, each host stage); a small clip's GPU transcode
     against the CPU one (the flagship's gate); K1's launch against its
     plain version;
-21. the GPU-vs-JAX gate (tools/gpu_vs_cpu.py): seven presets rendered
+21. path J, "an mpv user's shaders" (glsl-shaders=): 8 seeded 1920x1080
+    8-bit limited BT.709 BT.1886 yuv420p frames (config 2's content) ->
+    3840x2160 8-bit sRGB, the params from Options().parse(
+    PATH_J_OPTIONS) (EWA Lanczos, Sierra Lite error diffusion) with two
+    mpv .hook shaders through Options.add_hook: a RAVU-lite-class LUMA
+    doubler (a data-dependent row of a seeded float16 (96, 3, 4) LUT,
+    then a 2x subpixel interleave: luma 1920x1080 -> 3840x2160) and a
+    temporal-EMA //!COMPUTE 8 8 hook at MAIN (a STORAGE image at MAIN's
+    3840x2160 and a STORAGE buffer counter carried across the frames),
+    run by the port's GLSL interpreter (render/mpv_hooks.py, plain torch
+    ops); counted on its own (`path_j_phase`): the hooked tail plain, as
+    in the reference (K1 0, counted ineligible), K2 8 and K3 16, no hook
+    disabled, the counter 8; a warm frame's hooks under
+    torch.cuda.set_sync_debug_mode("error"), uploading nothing; K2 and
+    K3 exact against their plain versions on frame 2's own input; the
+    GPU render of a small input against the CPU render (the flagship's
+    gate); timed (synchronized and back to back, the hooks' host issue,
+    device ms by pass, launches a hook call);
+22. the GPU-vs-JAX gate (tools/gpu_vs_cpu.py): eight presets rendered
     by the port on the card against the JAX package's CPU renders
-    committed in libplacebo_tpu_torch/data/gpu_vs_cpu.npz, PSNR >= 45 dB
-    and the LSB guards;
-22. the degradation ladder, last: deband made to raise RuntimeError
+    committed in libplacebo_tpu_torch/data/gpu_vs_cpu.npz (the hook
+    preset: the temporal-EMA hook over 4 frames), PSNR >= 45 dB and the
+    LSB guards;
+23. the degradation ladder, last: deband made to raise RuntimeError
     recovers (get_errors() shows it, the log records it); K1's launcher
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
     empty, and so does an out-of-memory error raised inside K1's wrapper
     (as a KernelError); everything restored, and no renderer of any path
     has a feature or a hook disabled.
-On every path but B, F, H and the distortion phase the renderer must
+On every path but B, F, H, J and the distortion phase the renderer must
 count K1 tails only (no plain tails); their tails count as ineligible
 (plain in the reference).
 
@@ -1260,6 +1279,433 @@ def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
         "path_i_cache_objects_restored": restored,
         "path_i_small_render": small_gate}
     return figures, k1_args, launches["k1"]
+
+
+# path J: an mpv user's shaders (glsl-shaders=) — a RAVU-lite-class
+# luma doubler and a stateful temporal-EMA compute hook, added through
+# Options.add_hook to params set as mpv sets them
+PATH_J_SEED = 5151
+PATH_J_FRAMES = 8
+PATH_J_OPTIONS = "upscaler=ewa_lanczos,error_diffusion=sierra-lite"
+# the doubler's LUT: (angle, strength, coherence) rows x taps x 4 subpixels
+_RAVU_QA, _RAVU_QS, _RAVU_QC = 8, 4, 3
+_RAVU_ROWS = _RAVU_QA * _RAVU_QS * _RAVU_QC
+_RAVU_TAPS = 3
+_PI = 3.141592653589793
+
+
+def path_j_lut(seed=PATH_J_SEED):
+    """The doubler's seeded float16 weight LUT, (96, 3, 4)."""
+    return np.random.default_rng(seed).uniform(
+        -0.2, 0.5, (_RAVU_ROWS, _RAVU_TAPS, 4)).astype(np.float16)
+
+
+def path_j_ravu_shader(lut):
+    """A RAVU-lite-class 2x LUMA doubler in the structure RAVU generators
+    emit: structure-tensor eigenanalysis -> quantized (angle, strength,
+    coherence) -> a LUT row read at data-dependent coordinates ->
+    weighted taps into 4 subpixels (step 1, //!SAVE ravu_int); step 2
+    interleaves them 2x with a per-pixel vector index."""
+    hexdata = lut.tobytes().hex()
+    return f"""\
+//!DESC ravu-lite-class step1
+//!HOOK LUMA
+//!BIND HOOKED
+//!BIND ravu_lut
+//!SAVE ravu_int
+//!COMPONENTS 4
+//!WHEN OUTPUT.w HOOKED.w / 1.2 >
+
+#define L(x, y) HOOKED_texOff(vec2(x, y)).x
+
+vec4 hook() {{
+    vec3 abd = vec3(0.0);
+    float gx, gy;
+    gx = (L(0, 1) - L(0, -1)) / 2.0;
+    gy = (L(1, 0) - L(-1, 0)) / 2.0;
+    abd += vec3(gx * gx, gx * gy, gy * gy) * 0.5;
+    gx = (L(1, 1) - L(-1, 1)) / 2.0;
+    gy = (L(1, 1) - L(1, -1)) / 2.0;
+    abd += vec3(gx * gx, gx * gy, gy * gy) * 0.25;
+    gx = (L(-1, -1) - L(1, -1)) / 2.0;
+    gy = (L(-1, 1) - L(-1, -1)) / 2.0;
+    abd += vec3(gx * gx, gx * gy, gy * gy) * 0.25;
+    float a = abd.x, b = abd.y, d = abd.z;
+    float T = a + d, D = a * d - b * b;
+    float delta = sqrt(max(T * T / 4.0 - D, 0.0));
+    float L1 = T / 2.0 + delta, L2 = T / 2.0 - delta;
+    float sqrtL1 = sqrt(L1), sqrtL2 = sqrt(L2);
+    float theta = mix(mod(atan(b, L1 - a) + {_PI}, {_PI}), 0.0, abs(b) < 1.192092896e-7);
+    float lambda = sqrtL1;
+    float mu = mix((sqrtL1 - sqrtL2) / (sqrtL1 + sqrtL2), 0.0, sqrtL1 + sqrtL2 < 1.192092896e-7);
+    float angle = floor(theta / {_PI} * {_RAVU_QA}.0);
+    float strength = mix(mix(0.0, 1.0, lambda >= 0.004), mix(2.0, 3.0, lambda >= 0.05), lambda >= 0.016);
+    float coherence = mix(mix(0.0, 1.0, mu >= 0.25), 2.0, mu >= 0.5);
+    float coord_y = ((angle * {_RAVU_QS}.0 + strength) * {_RAVU_QC}.0 + coherence + 0.5) / {_RAVU_ROWS}.0;
+    vec4 res = vec4(0.0);
+    res += L(-1, -1) * texture(ravu_lut, vec2(0.5 / {_RAVU_TAPS}.0, coord_y));
+    res += L(0, 0) * texture(ravu_lut, vec2(1.5 / {_RAVU_TAPS}.0, coord_y));
+    res += L(1, 1) * texture(ravu_lut, vec2(2.5 / {_RAVU_TAPS}.0, coord_y));
+    return res;
+}}
+
+//!DESC ravu-lite-class step2 (2x interleave)
+//!HOOK LUMA
+//!BIND ravu_int
+//!WIDTH HOOKED.w 2 *
+//!HEIGHT HOOKED.h 2 *
+
+vec4 hook() {{
+    vec2 pos = HOOKED_pos * ravu_int_size;
+    vec2 sub = fract(pos);
+    int idx = int(sub.y > 0.5) * 2 + int(sub.x > 0.5);
+    vec2 tc = (floor(pos) + vec2(0.5)) * ravu_int_pt;
+    vec4 q = ravu_int_tex(tc);
+    return vec4(q[idx], 0.0, 0.0, 1.0);
+}}
+
+//!TEXTURE ravu_lut
+//!SIZE {_RAVU_TAPS} {_RAVU_ROWS}
+//!FORMAT rgba16hf
+//!FILTER NEAREST
+{hexdata}
+"""
+
+
+# a temporal EMA at MAIN: a STORAGE image and a STORAGE buffer counter
+# carried across frames (//!SIZE set to MAIN's size by path_j_ema_shader)
+PATH_J_EMA_SHADER = """\
+//!TEXTURE ACC
+//!SIZE 48 32
+//!FORMAT rgba32f
+//!STORAGE
+
+//!BUFFER st
+//!STORAGE
+//!VAR float frames
+
+//!HOOK MAIN
+//!BIND HOOKED
+//!BIND ACC
+//!DESC temporal EMA accumulator
+//!COMPUTE 8 8
+void hook()
+{
+    ivec2 pos = ivec2(gl_GlobalInvocationID.xy);
+    vec4 c = HOOKED_texOff(0);
+    vec4 prev = imageLoad(ACC, pos);
+    vec4 ema = (frames < 0.5) ? c : (0.3 * c + 0.7 * prev);
+    imageStore(ACC, pos, ema);
+    imageStore(out_image, pos, ema);
+}
+
+//!HOOK MAIN
+//!BIND HOOKED
+//!DESC frame counter bump
+vec4 hook()
+{
+    frames = frames + 1.0;
+    return HOOKED_texOff(0);
+}
+"""
+
+
+def path_j_ema_shader(main_w, main_h):
+    """The EMA hook with its STORAGE image at MAIN's size (the luma
+    doubler makes MAIN the doubled grid)."""
+    return PATH_J_EMA_SHADER.replace("//!SIZE 48 32",
+                                     f"//!SIZE {main_w} {main_h}")
+
+
+def path_j_params(lt, src_w, src_h):
+    """Path J's params as mpv sets them: Options().parse(PATH_J_OPTIONS),
+    then the doubler and the EMA through Options.add_hook (MAIN is the
+    doubled grid: 2 src_w x 2 src_h)."""
+    opts = lt.Options()
+    opts.parse(PATH_J_OPTIONS)
+    opts.add_hook(path_j_ravu_shader(path_j_lut()))
+    opts.add_hook(path_j_ema_shader(2 * src_w, 2 * src_h))
+    return opts.params
+
+
+def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
+    """Path J at full width: 8 seeded W x H 8-bit limited BT.709 BT.1886
+    yuv420p frames (config 2's content) -> 2W x 2H 8-bit sRGB with
+    path_j_params (EWA Lanczos, Sierra Lite error diffusion, the RAVU-
+    lite-class LUMA doubler and the temporal EMA at MAIN, both through
+    Options.add_hook).  The launch counts are set to 0 just before the
+    counted run and read just after.  Checks: K1 0 (the hooked tail is
+    plain, counted ineligible), K2 once and K3 twice a frame, one plan,
+    no hook disabled, the EMA's counter 8, 8-bit codes of the right
+    shape; then a warm frame whose hooks run under
+    torch.cuda.set_sync_debug_mode("error") and upload nothing; K2 and
+    K3 exact against their plain versions on frame 2's own input; the
+    GPU render of a small input (64x128 -> 128x256, 3 frames) against
+    the CPU render at the flagship's gate.  Timed: the frames
+    synchronized and back to back, the host ms to issue a frame's hooks,
+    each pass's span on the card (CUDA events around it, host gaps
+    included), each pass's kernel launches and busy ms (profiler), and a
+    whole frame's launches and busy share (profiler).  Returns
+    (figures, the kernels line's path J entries)."""
+    import torch
+    from libplacebo_tpu_torch.render import mpv_hooks as tm
+    from libplacebo_tpu_torch.render import renderer as trender
+    target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
+    frames = [_frame(lt, f, dev, config="config2")
+              for f in _flagship_yuv(PATH_J_FRAMES, H, W, seed=PATH_J_SEED)]
+    params = path_j_params(lt, W, H)
+    ravu, ema = params.hooks
+    renderer = lt.Renderer(device=dev)
+
+    # each hook call timed on the host (what issuing its work costs),
+    # under sync debug mode "error" while `strict` is set
+    calls, errors, strict = [], [], [False]
+
+    def instrument(h):
+        func = h.func
+
+        def timed(img, hp):
+            if strict[0]:
+                torch.cuda.set_sync_debug_mode("error")
+            t = time.perf_counter()
+            try:
+                return func(img, hp)
+            except Exception as e:
+                errors.append(f"{hp.stage.name}: {type(e).__name__}: {e}")
+                raise
+            finally:
+                calls.append((hp.stage.name,
+                              (time.perf_counter() - t) * 1e3))
+                if strict[0]:
+                    torch.cuda.set_sync_debug_mode(0)
+        h.func = timed
+    instrument(ravu)
+    instrument(ema)
+
+    # frame 2's K2 input and K3 inputs, kept for the exactness checks
+    cap = {"k2": None, "k3": [], "n2": 0, "n3": 0}
+    real = (k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj)
+
+    def cap_k2(colmaj, kernel, depth, w, h):
+        if cap["n2"] == 2:
+            cap["k2"] = (colmaj.clone(), kernel, depth, w, h)
+        cap["n2"] += 1
+        return real[0](colmaj, kernel, depth, w, h)
+
+    def cap_k3(forward):
+        def run(x, w_out, s, w, h):
+            if cap["n3"] in (4, 5):
+                cap["k3"].append((x.clone(), w_out, s, w, h, forward))
+            cap["n3"] += 1
+            return real[1 if forward else 2](x, w_out, s, w, h)
+        return run
+    k2.wavefront = cap_k2
+    k3.shear_to_colmaj, k3.unshear_from_colmaj = cap_k3(True), cap_k3(False)
+    try:
+        for mod in counters.values():
+            mod.launches = 0
+        trender.k1_tails = trender.plain_tails = \
+            trender.ineligible_tails = 0
+        sync_ms, host_ms = [], []
+        for f in frames:
+            torch.cuda.synchronize()
+            n = len(calls)
+            t = time.perf_counter()
+            out = renderer.render(f, target, params)
+            torch.cuda.synchronize()
+            sync_ms.append((time.perf_counter() - t) * 1e3)
+            host_ms.append(sum(ms for _, ms in calls[n:]))
+        launches = {name: m.launches for name, m in counters.items()}
+        tails = (trender.k1_tails, trender.plain_tails,
+                 trender.ineligible_tails)
+    finally:
+        k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj = real
+    assert launches == {"k1": 0, "k2": 8, "k3": 16}, launches
+    assert tails == (0, 0, 8), tails
+    assert not errors and renderer.get_errors() == \
+        (frozenset(), frozenset()), (errors, renderer.get_errors())
+    assert len(renderer._cache) == 1
+    counter = float(renderer._hook_states[(ema.signature, "buf:frames")][0])
+    assert counter == 8.0, counter
+    acc = renderer._hook_states[(ema.signature, "tex:ACC")]
+    assert tuple(acc.shape) == (4, 2 * H, 2 * W), acc.shape
+    assert tuple(out.shape) == (3, 2 * H, 2 * W), out.shape
+    assert bool(torch.isfinite(out).all())
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    codes = out * 255.0
+    assert float((codes - torch.round(codes)).abs().max()) <= 255e-6
+    assert len(cap["k3"]) == 2 and cap["k3"][0][5] and not cap["k3"][1][5]
+
+    # a warm frame: the hooks synchronize nowhere and upload nothing
+    uploads = (ravu.cache.uploads, ema.cache.uploads)
+    torch.cuda.synchronize()
+    strict[0] = True
+    try:
+        n = len(calls)
+        renderer.render(frames[3], target, params)
+    finally:
+        strict[0] = False
+    torch.cuda.synchronize()
+    strict_calls = calls[n:]
+    assert not errors and renderer.get_errors() == \
+        (frozenset(), frozenset()), (errors, renderer.get_errors())
+    assert [st for st, _ in strict_calls] == ["LUMA_INPUT", "RGB"], \
+        strict_calls
+    assert (ravu.cache.uploads, ema.cache.uploads) == uploads
+
+    # K2 and K3 on frame 2's own input, exact against the plain versions
+    k2_args = cap["k2"]
+    got, want = k2.wavefront(*k2_args), k2.wavefront_plain(*k2_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "K2 on path J"
+    k2_err = float((got.float() - want.float()).abs().max())
+    code_bytes = got.element_size()
+    del got, want
+    k3_err = 0.0
+    for x, w_out, s, w, h, fwd in cap["k3"]:
+        got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(
+            x, w_out, s, w, h)
+        want = k3.shear_plain(x, w_out, s, w, h, fwd)
+        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
+        assert torch.equal(got, want), "K3 on path J"
+    del got, want
+
+    # timings: back to back (CUDA events), the host's issue of the hooks,
+    # each pass's device ms, and one hook call's launches (profiler)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n = len(calls)
+    start.record()
+    for f in frames:
+        renderer.render(f, target, params)
+    end.record()
+    torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end) / len(frames)
+    window_host_ms = sum(ms for _, ms in calls[n:]) / len(frames)
+    real_pass, pass_events = tm._run_pass, []
+
+    def timed_pass(shader, p, img, *a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = real_pass(shader, p, img, *a, **k)
+        e1.record()
+        # (the doubler's //!DESC lines precede its //!HOOK lines, where
+        # the parser, like the reference's, does not read them)
+        pass_events.append((f"{len(pass_events)}: {p.desc}", e0, e1))
+        return res
+    tm._run_pass = timed_pass
+    try:
+        torch.cuda.synchronize()
+        renderer.render(frames[4], target, params)
+        torch.cuda.synchronize()
+    finally:
+        tm._run_pass = real_pass
+    pass_ms = {d: e0.elapsed_time(e1) for d, e0, e1 in pass_events}
+    assert len(pass_ms) == 4, list(pass_ms)
+    def kernels(prof):
+        """(launches, busy ms) of a profile's device events."""
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    prof_passes = {}
+
+    def profiled_pass(shader, p, img, *a, **k):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = real_pass(shader, p, img, *a, **k)
+            torch.cuda.synchronize()
+        n, busy = kernels(prof)
+        prof_passes[f"{len(prof_passes)}: {p.desc}"] = {
+            "launches": n, "busy_ms": busy}
+        return res
+    tm._run_pass = profiled_pass
+    try:
+        renderer.render(frames[5], target, params)
+        torch.cuda.synchronize()
+    finally:
+        tm._run_pass = real_pass
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        renderer.render(frames[6], target, params)
+        torch.cuda.synchronize()
+    frame_launches, frame_busy_ms = kernels(prof)
+    assert renderer.get_errors() == (frozenset(), frozenset())
+    assert len(prof_passes) == 4 and all(
+        v["launches"] > 0 for v in prof_passes.values()), prof_passes
+
+    # K2 and K3 timed on path J's frame 2
+    k2_ms = _cuda_ms(lambda: k2.wavefront(*k2_args), 5)
+    k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*k2_args), 1)
+    colmaj, kernel, depth, w, h = k2_args
+    n_px = w * colmaj.shape[1] * h
+    k2_bound, k2_by = _bound(n_px * (4 + code_bytes),
+                             n_px * (7 + 2 * len(k2.taps_for(kernel))))
+    k3_ms = k3_plain_ms = k3_lib_ms = 0.0
+    k3_bytes = 0
+    for x, w_out, s, w, h, fwd in cap["k3"]:
+        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
+        k3_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
+        k3_plain_ms += _cuda_ms(
+            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
+        k3_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
+        C = x.shape[1]
+        k3_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
+                     else 2 * w * C * h) * x.element_size()
+    k3_bound, k3_by = _bound(k3_bytes, 0)
+    del cap, k2_args
+
+    # the small-input gate: the GPU render against the CPU render
+    small, st = [], lt.Target(w=256, h=128, color=lt.CSP_SRGB, bit_depth=8)
+    rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
+    pg, pc = path_j_params(lt, 128, 64), path_j_params(lt, 128, 64)
+    for f in _flagship_yuv(3, 64, 128, seed=7):
+        g = rg.render(_frame(lt, f, dev, config="config2"), st, pg)
+        c = rc.render(_frame(lt, f, "cpu", config="config2"), st, pc)
+        d = np.abs(g.cpu().numpy() - c.numpy())
+        small.append({"max": float(d.max()), "mean": float(d.mean()),
+                      "above_1lsb": float((d > LSB + 1e-5).mean())})
+        assert d.mean() < 1e-4 and (d > LSB + 1e-5).mean() <= 5e-4, \
+            small[-1]
+    assert rg.get_errors() == rc.get_errors() == (frozenset(), frozenset())
+
+    med = statistics.median
+    figures = {
+        "path_j_first_frame_ms": sync_ms[0],
+        "path_j_frame_ms": med(sync_ms[1:]),
+        "path_j_frame_ms_samples": sync_ms,
+        "path_j_window_ms": window_ms,
+        "path_j_hooks_host_ms": med(host_ms[1:]),
+        "path_j_hooks_host_ms_samples": host_ms,
+        "path_j_hooks_host_ms_back_to_back": window_host_ms,
+        "path_j_hooks_host_ms_sync_debug": sum(ms for _, ms in
+                                               strict_calls),
+        "path_j_pass_span_ms": pass_ms,
+        "path_j_passes_profiled": prof_passes,
+        "path_j_frame_launches": frame_launches,
+        "path_j_frame_busy_ms": frame_busy_ms,
+        "path_j_busy_share": frame_busy_ms / window_ms,
+        "path_j_launches_per_frame": {k: v / PATH_J_FRAMES
+                                      for k, v in launches.items()},
+        "path_j_tails": tails, "path_j_counter": counter,
+        "path_j_uploads": {"ravu": ravu.cache.uploads,
+                           "ema": ema.cache.uploads},
+        "path_j_small_render": small}
+    entries = [
+        {"name": "k2_error_diffusion_path_j", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
+         "launches": launches["k2"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": None},
+        {"name": "k3_shear_path_j", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/shear.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
+         "launches": launches["k3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib_ms}]
+    return figures, entries
 
 
 # the K1 tails chip_smoke holds on the generic instance beside path A's:
@@ -2458,7 +2904,13 @@ def main() -> int:
             pi_k1[0], pi_k1[1].consts, *pi_k1[2:], pi_k1[1].instance), 3)
     k1_pi_ms = _cuda_ms(lambda: k1.color_map_tail(*pi_k1), 20)
 
-    # 21. the GPU-vs-JAX gate: the port's renders on the card against the
+    # 21. path J: an mpv user's shaders (a RAVU-lite-class luma doubler
+    # and a stateful temporal-EMA compute hook, through Options.add_hook)
+    # at 4K, counted on its own; K2 and K3 on its frame against their
+    # plain versions; the hooks under sync debug mode; timed
+    path_j, pj_entries = path_j_phase(lt, dev, counters, k2, k3)
+
+    # 22. the GPU-vs-JAX gate: the port's renders on the card against the
     # JAX package's CPU renders committed as fixtures (tools/gpu_vs_cpu.py)
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -2473,7 +2925,7 @@ def main() -> int:
         print(json.dumps({"gpu_vs_jax": line}))
     assert gate_ok, gate_lines
 
-    # 22. the degradation ladder, last, everything restored after it:
+    # 23. the degradation ladder, last, everything restored after it:
     # (a) a plain stage made to fail (deband raising RuntimeError)
     # recovers, get_errors() shows `deband` and the log records it;
     # (b) K1's launcher raising KernelError and (c) raising the
@@ -2593,6 +3045,7 @@ def main() -> int:
          "ms": k3_ph_ms, "plain_ms": k3_ph_plain_ms,
          "bound_ms": k3_ph_bound, "bound_by": k3_ph_by,
          "library_ms": k3_ph_lib_ms},
+        *pj_entries,
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -2691,6 +3144,7 @@ def main() -> int:
         "k1_path_i_differing_fraction": pi_frac,
         "k1_path_i_ops_per_pixel": k1.ops_per_pixel(pi_k1[1].consts,
                                                     pi_k1[1].instance),
+        **path_j,
         "gpu_vs_jax": gate_lines, "gpu_vs_jax_s": gate_s,
         "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
         "h274_1080p_ms": h274_ms, "h274_host_ms": h274_host_ms,
@@ -2759,6 +3213,17 @@ def main() -> int:
           f"{path_i['path_i_k1_instance']} {pi_entry['ms']:.4f} ms (bound "
           f"{pi_entry['bound_ms']:.4f} ms on {pi_entry['bound_by']}), "
           f"{pi_launches} launches; tails {path_i['path_i_tails']}")
+    print(f"path J ({card}): a frame {path_j['path_j_frame_ms']:.3f} ms "
+          f"synchronized (first {path_j['path_j_first_frame_ms']:.1f} ms), "
+          f"{path_j['path_j_window_ms']:.3f} ms back to back, busy "
+          f"{path_j['path_j_busy_share']:.1%} ({path_j['path_j_frame_launches']}"
+          f" launches a frame); the hooks' host issue "
+          f"{path_j['path_j_hooks_host_ms']:.3f} ms a frame; by pass "
+          f"(launches, busy ms) "
+          f"{ {d: (v['launches'], round(v['busy_ms'], 3)) for d, v in path_j['path_j_passes_profiled'].items()} }"
+          f"; K1, K2, K3 launches a frame "
+          f"{path_j['path_j_launches_per_frame']}; tails "
+          f"{path_j['path_j_tails']}; counter {path_j['path_j_counter']:g}")
     print(f"ladder: {ladder}")
     print(card)
     print(json.dumps({"kernels": kernels}))

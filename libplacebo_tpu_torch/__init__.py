@@ -39,6 +39,8 @@ from .ops.peak_detect import PeakDetectParams  # noqa: E402
 from .render.frame import (Frame, Overlay, OverlayPart, Plane,  # noqa: E402
                            frame_from_rgb, frame_from_yuv420p)
 from .render.hooks import Hook, HookParams, HookRect, HookStage  # noqa: E402
+from .render.mpv_hooks import (parse_user_shader,  # noqa: E402
+                               user_shader_hook)
 from .render.profiler import Telemetry  # noqa: E402
 from .render.queue import (FrameMix, FrameQueue, QueueMode,  # noqa: E402
                            QueueParams, QueueStatus, SourceFrame,
@@ -71,5 +73,6 @@ __all__ = ["Renderer", "render_image", "render_image_mix", "RenderParams",
            "ColorTransfer", "CSP_BT2100_PQ", "CSP_SRGB", "HdrMetadata",
            "Options", "FrameQueue", "SourceFrame", "QueueParams",
            "QueueMode", "QueueStatus", "frame_mix_radius", "Hook",
-           "HookStage", "HookParams", "HookRect", "Telemetry", "Log",
+           "HookStage", "HookParams", "HookRect", "parse_user_shader",
+           "user_shader_hook", "Telemetry", "Log",
            "LogLevel", "log_create", "default_log", "KernelError"]

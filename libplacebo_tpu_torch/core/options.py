@@ -6,7 +6,8 @@ same order, with the same keys, bounds, choices and presets; string
 parse/save in "preset=high_quality,upscaler=ewa_lanczos,deband=yes"
 form, and iteration.  Option strings saved by the JAX package parse
 here to equal RenderParams fields.  User shaders in mpv .hook text
-(`add_hook`, `insert_hook`) need the GLSL translator, not ported yet.
+(`add_hook`, `insert_hook`) are parsed by render/mpv_hooks.py into
+hooks on params.hooks.
 """
 from __future__ import annotations
 
@@ -682,15 +683,24 @@ class Options:
     # and keeps params.hooks pointing at them) ------------------------
 
     def add_hook(self, shader_text: str):
-        """Parse an mpv .hook user shader and append it to params.hooks
-        (needs the GLSL translator: raises NotImplementedError)."""
+        """Parse an mpv .hook user shader and append it to params.hooks.
+        Raises OptionError on parse failure."""
         self.insert_hook(len(self.params.hooks or ()), shader_text)
 
     def insert_hook(self, idx: int, shader_text: str):
-        raise NotImplementedError(
-            "mpv .hook user shaders are not ported to the PyTorch package "
-            "yet (ROADMAP slice 4 item 29, render/mpv_hooks.py); pass "
-            "render.hooks.Hook callables in RenderParams.hooks instead")
+        from ..render.mpv_hooks import parse_user_shader, user_shader_hook
+        try:
+            hook = user_shader_hook(parse_user_shader(shader_text))
+        except Exception as e:
+            raise OptionError(f"failed parsing user shader: {e}") from e
+        if not hook.stages.value:
+            # the parser skips malformed directives; a hook that binds NO
+            # stage can never fire — the parse failure
+            # pl_mpv_user_shader_parse would report
+            raise OptionError("user shader hooks no known stage")
+        hooks = list(self.params.hooks or ())
+        hooks.insert(idx, hook)
+        self.params = replace(self.params, hooks=tuple(hooks))
 
     def remove_hook_at(self, idx: int):
         hooks = list(self.params.hooks or ())

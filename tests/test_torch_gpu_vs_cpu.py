@@ -52,6 +52,16 @@ def test_fixtures_are_not_stale():
     np.testing.assert_array_equal(gvc._encode("sep", out), fx["sep"])
 
 
+def test_hook_fixture_is_not_stale():
+    """The hook preset (the temporal-EMA compute hook carried across 4
+    frames) re-rendered through the JAX package equals its committed
+    fixture code for code."""
+    fx = np.load(gvc.FIXTURES)
+    h, w = (int(v) for v in fx["size"])
+    out = gvc._jax_render("hook", h, w, int(fx["seed"]))
+    np.testing.assert_array_equal(gvc._encode("hook", out), fx["hook"])
+
+
 def test_path_i_small_matches_the_reference():
     """Path I at a small size (a 2-frame 64x256 clip to 32x128): y4m
     written, read raw, mapped as an AVFrame with HDR10 side data,
@@ -83,3 +93,5 @@ def test_gate_on_the_card():
     assert by["ed_kernel"]["bit_exact"]
     assert by["sep"]["launches"]["k1"] == 1
     assert by["config5_ed"]["launches"] == {"k1": 1, "k2": 1, "k3": 2}
+    # a hooked tail is plain, as in the reference
+    assert by["hook"]["launches"] == {"k1": 0, "k2": 0, "k3": 0}

@@ -165,13 +165,18 @@ def test_parse_errors_have_the_same_class(text):
 
 
 def test_user_shader_hooks_need_item_29():
-    """mpv .hook text needs the GLSL translator: add_hook and
-    insert_hook name the ROADMAP item; remove_hook_at works on hooks
-    given as callables."""
+    """mpv .hook text runs through the GLSL translator (ROADMAP item 29,
+    render/mpv_hooks.py): add_hook and insert_hook parse it into hooks,
+    a shader that hooks no stage raises OptionError as in the JAX
+    package; remove_hook_at works on hooks given as callables too."""
     to = topt.Options()
-    for call in (lambda: to.add_hook("//!HOOK MAIN\n"),
-                 lambda: to.insert_hook(0, "//!HOOK MAIN\n")):
-        with pytest.raises(NotImplementedError, match="slice 4 item 29"):
+    to.add_hook("//!HOOK MAIN\nvec4 hook() { return HOOKED_texOff(0); }\n")
+    to.insert_hook(0, "//!HOOK LUMA\nvec4 hook() { return vec4(0.0); }\n")
+    assert [h.stages for h in to.params.hooks] == \
+        [lt.HookStage.LUMA_INPUT, lt.HookStage.RGB]
+    for call in (lambda: to.add_hook("//!HOOK NOWHERE\n"),
+                 lambda: to.insert_hook(0, "//!HOOK NOWHERE\n")):
+        with pytest.raises(topt.OptionError, match="no known stage"):
             call()
     h = lt.Hook(lt.HookStage.RGB, lambda img, p: img)
     to.params = dataclasses.replace(to.params, hooks=(h, h))

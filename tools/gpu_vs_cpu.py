@@ -33,6 +33,12 @@ Presets, at --size 96x192 (outputs 192x384, a width K1 takes):
              mapped as a decoder's AVFrame, rendered to 192x384 8-bit
              BT.709 SDR, encoded to limited YCbCr, written as a 420jpeg
              y4m; compared code for code
+  hook       the temporal-EMA mpv compute hook (a STORAGE image at MAIN's
+             size and a STORAGE buffer counter, chip_smoke.py's copy of
+             the shader) carried across 4 stress frames (seed + i)
+             through Renderer.render, separable lanczos, no peak
+             detection (tools/tpu_vs_cpu.py's hook preset); the 4th
+             frame's float output is compared
 
 Gates (tools/tpu_vs_cpu.py:270-283): PSNR >= 45 dB on every preset;
 float presets differ by more than 1e-3 on at most 1% of values; 8-bit
@@ -54,9 +60,10 @@ if REPO not in sys.path:
 FIXTURES = os.path.join(REPO, "libplacebo_tpu_torch", "data",
                         "gpu_vs_cpu.npz")
 PRESETS = ("hq", "hq_ar", "sep", "config5", "config5_ed", "ed_kernel",
-           "path_i")
+           "path_i", "hook")
 EIGHT_BIT = ("config5", "config5_ed", "ed_kernel", "path_i")
 PATH_I_FRAMES = 2
+HOOK_FRAMES = 4
 GRAIN_SEED = 7391
 
 
@@ -81,6 +88,14 @@ def _path_i_source(h, w, seed):
     size, as 4K is twice 1080p."""
     import chip_smoke
     return chip_smoke.path_i_yuv(PATH_I_FRAMES, 4 * h, 4 * w, seed)
+
+
+def _hook_shader(h, w):
+    """The hook preset's shader: the temporal EMA with its STORAGE image
+    at MAIN's size, the source's here (no hook resizes it)."""
+    import chip_smoke
+    return chip_smoke.PATH_J_EMA_SHADER.replace("//!SIZE 48 32",
+                                                f"//!SIZE {w} {h}")
 
 
 def _y4m_planes(data: bytes):
@@ -140,13 +155,24 @@ def _jax_render(preset, h, w, seed):
                 wr.write(np.asarray(encode_color(out, yuv_repr)))
         return np.frombuffer(dst.getvalue(), np.uint8)
 
-    y, u, v = _stress_yuv(h, w, seed)
-    frame = frame_from_yuv420p(
-        y, u, v, color=CSP_BT2100_PQ,
-        repr=ColorRepr(sys=ColorSystem.BT_2020_NC,
-                       levels=ColorLevels.LIMITED, bits=BitEncoding(8, 8, 0)))
+    def make_frame(s):
+        y, u, v = _stress_yuv(h, w, s)
+        return frame_from_yuv420p(
+            y, u, v, color=CSP_BT2100_PQ,
+            repr=ColorRepr(sys=ColorSystem.BT_2020_NC,
+                           levels=ColorLevels.LIMITED,
+                           bits=BitEncoding(8, 8, 0)))
+    frame = make_frame(seed)
     bit_depth = 8 if preset.startswith("config5") else 0
     target = Target(w=2 * w, h=2 * h, color=CSP_SRGB, bit_depth=bit_depth)
+    if preset == "hook":
+        from libplacebo_tpu.render.mpv_hooks import user_shader_hook
+        params = RenderParams(upscaler="lanczos", peak_detect=None,
+                              hooks=(user_shader_hook(_hook_shader(h, w)),))
+        r = Renderer()
+        for i in range(HOOK_FRAMES):
+            out = r.render(make_frame(seed + i), target, params)
+        return np.asarray(out)
     if preset.startswith("config5"):
         from tests.test_film_grain import DATA as GRAIN_DATA
         assert GRAIN_DATA.seed == GRAIN_SEED
@@ -195,6 +221,15 @@ def make_fixtures(h, w, seed, path=FIXTURES):
 
 # -- the port's side (the compare mode) --------------------------------
 
+def _port_stress_frame(lt, h, w, seed, dev):
+    y, u, v = _stress_yuv(h, w, seed)
+    return lt.frame_from_yuv420p(
+        y, u, v, color=lt.CSP_BT2100_PQ, device=dev,
+        repr=lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
+                          levels=lt.ColorLevels.LIMITED,
+                          bits=lt.BitEncoding(8, 8, 0)))
+
+
 def port_render(preset, h, w, seed, device):
     """The preset's output through the port on `device`, as a host array
     (float, 8-bit values in [0, 1], or path I's y4m bytes), and the
@@ -226,13 +261,19 @@ def port_render(preset, h, w, seed, device):
             chip_smoke.path_i_transcode(lt, src, dst, lt.Renderer(ctx=ctx))
             with open(dst, "rb") as f:
                 out = np.frombuffer(f.read(), np.uint8)
+    elif preset == "hook":
+        params = lt.RenderParams(
+            upscaler="lanczos", peak_detect=None,
+            hooks=(lt.user_shader_hook(_hook_shader(h, w)),))
+        r = lt.Renderer(dev)
+        target = lt.Target(w=2 * w, h=2 * h, color=lt.CSP_SRGB, bit_depth=0)
+        for i in range(HOOK_FRAMES):
+            out = r.render(_port_stress_frame(lt, h, w, seed + i, dev),
+                           target, params)
+        assert r.get_errors() == (frozenset(), frozenset())
+        out = out.cpu().numpy()
     else:
-        y, u, v = _stress_yuv(h, w, seed)
-        frame = lt.frame_from_yuv420p(
-            y, u, v, color=lt.CSP_BT2100_PQ, device=dev,
-            repr=lt.ColorRepr(sys=lt.ColorSystem.BT_2020_NC,
-                              levels=lt.ColorLevels.LIMITED,
-                              bits=lt.BitEncoding(8, 8, 0)))
+        frame = _port_stress_frame(lt, h, w, seed, dev)
         bit_depth = 8 if preset.startswith("config5") else 0
         target = lt.Target(w=2 * w, h=2 * h, color=lt.CSP_SRGB,
                            bit_depth=bit_depth)
