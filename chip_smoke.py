@@ -193,7 +193,19 @@ Phases (each runs uncaught: any failure exits non-zero):
     committed in libplacebo_tpu_torch/data/gpu_vs_cpu.npz (the hook
     preset: the temporal-EMA hook over 4 frames), PSNR >= 45 dB and the
     LSB guards;
-23. the degradation ladder, last: deband made to raise RuntimeError
+23. path K (`path_k_phase`), the multi-device layer (parallel/) on the
+    one mesh one card gives: GpuContext().make_mesh() starts a one-rank
+    NCCL group; build_sharded_pipeline renders 8 flagship frames (two a
+    call, the peak state threaded per lane) on the halo step (K1 in each
+    shard's tail, 8 launches) and 4 config-5 frames on the replicated
+    step (K1 without dither 4, K2 4, K3 8), counted on their own; each
+    output within one LSB of the single-card Renderer on <= 1e-3 of the
+    values, none beyond; the halo state within 1e-6 of the single-card
+    whole-frame detection, the replicated state bit for bit; K1, K2 and
+    K3 on the path's own inputs against their plain versions; both
+    steps' collective_stats and routes, timed beside the single-card
+    renders of the same frames; the group destroyed after;
+24. the degradation ladder, last: deband made to raise RuntimeError
     recovers (get_errors() shows it, the log records it); K1's launcher
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
@@ -1708,6 +1720,348 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
     return figures, entries
 
 
+# path K: the multi-device layer (libplacebo_tpu_torch/parallel/) on the
+# only mesh one card gives, one NCCL rank: the flagship through the halo
+# step and config 5 through the replicated step, batch 2 a call
+PATH_K_SEED = 6161
+PATH_K_FRAMES = 8
+PATH_K_CONFIG5_FRAMES = 4
+
+
+def _path_k_gate(out, ref):
+    """Within one LSB on <= 1e-3 of the values, none beyond; returns the
+    largest difference and the fraction that differ."""
+    d = (out - ref).abs()
+    mx, frac = float(d.max()), float((d > 1e-6).float().mean())
+    assert mx <= LSB + 1e-6 and frac <= 1e-3, (mx, frac)
+    return mx, frac
+
+
+def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
+    """Path K at full width: GpuContext().make_mesh() starts a one-rank
+    NCCL group (data = spatial = 1); build_sharded_pipeline renders
+    PATH_K_FRAMES flagship frames (1080p yuv420p PQ -> 3840x2160 sRGB,
+    EWA) on the halo step, two a call with the peak state threaded per
+    lane, and PATH_K_CONFIG5_FRAMES config-5 frames (deband, AV1 grain a
+    new seed a frame, Floyd-Steinberg) on the replicated step.  The
+    launch counts are set to 0 just before each counted run and read
+    just after (halo: K1 once a frame; replicated: K1 without dither
+    once, K2 once and K3 twice a frame).  Each output is held against
+    the single-card Renderer of the same lane (within one LSB on <= 1e-3
+    of the values, none beyond), the halo step's state against the
+    single-card whole-frame detection (its plain tail) within 1e-6, the
+    replicated step's state bit for bit; K1, K2 and K3 on their captured
+    inputs against their plain versions; both steps' collective_stats
+    and routes; timed synchronized a call and back to back, beside the
+    single-card renders of the same frames.  Returns the figures and the
+    `kernels` entries."""
+    import torch
+    import torch.distributed as dist
+    from dataclasses import replace
+    from libplacebo_tpu_torch import runtime
+    from libplacebo_tpu_torch.core import film_grain as cfg
+    from libplacebo_tpu_torch.ops import film_grain as ops_fg
+    from libplacebo_tpu_torch.parallel import (build_sharded_pipeline,
+                                               shard_planes,
+                                               sharded_state_init)
+    from libplacebo_tpu_torch.parallel.analysis import collective_stats
+    from libplacebo_tpu_torch.render import renderer as trender
+
+    mesh = runtime.create(device=dev).make_mesh()
+    assert mesh.shape == {"data": 1, "spatial": 1}, mesh.shape
+    assert dist.get_backend(mesh.group) == "nccl"
+    target = lt.Target(w=2 * W, h=2 * H, color=lt.CSP_SRGB, bit_depth=8)
+    yuvs = _flagship_yuv(PATH_K_FRAMES, H, W, seed=PATH_K_SEED)
+    figures, entries = {"path_k_mesh": mesh.shape}, []
+
+    def batch(frames, c):
+        """Call c's local plane blocks: frames 2c and 2c + 1."""
+        return shard_planes(mesh, [torch.stack(
+            [frames[2 * c + b].planes[i].data for b in range(2)])
+            for i in range(len(frames[0].planes))])
+
+    def counted(run, calls):
+        for mod in counters.values():
+            mod.launches = 0
+        trender.k1_tails = trender.plain_tails = \
+            trender.ineligible_tails = 0
+        outs, ms = [], []
+        for c in range(calls):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(run(c))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return outs, ms, {n: m.launches for n, m in counters.items()}, (
+            trender.k1_tails, trender.plain_tails, trender.ineligible_tails)
+
+    def window(run, calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for c in range(calls):
+            run(c)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (2 * calls)
+
+    def profile(fn):
+        """Device kernels of one fn() call: launches, busy ms and the
+        eight names with the most device time (ms)."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        by = {}
+        for e in kern:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        return {"launches": len(kern),
+                "busy_ms": sum(by.values()),
+                "top_ms": sorted(by.items(), key=lambda kv: -kv[1])[:8]}
+
+    def single_ms(renderers, frames, params):
+        """Single-card renders of the same frames, each pair
+        synchronized (ms a frame)."""
+        ms = []
+        for c in range(len(frames) // 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for b in range(2):
+                renderers[b].render(frames[2 * c + b], target, params)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3 / 2)
+        return ms
+
+    # ---- the flagship on the halo step
+    params = lt.RenderParams(upscaler="ewa_lanczos")
+    frames = [_frame(lt, f, dev) for f in yuvs]
+    f0 = frames[0]
+    step = build_sharded_pipeline(mesh, f0.meta_key()[0], f0.repr,
+                                  f0.color, target, params)
+    assert step.route == "halo", (step.route, step.reason)
+    calls = PATH_K_FRAMES // 2
+    batches = [batch(frames, c) for c in range(calls)]
+    step(sharded_state_init(mesh, 2), *batches[0])      # warm-up
+    captured, real_k1 = [], k1.color_map_tail
+
+    def cap_k1(img, plan, tone, lut):
+        if len(captured) < 2:
+            captured.append((img.clone(), plan, tone.clone()
+                             if tone is not None else None, lut))
+        return real_k1(img, plan, tone, lut)
+    box = {"state": sharded_state_init(mesh, 2), "states": []}
+
+    def run_halo(c):
+        out, box["state"] = step(box["state"], *batches[c])
+        box["states"].append(box["state"].clone())
+        return out
+    k1.color_map_tail = cap_k1
+    try:
+        outs, halo_ms, launches, tails = counted(run_halo, calls)
+    finally:
+        k1.color_map_tail = real_k1
+    assert launches == {"k1": PATH_K_FRAMES, "k2": 0, "k3": 0}, launches
+    assert tails == (PATH_K_FRAMES, 0, 0), tails
+    lanes = [lt.Renderer(device=dev) for _ in range(2)]
+    plain_lanes = [lt.Renderer(device=dev) for _ in range(2)]
+    plain_params = replace(params, disable_fused_colormap=True)
+    halo_gate, state_err = [], 0.0
+    for c in range(calls):
+        for b in range(2):
+            ref = lanes[b].render(frames[2 * c + b], target, params)
+            halo_gate.append(_path_k_gate(outs[c][b], ref))
+            plain_lanes[b].render(frames[2 * c + b], target, plain_params)
+            err = float((box["states"][c][b] -
+                         plain_lanes[b]._peak_state).abs().max())
+            assert err <= 1e-6, (c, b, err)
+            state_err = max(state_err, err)
+    del outs
+    halo_stats = collective_stats(step, sharded_state_init(mesh, 2),
+                                  *batches[0])
+    box["state"] = sharded_state_init(mesh, 2)
+    halo_window = window(lambda c: run_halo(c), calls)
+    single_flag_ms = single_ms([lt.Renderer(device=dev) for _ in range(2)],
+                               frames, params)
+    # one call (two frames) profiled beside two single-card renders
+    box["state"] = sharded_state_init(mesh, 2)
+    halo_prof = profile(lambda: run_halo(1))
+    single_r = [lt.Renderer(device=dev) for _ in range(2)]
+    single_prof = profile(lambda: [single_r[b].render(frames[2 + b], target,
+                                                      params)
+                                   for b in range(2)])
+    k1_args = captured[1]
+    k1_err, k1_frac, k1_part = _check_k1(k1, k1_args)
+    k1_ms = _cuda_ms(lambda: k1.color_map_tail(*k1_args), 20)
+    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        k1_args[0], k1_args[1].consts, *k1_args[2:], k1_args[1].instance), 3)
+    entries.append(_k1_entry(k1, "k1_color_map_path_k_halo", k1_args,
+                             k1_part, launches["k1"], k1_err, k1_ms,
+                             k1_plain_ms))
+    figures.update({
+        "path_k_halo_route": [step.route, step.reason],
+        "path_k_halo_frame_ms": statistics.median(halo_ms) / 2,
+        "path_k_halo_call_ms_samples": halo_ms,
+        "path_k_halo_window_ms": halo_window,
+        "path_k_single_card_flagship_frame_ms":
+            statistics.median(single_flag_ms),
+        "path_k_halo_gate": halo_gate, "path_k_halo_state_err": state_err,
+        "path_k_halo_collectives": halo_stats,
+        "path_k_halo_launches": launches, "path_k_halo_tails": tails,
+        "path_k_halo_profile_2_frames": halo_prof,
+        "path_k_single_card_profile_2_frames": single_prof})
+    del batches, captured, k1_args
+
+    # ---- config 5 on the replicated step, a new grain seed a frame
+    params5 = lt.RenderParams(upscaler="ewa_lanczos",
+                              deband=lt.DebandParams(iterations=2),
+                              film_grain=True,
+                              error_diffusion="floyd-steinberg")
+    frames5 = [_frame(lt, f, dev, cfg.sample_grain(GRAIN_SEED + 100 + i))
+               for i, f in enumerate(yuvs[:PATH_K_CONFIG5_FRAMES])]
+    metas = frames5[0].meta_key()[0]
+    step5 = build_sharded_pipeline(mesh, metas, frames5[0].repr,
+                                   frames5[0].color, target, params5,
+                                   frame_grain=frames5[0].film_grain)
+    assert step5.route == "replicated", (step5.route, step5.reason)
+    cfgs, _ = lt.Renderer(device=dev)._grain_cfgs(
+        metas, frames5[0].repr, frames5[0].film_grain)
+
+    def grain_tables(c):
+        """Call c's per-frame AV1 tables (made on the host every frame,
+        as the single-card renderer makes them)."""
+        return [tuple(ops_fg.prepare_av1_grain(
+            frames5[2 * c + b].film_grain, g, m[0][-2], m[0][-1], dev)
+            if g else None for g, m in zip(cfgs, metas)) for b in range(2)]
+    calls5 = PATH_K_CONFIG5_FRAMES // 2
+    batches5 = [batch(frames5, c) for c in range(calls5)]
+    step5(sharded_state_init(mesh, 2), *batches5[0],
+          grain_tables=grain_tables(0))                    # warm-up
+    cap = {"k1": [], "k2": [], "k3": []}
+    real = (k1.color_map_tail, k2.wavefront, k3.shear_to_colmaj,
+            k3.unshear_from_colmaj)
+
+    def cap1(img, plan, tone, lut):
+        if len(cap["k1"]) < 2:
+            cap["k1"].append((img.clone(), plan, tone.clone()
+                              if tone is not None else None, lut))
+        return real[0](img, plan, tone, lut)
+
+    def cap2(colmaj, kernel, depth, w, h):
+        if len(cap["k2"]) < 2:
+            cap["k2"].append((colmaj.clone(), kernel, depth, w, h))
+        return real[1](colmaj, kernel, depth, w, h)
+
+    def cap3(forward):
+        def run(x, w_out, s, w, h):
+            if len(cap["k3"]) < 4:
+                cap["k3"].append((x.clone(), w_out, s, w, h, forward))
+            return real[2 if forward else 3](x, w_out, s, w, h)
+        return run
+    box5 = {"state": sharded_state_init(mesh, 2), "states": []}
+
+    def run_rep(c):
+        out, box5["state"] = step5(box5["state"], *batches5[c],
+                                   grain_tables=grain_tables(c))
+        box5["states"].append(box5["state"].clone())
+        return out
+    k1.color_map_tail, k2.wavefront = cap1, cap2
+    k3.shear_to_colmaj, k3.unshear_from_colmaj = cap3(True), cap3(False)
+    try:
+        outs5, rep_ms, launches5, tails5 = counted(run_rep, calls5)
+    finally:
+        (k1.color_map_tail, k2.wavefront, k3.shear_to_colmaj,
+         k3.unshear_from_colmaj) = real
+    n5 = PATH_K_CONFIG5_FRAMES
+    assert launches5 == {"k1": n5, "k2": n5, "k3": 2 * n5}, launches5
+    assert tails5 == (n5, 0, 0), tails5
+    lanes5 = [lt.Renderer(device=dev) for _ in range(2)]
+    rep_gate = []
+    for c in range(calls5):
+        for b in range(2):
+            ref = lanes5[b].render(frames5[2 * c + b], target, params5)
+            rep_gate.append(_path_k_gate(outs5[c][b], ref))
+            assert torch.equal(box5["states"][c][b], lanes5[b]._peak_state)
+    del outs5
+    rep_stats = collective_stats(step5, sharded_state_init(mesh, 2),
+                                 *batches5[0], grain_tables=grain_tables(0))
+    box5["state"] = sharded_state_init(mesh, 2)
+    rep_window = window(lambda c: run_rep(c), calls5)
+    single_c5_ms = single_ms([lt.Renderer(device=dev) for _ in range(2)],
+                             frames5, params5)
+    # K1 without dither, K2 and K3 on the replicated step's own inputs
+    k1n = cap["k1"][1]
+    k1n_err, _, k1n_part = _check_k1(k1, k1n)
+    k1n_ms = _cuda_ms(lambda: k1.color_map_tail(*k1n), 20)
+    k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        k1n[0], k1n[1].consts, *k1n[2:], k1n[1].instance), 3)
+    entries.append(_k1_entry(k1, "k1_color_map_no_dither_path_k_replicated",
+                             k1n, k1n_part, launches5["k1"], k1n_err, k1n_ms,
+                             k1n_plain_ms))
+    k2_args = cap["k2"][1]
+    got, want = k2.wavefront(*k2_args), k2.wavefront_plain(*k2_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "K2 on path K"
+    k2_err = float((got.float() - want.float()).abs().max())
+    code_bytes = got.element_size()
+    del got, want
+    k2_ms = _cuda_ms(lambda: k2.wavefront(*k2_args), 5)
+    k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*k2_args), 1)
+    colmaj, kernel, _depth, w, h = k2_args
+    n_px = w * colmaj.shape[1] * h
+    k2_bound, k2_by = _bound(n_px * (4 + code_bytes),
+                             n_px * (7 + 2 * len(k2.taps_for(kernel))))
+    k3_err = k3_ms = k3_plain_ms = k3_lib_ms = 0.0
+    k3_bytes = 0
+    for x, w_out, s, w, h, fwd in cap["k3"][2:]:
+        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
+        got = wrapper(x, w_out, s, w, h)
+        want = k3.shear_plain(x, w_out, s, w, h, fwd)
+        assert torch.equal(got, want), "K3 on path K"
+        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
+        del got, want
+        k3_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
+        k3_plain_ms += _cuda_ms(
+            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
+        k3_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
+        C = x.shape[1]
+        k3_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
+                     else 2 * w * C * h) * x.element_size()
+    k3_bound, k3_by = _bound(k3_bytes, 0)
+    entries += [
+        {"name": "k2_error_diffusion_path_k_replicated", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
+         "launches": launches5["k2"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "bound_by": k2_by, "library_ms": None},
+        {"name": "k3_shear_path_k_replicated", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/shear.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
+         "launches": launches5["k3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib_ms}]
+    figures.update({
+        "path_k_replicated_route": [step5.route, step5.reason],
+        "path_k_replicated_frame_ms": statistics.median(rep_ms) / 2,
+        "path_k_replicated_call_ms_samples": rep_ms,
+        "path_k_replicated_window_ms": rep_window,
+        "path_k_single_card_config5_frame_ms":
+            statistics.median(single_c5_ms),
+        "path_k_replicated_gate": rep_gate,
+        "path_k_replicated_collectives": rep_stats,
+        "path_k_replicated_launches": launches5,
+        "path_k_replicated_tails": tails5})
+    for r in (*lanes, *plain_lanes, *lanes5):
+        assert r.get_errors() == (frozenset(), frozenset())
+    mesh.close()
+    assert not dist.is_initialized()
+    return figures, entries
+
+
 # the K1 tails chip_smoke holds on the generic instance beside path A's:
 # name -> (source (primaries, transfer, max nits or 0), target (primaries,
 # transfer, max nits or 0), RenderParams fields, bit depth, target
@@ -2925,7 +3279,12 @@ def main() -> int:
         print(json.dumps({"gpu_vs_jax": line}))
     assert gate_ok, gate_lines
 
-    # 23. the degradation ladder, last, everything restored after it:
+    # 23. path K: the multi-device layer through a one-rank NCCL mesh,
+    # the flagship on the halo step and config 5 on the replicated step
+    # at 4K, each counted on its own
+    path_k, pk_entries = path_k_phase(lt, dev, counters, k1, k2, k3)
+
+    # 24. the degradation ladder, last, everything restored after it:
     # (a) a plain stage made to fail (deband raising RuntimeError)
     # recovers, get_errors() shows `deband` and the log records it;
     # (b) K1's launcher raising KernelError and (c) raising the
@@ -3045,7 +3404,7 @@ def main() -> int:
          "ms": k3_ph_ms, "plain_ms": k3_ph_plain_ms,
          "bound_ms": k3_ph_bound, "bound_by": k3_ph_by,
          "library_ms": k3_ph_lib_ms},
-        *pj_entries,
+        *pj_entries, *pk_entries,
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -3144,7 +3503,7 @@ def main() -> int:
         "k1_path_i_differing_fraction": pi_frac,
         "k1_path_i_ops_per_pixel": k1.ops_per_pixel(pi_k1[1].consts,
                                                     pi_k1[1].instance),
-        **path_j,
+        **path_j, **path_k,
         "gpu_vs_jax": gate_lines, "gpu_vs_jax_s": gate_s,
         "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
         "h274_1080p_ms": h274_ms, "h274_host_ms": h274_host_ms,
@@ -3224,6 +3583,21 @@ def main() -> int:
           f"; K1, K2, K3 launches a frame "
           f"{path_j['path_j_launches_per_frame']}; tails "
           f"{path_j['path_j_tails']}; counter {path_j['path_j_counter']:g}")
+    print(f"path K ({card}): one-rank NCCL mesh {path_k['path_k_mesh']}; "
+          f"halo step (route {path_k['path_k_halo_route']}) a flagship "
+          f"frame {path_k['path_k_halo_frame_ms']:.3f} ms synchronized "
+          f"(batch 2), {path_k['path_k_halo_window_ms']:.3f} ms back to "
+          f"back, single card "
+          f"{path_k['path_k_single_card_flagship_frame_ms']:.3f} ms; "
+          f"replicated step (route {path_k['path_k_replicated_route']}) a "
+          f"config-5 frame {path_k['path_k_replicated_frame_ms']:.3f} ms "
+          f"synchronized, {path_k['path_k_replicated_window_ms']:.3f} ms "
+          f"back to back, single card "
+          f"{path_k['path_k_single_card_config5_frame_ms']:.3f} ms; "
+          f"collectives halo {path_k['path_k_halo_collectives']}, "
+          f"replicated {path_k['path_k_replicated_collectives']}; "
+          f"launches halo {path_k['path_k_halo_launches']}, replicated "
+          f"{path_k['path_k_replicated_launches']}")
     print(f"ladder: {ladder}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,9 @@ uniform grain is added, scaled down near the plane's neutral value.
 The per-pixel random tables are the reference's `jax.random` draws,
 reproduced bit for bit on the host (core/threefry.py).  They depend only
 on the plane's shape, the seed and the parameters, so the renderer draws
-them once per signature and keeps them on the device.  The sharded
-branch of the reference is multi-device work (ROADMAP slice 5).
+them once per signature and keeps them on the device.  A row block of a
+frame split over a mesh (`shard=`) reads its rolled rows through
+ring-wrap halos (parallel/halo.py) and its rows of the frame's tables.
 """
 from __future__ import annotations
 
@@ -29,8 +30,8 @@ from ..core.colorspace import (ColorLevels, levels_guess,
 from ..core.fastmath import fma
 from ..utils.device import device_constant
 
-__all__ = ["DebandParams", "deband", "deband_rng_tables", "deband_tables",
-           "plane_grain_neutral"]
+__all__ = ["DebandParams", "deband", "deband_halo", "deband_rng_tables",
+           "deband_tables", "plane_grain_neutral"]
 
 
 @dataclass(frozen=True)
@@ -81,6 +82,24 @@ def _offset_draws(p: DebandParams, seed: int):
     return draws
 
 
+def deband_halo(p: DebandParams, seed: int) -> int:
+    """The largest |row offset| any iteration samples: the halo a row
+    block exchanges per iteration (reference deband.py:84-91)."""
+    h = 0
+    for dxs, dys in _offset_draws(p, seed):
+        h = max(h, int(np.max(np.abs(dys))) if len(dys) else 0)
+    return h
+
+
+def _cyclic_rows(res, ext, halo: int, dy: int):
+    """The rows of roll(res, dy, -2) from the cyclically halo-extended
+    block `ext` (|dy| <= halo)."""
+    if halo == 0 or dy == 0:
+        return res
+    hl = res.shape[-2]
+    return ext[..., halo - dy:halo - dy + hl, :]
+
+
 @lru_cache(maxsize=16)
 def deband_rng_tables(p: DebandParams, shape: Tuple[int, ...], seed: int):
     """The per-pixel random tables of one plane (..., C, H, W), as the
@@ -109,12 +128,18 @@ def deband_tables(p: DebandParams, shape, seed: int, device):
 
 
 def deband(img, params: Optional[DebandParams] = None, seed: int = 0,
-           scale: float = 1.0, tables=None, neutral=None):
+           scale: float = 1.0, tables=None, neutral=None, shard=None):
     """Deband a (..., C, H, W) plane.  `scale` is the color scale of the
     samples (thresholds are in 8-bit-like units, divided by it);
     `tables` are (choices, noise) from deband_tables (drawn here when
     None); `neutral` gives this plane's per-channel grain neutral
-    values (plane_grain_neutral), overriding params.grain_neutral."""
+    values (plane_grain_neutral), overriding params.grain_neutral.
+
+    `shard` (a parallel.Mesh): `img` is this rank's row block of a plane
+    split over the mesh's spatial group, and `tables` are the plane's
+    tables sliced to the block's rows; the frame's cyclic row rolls read
+    ring-wrap halos, so the block equals the same rows of the whole
+    plane's result (reference deband.py:124-170)."""
     p = params or DebandParams()
     if tables is None:
         tables = deband_tables(p, img.shape, seed, img.device)
@@ -124,10 +149,19 @@ def deband(img, params: Optional[DebandParams] = None, seed: int = 0,
     if p.iterations > 0:
         threshold = p.threshold / (1000.0 * scale)
         for it, (dxs, dys) in enumerate(_offset_draws(p, seed)):
+            if shard is not None:
+                from ..parallel.halo import extend_rows
+                halo = int(np.max(np.abs(dys))) if len(dys) else 0
+                ext = extend_rows(res, halo, shard, mode="wrap") \
+                    if halo else res
             avg = torch.zeros_like(res)
             for k in range(p.candidates):
                 dx, dy = int(dxs[k]), int(dys[k])
-                s = torch.roll(res, dy, -2) + torch.roll(res, -dy, -2)
+                if shard is None:
+                    s = torch.roll(res, dy, -2) + torch.roll(res, -dy, -2)
+                else:
+                    s = _cyclic_rows(res, ext, halo, dy) + \
+                        _cyclic_rows(res, ext, halo, -dy)
                 a = (torch.roll(s, dx, -1) + torch.roll(s, -dx, -1)) * 0.25
                 avg = torch.where(choices[it] == k, a, avg)
             diff = torch.abs(res - avg)

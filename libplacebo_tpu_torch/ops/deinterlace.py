@@ -96,11 +96,14 @@ def deinterlace(cur, field: Field,
                 params: Optional[DeinterlaceParams] = None,
                 prev: Optional[torch.Tensor] = None,
                 next: Optional[torch.Tensor] = None,
-                first_field: Field = Field.TOP):
+                first_field: Field = Field.TOP, row_offset: int = 0):
     """Deinterlace (..., C, H, W): reconstruct the lines of the opposite
     field of `cur` (with the neighbor frames `prev` / `next`, same shape,
     for the temporal algorithms).  `field` is the field of `cur` shown
-    now (reference deinterlace, ops/deinterlace.py:113-209)."""
+    now (reference deinterlace, ops/deinterlace.py:113-209).
+    `row_offset` is the frame row of cur's first row when cur is a row
+    block (halo rows included) of a larger frame: the field parity is
+    the frame's."""
     p = params or DeinterlaceParams()
     algo = p.algo
     if algo == DeinterlaceAlgo.WEAVE:
@@ -108,7 +111,8 @@ def deinterlace(cur, field: Field,
 
     h, w = cur.shape[-2], cur.shape[-1]
     # the lines of the current field pass through
-    keep = (torch.arange(h, device=cur.device) % 2 == field.value)[:, None]
+    keep = ((row_offset + torch.arange(h, device=cur.device)) % 2 ==
+            field.value)[:, None]
 
     def get(src_p, dx, dy):
         return src_p[..., _N + dy:_N + dy + h, _N + dx:_N + dx + w]

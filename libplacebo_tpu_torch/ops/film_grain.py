@@ -129,13 +129,17 @@ def grain_cfg_for(data: FilmGrainData, channels: Tuple[int, ...],
 def prepare_av1_grain(data: FilmGrainData, cfg: GrainCfg, h: int, w: int,
                       device) -> GrainTables:
     """The per-frame grain tables of an h x w plane on `device` (host
-    generation cached per seed, one upload per call)."""
+    generation cached per seed, one upload per call).  The block offsets
+    run two block rows past the plane, so that a row block of it
+    (`apply_av1_grain(row0=)`) always finds its last, partly covered,
+    block row; the offsets are seeded per block row, so the extra rows
+    change none before them (reference film_grain.py:175-179)."""
     device = torch.device(device)
     a = data.av1
     bw = BLOCK_SIZE >> cfg.sub_x
     bh = BLOCK_SIZE >> cfg.sub_y
     offsets = fg.generate_offsets(data.seed, (w + bw - 1) // bw,
-                                  (h + bh - 1) // bh)
+                                  (h + bh - 1) // bh + 2)
     grain_scale = 1.0 / ((1 << cfg.bits) - 1)
     host, uvs = [offsets.view(np.int32)], []
     for ch, act in zip(cfg.channels, cfg.active):
@@ -163,16 +167,19 @@ def prepare_av1_grain(data: FilmGrainData, cfg: GrainCfg, h: int, w: int,
 
 
 def _assemble_plane(offsets, ct: ChannelTables, h, w, sub_x, sub_y,
-                    overlap, grain_min, grain_max):
-    """The (h, w) grain plane: a tile per block by its offset, the block
-    overlaps blended, clipped."""
+                    overlap, grain_min, grain_max, row0: int = 0):
+    """The grain of rows [row0, row0 + h) of the plane, (h, w): a tile
+    per block by its offset, the block overlaps blended, clipped."""
     bw = BLOCK_SIZE >> sub_x
     bh = BLOCK_SIZE >> sub_y
     nbx = (w + bw - 1) // bw
-    nby = (h + bh - 1) // bh
+    by0 = row0 // bh
+    r_off = row0 - by0 * bh
+    # one more block row covers a start inside a block
+    nby = (r_off + h + bh - 1) // bh
     n_ox = max(2 >> sub_x, 1)
     n_oy = max(2 >> sub_y, 1)
-    off = offsets[:nby, :nbx].reshape(-1).long()
+    off = offsets[by0:by0 + nby, :nbx].reshape(-1).long()
     idx_n, idx_l = off & 0xFF, (off >> 8) & 0xFF
     idx_t, idx_tl = (off >> 16) & 0xFF, (off >> 24) & 0xFF
 
@@ -187,7 +194,8 @@ def _assemble_plane(offsets, ct: ChannelTables, h, w, sub_x, sub_y,
                                               dev)
                               for t in (wx_n, wx_o, wy_n, wy_o))
         has_l = (torch.arange(nbx, device=dev) > 0)[None, :, None, None]
-        has_t = (torch.arange(nby, device=dev) > 0)[:, None, None, None]
+        has_t = (by0 + torch.arange(nby, device=dev) > 0)[:, None, None,
+                                                           None]
 
         gl = ct.right[idx_l].reshape(nby, nbx, bh, n_ox)
         g[..., :n_ox] = torch.where(has_l, _blend(gl, wxa, g[..., :n_ox], wxb),
@@ -200,7 +208,8 @@ def _assemble_plane(offsets, ct: ChannelTables, h, w, sub_x, sub_y,
             has_t, _blend(gt, wya[:, None], g[..., :n_oy, :], wyb[:, None]),
             g[..., :n_oy, :])
         g = torch.clamp(g, grain_min, grain_max)
-    return g.permute(0, 2, 1, 3).reshape(nby * bh, nbx * bw)[:h, :w]
+    return g.permute(0, 2, 1, 3).reshape(nby * bh, nbx * bw)[
+        r_off:r_off + h, :w]
 
 
 def _blend(a, wa, b, wb):
@@ -227,10 +236,12 @@ def subsample_nearest(x, sub_x: int, sub_y: int, ph: int, pw: int):
 
 
 def apply_av1_grain(img, tables: GrainTables, cfg: GrainCfg,
-                    scaling_shift: int, luma=None):
+                    scaling_shift: int, luma=None, row0: int = 0):
     """Apply AV1 grain to a plane (..., C, H, W); `luma` is the frame's
     luma at this plane's grid (the chroma grain's scaling input; a luma
-    plane reads its own)."""
+    plane reads its own).  `row0` is the plane row of img's first row
+    when img is a row block of the plane (`tables` then the whole
+    plane's): the block offsets and overlap flags are the plane's."""
     h, w = img.shape[-2], img.shape[-1]
     bits = cfg.bits
     grain_center = 128 << (bits - 8)
@@ -257,7 +268,7 @@ def apply_av1_grain(img, tables: GrainTables, cfg: GrainCfg,
         grain = _assemble_plane(tables.offsets, ct, h, w,
                                 cfg.sub_x if ch else 0,
                                 cfg.sub_y if ch else 0, cfg.overlap,
-                                grain_min, grain_max)
+                                grain_min, grain_max, row0)
         if ch == 0 or cfg.chroma_scaling_from_luma:
             scale_in = comp if ch == 0 else luma
             vmax = max_luma if ch == 0 else max_chroma

@@ -155,12 +155,14 @@ class H274Tables(NamedTuple):
 
 
 def _block_offsets(data: FilmGrainData, channels: Sequence[int], h: int,
-                   w: int):
+                   w: int, row0: int = 0):
     """Host: per channel, (base tile index, sign) over the block grid of
-    an h x w plane (reference film_grain_h274.c:230-242)."""
+    an h x w plane whose first row is plane row `row0` (a multiple of 8:
+    the blocks of a row block are the plane's; reference
+    film_grain_h274.c:230-242)."""
     nbx, nby = (w + 7) // 8, (h + 7) // 8
     bx = np.arange(nbx, dtype=np.int64)[None, :]
-    by = np.arange(nby, dtype=np.int64)[:, None]
+    by = row0 // 8 + np.arange(nby, dtype=np.int64)[:, None]
     pcg = _pcg3d(data.seed, (bx // 2).astype(np.uint32),
                  (by // 2).astype(np.uint32))
     out = []
@@ -183,12 +185,15 @@ def _block_offsets(data: FilmGrainData, channels: Sequence[int], h: int,
 
 def prepare_h274(data: FilmGrainData, planes: Sequence[Tuple[Tuple[int, ...],
                                                              int, int]],
-                 device) -> Tuple[Optional[H274Tables], ...]:
+                 device, row0s: Optional[Sequence[int]] = None,
+                 ) -> Tuple[Optional[H274Tables], ...]:
     """One frame's grain inputs for every plane — `planes` gives each
     plane's (channels, h, w), channels () for a plane without grain —
-    uploaded in one pinned copy."""
-    host = [_block_offsets(data, chans, h, w) if chans else None
-            for chans, h, w in planes]
+    uploaded in one pinned copy.  `row0s`: each plane's first row when
+    the planes are row blocks of the frame's (multiples of 8)."""
+    row0s = row0s or (0,) * len(planes)
+    host = [_block_offsets(data, chans, h, w, r0) if chans else None
+            for (chans, h, w), r0 in zip(planes, row0s)]
     flat = [a for plane in host if plane for ch in plane if ch for a in ch]
     dev = iter(arrays_to_device(flat, device)) if flat else iter(())
     out = []

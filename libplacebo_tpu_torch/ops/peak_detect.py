@@ -157,12 +157,22 @@ def _percentile_max(hist, frame_max, params: PeakDetectParams):
     return torch.where(total > 0, measured, frame_max)
 
 
-def detect_peak(img_linear, state, params: PeakDetectParams):
+def detect_peak(img_linear, state, params: PeakDetectParams, group=None):
     """Measure a (3, H, W) linear-light frame (NORM units) and update
     the temporal state: (avg_pq, max_pq, new_state), 0-dim tensors and
     the (2,) state.  The average is the mean of the active 16x16 tiles'
     means (zero-padded at the ragged edge), as the reference's
-    workgroups average."""
+    workgroups average.
+
+    With `group` (a parallel.Mesh), `img_linear` is this rank's row
+    block of a frame split over the mesh's spatial group: the workgroup
+    count, the sum of the tile averages, the tile total and the 64-bin
+    histogram are finished by one SUM all-reduce, the frame max by one
+    MAX all-reduce, so every rank of the group carries the same state.
+    The tiles are the block's own, as the reference's sharded detection
+    tiles each shard (libplacebo_tpu/ops/peak_detect.py:233-254): equal
+    to the whole frame's when the block's row count is a multiple of
+    16."""
     pq, active, bins = _pixel_pq(img_linear, params)
     th = tw = 16
     H, W = pq.shape
@@ -179,12 +189,19 @@ def detect_peak(img_linear, state, params: PeakDetectParams):
     tile_avg = tile_sum / torch.clamp_min(tile_cnt, 1.0)
     wg_active = tile_cnt > 0
     wg_count = wg_active.sum().float()
-    frame_avg = torch.where(wg_active, tile_avg,
-                            torch.zeros_like(tile_avg)).sum() / \
-        torch.clamp_min(wg_count, 1.0)
+    avg_sum = torch.where(wg_active, tile_avg,
+                          torch.zeros_like(tile_avg)).sum()
     frame_max = tile_max.amax()
-    wg_bias = wg_count / float(wg_active.numel())
+    n_tiles = torch.full_like(wg_count, float(wg_active.numel()))
     hist = torch.bincount(bins[active], minlength=HIST_BINS).float()
+    if group is not None:
+        sums = group.all_reduce(torch.cat([torch.stack(
+            [wg_count, avg_sum, n_tiles]), hist]), "sum")
+        wg_count, avg_sum, n_tiles = sums[0], sums[1], sums[2]
+        hist = sums[3:]
+        frame_max = group.all_reduce(frame_max.reshape(1), "max")[0]
+    frame_avg = avg_sum / torch.clamp_min(wg_count, 1.0)
+    wg_bias = wg_count / n_tiles
     max_cur = _percentile_max(hist, frame_max, params)
     has_content = wg_count > 0
     black = torch.full_like(frame_max, COLOR_HDR_BLACK)
@@ -194,12 +211,12 @@ def detect_peak(img_linear, state, params: PeakDetectParams):
 
 
 def applied_stats(img_linear, state, params: PeakDetectParams,
-                  src_max_pq: float):
+                  src_max_pq: float, group=None):
     """detect_peak and the allow_delayed policy: the (avg_pq, max_pq)
     the tone map applies this frame — this frame's smoothed stats, or
     with `allow_delayed` the previous state (delayed_stats) — and the
-    new state."""
-    avg, mx, new_state = detect_peak(img_linear, state, params)
+    new state.  `group`: as detect_peak's."""
+    avg, mx, new_state = detect_peak(img_linear, state, params, group)
     if not params.allow_delayed:
         return avg, mx, new_state
     return delayed_stats(state, src_max_pq) + (new_state,)

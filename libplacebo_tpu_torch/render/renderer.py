@@ -464,13 +464,17 @@ def _map_chain(img, chain: ColorChain, tone_fn, params: RenderParams,
 
 
 def color_map_stage(img, src: ColorSpace, dst: ColorSpace,
-                    params: RenderParams, peak_stats=None):
+                    params: RenderParams, peak_stats=None,
+                    tone_recovery_impl=None):
     """Linear-light conversion: tone + gamut mapping through one IPT
     round trip (reference pl_shader_color_map_ex).  `peak_stats` =
     (avg_pq, max_pq) 0-dim tensors drive the dynamic tone curve;
     without them the curve is the static one from the metadata
     (core/tone_mapping.apply_device).  The curve runs with contrast
-    recovery, and visualize_lut draws it into the output."""
+    recovery (`tone_recovery_impl(x, base, cr, out_min, out_max)`
+    replaces tone_with_recovery: the sharded renderer's resizes the
+    feature map over row halos), and visualize_lut draws it into the
+    output."""
     chain = color_chain(src, dst, params, peak_stats is not None)
     tone_fn = None
     if chain.tone == "dynamic":
@@ -482,7 +486,11 @@ def color_map_stage(img, src: ColorSpace, dst: ColorSpace,
     elif chain.tone == "static":
         tp = _static_tone_params(src, params, chain)
         base = lambda x: tm.apply_device(x, tp)  # noqa: E731
-    if chain.tone is not None:
+    if chain.tone is not None and tone_recovery_impl is not None:
+        tone_fn = lambda x: tone_recovery_impl(  # noqa: E731
+            x, base, params.contrast_recovery, chain.dst_min_pq,
+            chain.dst_max_pq)
+    elif chain.tone is not None:
         tone_fn = lambda x: tone_with_recovery(  # noqa: E731
             x, base, params.contrast_recovery, chain.dst_min_pq,
             chain.dst_max_pq, smoothness=params.contrast_smoothness)
@@ -1491,15 +1499,27 @@ class Renderer:
         lut_t = torch.from_numpy(plan.lut).to(self.device) \
             if plan.lut is not None else None
         dyn = chain.tone == "dynamic"
+        # a white-noise bias is the whole (dst_h, dst_w) frame; any other
+        # dither is a square LUT tiled from the frame's origin
+        bias_frame = plan.generic is not None and \
+            plan.generic.mode.dither == 2
 
-        def run(img, peak_stats):
+        def run(img, peak_stats, row0: int = 0):
+            """K1 on `img`; `row0` is the frame row of img's first row
+            when img is one row block of the frame (a sharded render),
+            whose dither then reads its own rows of the frame's bias."""
             tone = None
             if dyn:
                 avg_pq, max_pq = peak_stats
                 tone = ops_tone.tone_vector(
                     fn, max_pq, avg_pq, chain.dst_min_pq, chain.dst_max_pq,
                     params.tone_constants)
-            return k1.color_map_tail(img.contiguous(), plan, tone, lut_t)
+            lut_r = lut_t
+            if row0 and lut_t is not None:
+                lut_r = lut_t[row0:row0 + img.shape[-2]] if bias_frame \
+                    else torch.roll(lut_t, -(row0 % lut_t.shape[0]), 0)
+                lut_r = lut_r.contiguous()
+            return k1.color_map_tail(img.contiguous(), plan, tone, lut_r)
         run.fused_peak = fused_peak
         run.plan, run.lut = plan, lut_t
         return run

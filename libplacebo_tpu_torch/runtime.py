@@ -136,10 +136,14 @@ class GpuContext:
         not moved."""
         _build.set_build_dir(path)
 
-    def make_mesh(self, data: int = 1, spatial: Optional[int] = None):
-        raise NotImplementedError(
-            "device meshes (libplacebo_tpu/parallel) are not ported yet: "
-            "ROADMAP item 30")
+    def make_mesh(self, data: int = 1, spatial: Optional[int] = None,
+                  group=None):
+        """This rank's (data, spatial) mesh on the context's device
+        (parallel/mesh.py::make_mesh): alone, a one-rank group (NCCL on
+        the card, gloo on the CPU); under torchrun, the group its
+        environment describes."""
+        from .parallel.mesh import make_mesh
+        return make_mesh(data, spatial, device=self.device, group=group)
 
     # -- uploads (the pl_tex_upload analog) ----------------------------
     def upload(self, array, device=None) -> torch.Tensor:

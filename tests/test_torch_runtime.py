@@ -51,8 +51,17 @@ def test_context_upload_and_render_match_the_reference():
 
 
 def test_context_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 30"):
-        runtime.create_dummy().make_mesh(data=2, spatial=4)
+    """The context's mesh (ported since item 30): alone, a one-rank gloo
+    group on the CPU context's device; a shape the world cannot hold
+    raises."""
+    mesh = runtime.create_dummy().make_mesh()
+    try:
+        assert mesh.shape == {"data": 1, "spatial": 1}
+        assert mesh.device == torch.device("cpu")
+        with pytest.raises(ValueError, match="ranks"):
+            runtime.create_dummy().make_mesh(data=2, spatial=4)
+    finally:
+        mesh.close()
 
 
 def test_bad_scaler_name_raises():
