@@ -205,7 +205,20 @@ Phases (each runs uncaught: any failure exits non-zero):
     K3 on the path's own inputs against their plain versions; both
     steps' collective_stats and routes, timed beside the single-card
     renders of the same frames; the group destroyed after;
-24. the degradation ladder, last: deband made to raise RuntimeError
+24. path L (`path_l_phase`), the port's demos and tools through their
+    main()s at full width, each counted on its own: plplay --hdr
+    1920x1080 -> 3840x2160 for 60 vsyncs (K1 once a source frame; fps,
+    host and CUDA-event ms a vsync) and small on the card against the
+    CPU (mean < 1e-4, > 1 LSB on <= 5e-4), video_filtering (1080p PNG ->
+    4K), image_viewer (4K PNG with an OSD and a LUT -> 1080p; again with
+    the Display P3 ICC profile), colors (4K, 60 frames into a y4m),
+    multichip_bench (one-rank NCCL mesh, 1080p -> 4K), bench_micro over
+    every pass at 1080p (the artifact to chiprun_out/
+    bench_micro_h100.json; any failed pass fails the run),
+    bench_playback and profile_stages 8; K1 on plplay's first new frame,
+    K2 and K3 on bench_micro's first Floyd-Steinberg call against their
+    plain versions;
+25. the degradation ladder, last: deband made to raise RuntimeError
     recovers (get_errors() shows it, the log records it); K1's launcher
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
@@ -231,8 +244,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
-FP32_OPS_PER_S = 67e12        # H100 SXM, FP32 outside the tensor cores
 LSB = 1.0 / 255.0
 GRAIN_SEED = 7391
 
@@ -289,13 +300,6 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _bound(nbytes, ops):
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
 
 
 def _render_run(renderer, frames, target, params, counters):
@@ -359,21 +363,63 @@ def _check_k1(k1, args):
 
 
 def _k1_entry(k1, name, args, part, launches, max_abs_err, ms, plain_ms):
-    img, plan, tone, lut = args
-    consts = plan.consts
-    npix = img.shape[-2] * img.shape[-1]
-    io_bytes = (2 * 3 * npix * 4 + consts.nbytes
-                + (part.numel() * 4 if part is not None else 0)
-                + (tone.numel() * 4 if tone is not None else 0)
-                + (lut.numel() * 4 if lut is not None else 0))
-    bound, by = _bound(io_bytes,
-                       k1.ops_per_pixel(consts, plan.instance) * npix)
+    from libplacebo_tpu_torch.tools.bench_micro import k1_bound
+    plan = args[1]
+    bound, by = k1_bound(*args, part,
+                         k1.ops_per_pixel(plan.consts, plan.instance))
     return {"name": name, "route": "cuda",
             "source": "libplacebo_tpu_torch/csrc/color_map.cu",
             "replaces": "libplacebo_tpu/ops/pallas/color_map.py:150",
             "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+def _k2_k3_entries(k2, k3, k2_args, k3_calls, path, launches, k2_reps):
+    """K2 on its captured arguments and K3 on each captured (x, w_out, s,
+    w, h, forward) call, exact against their plain versions (comparison
+    launches are not counted by the caller), each timed beside its plain
+    version (K3 also beside torch.gather's relayout), with its bound from
+    bench_micro's helpers.  Returns the kernels line's K2 and K3 entries
+    for `path`, with `launches` ({"k2": n, "k3": n}) from its run."""
+    import torch
+    from libplacebo_tpu_torch.tools.bench_micro import (bound_ms, k2_bound,
+                                                        k3_bytes)
+    got, want = k2.wavefront(*k2_args), k2.wavefront_plain(*k2_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"K2 on {path}"
+    k2_err = float((got.float() - want.float()).abs().max())
+    del got, want
+    k3_err = k3_ms = k3_plain_ms = k3_lib_ms = 0.0
+    for x, w_out, s, w, h, fwd in k3_calls:
+        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
+        got = wrapper(x, w_out, s, w, h)
+        want = k3.shear_plain(x, w_out, s, w, h, fwd)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (f"K3 on {path}", fwd)
+        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
+        del got, want
+        k3_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
+        k3_plain_ms += _cuda_ms(
+            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
+        k3_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
+    k2_b, k2_by = k2_bound(*k2_args)
+    k3_b, k3_by = bound_ms(sum(k3_bytes(x, w_out, w, h, fwd)
+                               for x, w_out, _, w, h, fwd in k3_calls))
+    return [
+        {"name": f"k2_error_diffusion_{path}", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
+         "launches": launches["k2"], "max_abs_err": k2_err,
+         "ms": _cuda_ms(lambda: k2.wavefront(*k2_args), k2_reps),
+         "plain_ms": _cuda_ms(lambda: k2.wavefront_plain(*k2_args), 1),
+         "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None},
+        {"name": f"k3_shear_{path}", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/shear.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
+         "launches": launches["k3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_b,
+         "bound_by": k3_by, "library_ms": k3_lib_ms}]
 
 
 def _k1_instance_table(lt, k1, trender, ops_dither, sass_of, npix, lanes,
@@ -390,6 +436,8 @@ def _k1_instance_table(lt, k1, trender, ops_dither, sass_of, npix, lanes,
     import torch
     from libplacebo_tpu_torch.core import colorspace as tcs
     from libplacebo_tpu_torch.ops import tone_dynamic as ops_tone
+    from libplacebo_tpu_torch.tools.bench_micro import (FP32_OPS_PER_S,
+                                                        HBM_BYTES_PER_S)
     sdr = {p: tcs.ColorSpace(p, tcs.ColorTransfer.BT_1886)
            for p in (tcs.ColorPrimaries.BT_709, tcs.ColorPrimaries.BT_2020)}
     chains = {(0, 0): (sdr[tcs.ColorPrimaries.BT_709], {}),
@@ -1566,21 +1614,10 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
     assert (ravu.cache.uploads, ema.cache.uploads) == uploads
 
     # K2 and K3 on frame 2's own input, exact against the plain versions
-    k2_args = cap["k2"]
-    got, want = k2.wavefront(*k2_args), k2.wavefront_plain(*k2_args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want), "K2 on path J"
-    k2_err = float((got.float() - want.float()).abs().max())
-    code_bytes = got.element_size()
-    del got, want
-    k3_err = 0.0
-    for x, w_out, s, w, h, fwd in cap["k3"]:
-        got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(
-            x, w_out, s, w, h)
-        want = k3.shear_plain(x, w_out, s, w, h, fwd)
-        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
-        assert torch.equal(got, want), "K3 on path J"
-    del got, want
+    # and timed
+    entries = _k2_k3_entries(k2, k3, cap["k2"], cap["k3"], "path_j",
+                             launches, 5)
+    del cap
 
     # timings: back to back (CUDA events), the host's issue of the hooks,
     # each pass's device ms, and one hook call's launches (profiler)
@@ -1647,27 +1684,6 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
     assert len(prof_passes) == 4 and all(
         v["launches"] > 0 for v in prof_passes.values()), prof_passes
 
-    # K2 and K3 timed on path J's frame 2
-    k2_ms = _cuda_ms(lambda: k2.wavefront(*k2_args), 5)
-    k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*k2_args), 1)
-    colmaj, kernel, depth, w, h = k2_args
-    n_px = w * colmaj.shape[1] * h
-    k2_bound, k2_by = _bound(n_px * (4 + code_bytes),
-                             n_px * (7 + 2 * len(k2.taps_for(kernel))))
-    k3_ms = k3_plain_ms = k3_lib_ms = 0.0
-    k3_bytes = 0
-    for x, w_out, s, w, h, fwd in cap["k3"]:
-        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
-        k3_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
-        k3_plain_ms += _cuda_ms(
-            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
-        k3_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
-        C = x.shape[1]
-        k3_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
-                     else 2 * w * C * h) * x.element_size()
-    k3_bound, k3_by = _bound(k3_bytes, 0)
-    del cap, k2_args
-
     # the small-input gate: the GPU render against the CPU render
     small, st = [], lt.Target(w=256, h=128, color=lt.CSP_SRGB, bit_depth=8)
     rg, rc = lt.Renderer(device=dev), lt.Renderer(device="cpu")
@@ -1704,19 +1720,6 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
         "path_j_uploads": {"ravu": ravu.cache.uploads,
                            "ema": ema.cache.uploads},
         "path_j_small_render": small}
-    entries = [
-        {"name": "k2_error_diffusion_path_j", "route": "cuda",
-         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
-         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
-         "launches": launches["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
-        {"name": "k3_shear_path_j", "route": "cuda",
-         "source": "libplacebo_tpu_torch/csrc/shear.cu",
-         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
-         "launches": launches["k3"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_lib_ms}]
     return figures, entries
 
 
@@ -2001,49 +2004,8 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
     entries.append(_k1_entry(k1, "k1_color_map_no_dither_path_k_replicated",
                              k1n, k1n_part, launches5["k1"], k1n_err, k1n_ms,
                              k1n_plain_ms))
-    k2_args = cap["k2"][1]
-    got, want = k2.wavefront(*k2_args), k2.wavefront_plain(*k2_args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want), "K2 on path K"
-    k2_err = float((got.float() - want.float()).abs().max())
-    code_bytes = got.element_size()
-    del got, want
-    k2_ms = _cuda_ms(lambda: k2.wavefront(*k2_args), 5)
-    k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*k2_args), 1)
-    colmaj, kernel, _depth, w, h = k2_args
-    n_px = w * colmaj.shape[1] * h
-    k2_bound, k2_by = _bound(n_px * (4 + code_bytes),
-                             n_px * (7 + 2 * len(k2.taps_for(kernel))))
-    k3_err = k3_ms = k3_plain_ms = k3_lib_ms = 0.0
-    k3_bytes = 0
-    for x, w_out, s, w, h, fwd in cap["k3"][2:]:
-        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
-        got = wrapper(x, w_out, s, w, h)
-        want = k3.shear_plain(x, w_out, s, w, h, fwd)
-        assert torch.equal(got, want), "K3 on path K"
-        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
-        del got, want
-        k3_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
-        k3_plain_ms += _cuda_ms(
-            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
-        k3_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
-        C = x.shape[1]
-        k3_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
-                     else 2 * w * C * h) * x.element_size()
-    k3_bound, k3_by = _bound(k3_bytes, 0)
-    entries += [
-        {"name": "k2_error_diffusion_path_k_replicated", "route": "cuda",
-         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
-         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
-         "launches": launches5["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
-        {"name": "k3_shear_path_k_replicated", "route": "cuda",
-         "source": "libplacebo_tpu_torch/csrc/shear.cu",
-         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
-         "launches": launches5["k3"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3_lib_ms}]
+    entries += _k2_k3_entries(k2, k3, cap["k2"][1], cap["k3"][2:],
+                              "path_k_replicated", launches5, 5)
     figures.update({
         "path_k_replicated_route": [step5.route, step5.reason],
         "path_k_replicated_frame_ms": statistics.median(rep_ms) / 2,
@@ -2059,6 +2021,272 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
         assert r.get_errors() == (frozenset(), frozenset())
     mesh.close()
     assert not dist.is_initialized()
+    return figures, entries
+
+
+# path L: the port's demos and tools (libplacebo_tpu_torch/demos/,
+# libplacebo_tpu_torch/tools/) driven through their main()s at full width
+PATH_L_SEED = 7171
+PATH_L_PLPLAY = ["--hdr", "--frames", "24", "--fps", "23.976",
+                 "--vsync", "60", "--zoom", "pad"]
+
+
+def _seeded_png(path, w, h, seed, alpha=False):
+    """A seeded picture: a gradient with noise (RGB, or RGBA)."""
+    from libplacebo_tpu_torch.utils.y4m import write_png
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    c = 4 if alpha else 3
+    img = (np.stack([xx * 200.0 / w, yy * 200.0 / h,
+                     (xx + yy) * 100.0 / (w + h)] +
+                    ([np.full((h, w), 180.0)] if alpha else []), -1)
+           + rng.uniform(0, 40, (h, w, c)))
+    write_png(path, np.clip(img, 0, 255).astype(np.uint8))
+
+
+def _y4m_planes(path):
+    """A y4m file's frames as uint8 arrays (header, [frame bytes])."""
+    data = open(path, "rb").read()
+    head, body = data.split(b"\n", 1)
+    return head, [np.frombuffer(f, np.uint8)
+                  for f in body.split(b"FRAME\n")[1:]]
+
+
+def path_l_phase(lt, dev, counters, k1, k2, k3):
+    """Path L: every demo and tool of the port that renders on the card,
+    called in-process through its main() with an argv, on seeded inputs
+    written to a temporary directory.  Each is driven with the launch
+    counts set to 0 just before and read just after:
+      - plplay --hdr 1920x1080 -> 3840x2160 (padded to the target: a 2x
+        upscale), 24 source frames at 23.976 fps on a 60 Hz display, 60
+        vsyncs free-running; K1 (no dither) once a source frame; its fps,
+        host-clocked and CUDA-event ms a vsync; then the same argv at
+        96x64 -> 192x128 with --write-y4m on the card and on the CPU,
+        the two clips held to the GPU-vs-CPU gate (mean < 1e-4, more than
+        one LSB on <= 5e-4);
+      - video_filtering on a seeded 1920x1080 PNG -> 3840x2160 PNG;
+      - image_viewer on a seeded 3840x2160 PNG with an OSD and a .cube
+        LUT -> 1920x1080, then again with path B's Display P3 ICC profile;
+      - colors 3840x2160, 60 frames into a y4m (its codes made on the
+        card), then at 64x48 on the card and on the CPU: the same bytes;
+      - multichip_bench on the one-rank NCCL mesh, 1920x1080 -> 4K, 3
+        iterations (its outputs held against the single-card Renderer);
+      - bench_micro at 1920x1080 over every pass (a failed pass, one
+        without a time, or one whose profiled device operations do not
+        fit its time — bench_micro.profile_violations — fails the run):
+        K1 on the flagship tail, K2 and K3 in the error-diffusion passes;
+      - bench_playback (u8 and p010, 6 frames a mode) and
+        profile_stages 8;
+      - the multi-device tools on the card, one NCCL rank: option_sweep_
+        parity on five keys (every row rendered and within its gate),
+        multichip_perf on a 1x1 mesh and multihost_smoke as one process
+        joined over TCP.
+    K1 on plplay's first new frame, and K2 and K3 on bench_micro's first
+    Floyd-Steinberg call, are held against their plain versions.
+    Returns (figures, the kernels line's path L entries)."""
+    import tempfile
+    import torch
+    from libplacebo_tpu_torch.demos import (colors, image_viewer,
+                                            multichip_bench, plplay,
+                                            video_filtering)
+    from libplacebo_tpu_torch.tools import (bench_micro, bench_playback,
+                                            multichip_perf, multihost_smoke,
+                                            option_sweep_parity,
+                                            profile_stages)
+    from libplacebo_tpu_torch.utils.y4m import read_png
+
+    t_path = time.perf_counter()
+    figures, seconds, launches = {}, {}, {}
+    cap = {"k1": None, "k2": None, "k3": []}
+    real = (k1.color_map_tail, k2.wavefront, k3.shear_to_colmaj,
+            k3.unshear_from_colmaj)
+
+    def cap_k1(img, plan, tone, lut):
+        if cap["k1"] is None:
+            cap["k1"] = (img.clone(), plan, tone.clone()
+                         if tone is not None else None, lut)
+        return real[0](img, plan, tone, lut)
+
+    def cap_k2(colmaj, kernel, depth, w, h):
+        if cap["k2"] is None:
+            cap["k2"] = (colmaj.clone(), kernel, depth, w, h)
+        return real[1](colmaj, kernel, depth, w, h)
+
+    def cap_k3(forward):
+        def run(x, w_out, s, w, h):
+            if not any(c[5] == forward for c in cap["k3"]):
+                cap["k3"].append((x.clone(), w_out, s, w, h, forward))
+            return real[2 if forward else 3](x, w_out, s, w, h)
+        return run
+
+    def driven(name, fn):
+        """fn() with every launch count set to 0 just before and read
+        just after; its seconds kept."""
+        for mod in counters.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {n: m.launches for n, m in counters.items()}
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def p(name):
+            return os.path.join(tmp, name)
+        _seeded_png(p("in1080.png"), 1920, 1080, PATH_L_SEED)
+        _seeded_png(p("in2160.png"), 3840, 2160, PATH_L_SEED + 1)
+        _seeded_png(p("osd.png"), 256, 96, PATH_L_SEED + 2, alpha=True)
+        with open(p("creative.cube"), "w") as f:
+            f.write(creative_cube(17))
+        with open(p("p3.icc"), "wb") as f:
+            f.write(display_p3_profile())
+
+        # plplay at full width (K1 captured on its first new frame)
+        k1.color_map_tail = cap_k1
+        try:
+            st = driven("plplay", lambda: plplay.main(
+                PATH_L_PLPLAY + ["--size", "1920x1080", "--out",
+                                 "3840x2160"]))
+        finally:
+            k1.color_map_tail = real[0]
+        assert st["rendered"] == 60, st
+        assert launches["plplay"] == st["launches"], (launches, st)
+        assert launches["plplay"]["k1"] >= 24 and \
+            launches["plplay"]["k2"] == launches["plplay"]["k3"] == 0, \
+            launches["plplay"]
+        figures["path_l_plplay"] = st
+        # the same argv small, on the card and on the CPU
+        for d in ("cuda", "cpu"):
+            plplay.main(PATH_L_PLPLAY + ["--size", "96x64", "--out",
+                                         "192x128", "--device", d,
+                                         "--write-y4m", p(f"pl_{d}.y4m")])
+        hg, fg = _y4m_planes(p("pl_cuda.y4m"))
+        hc, fc = _y4m_planes(p("pl_cpu.y4m"))
+        assert hg == hc and len(fg) == len(fc) == 60, (hg, hc, len(fg))
+        d = np.abs(np.stack(fg).astype(np.int32)
+                   - np.stack(fc).astype(np.int32))
+        small = {"max_codes": int(d.max()), "mean": float(d.mean()) / 255,
+                 "above_1lsb": float((d > 1).mean())}
+        assert small["mean"] < 1e-4 and small["above_1lsb"] <= 5e-4, small
+        figures["path_l_plplay_small_gate"] = small
+
+        # video_filtering and image_viewer (PNG in, PNG out)
+        res = driven("video_filtering", lambda: video_filtering.main(
+            ["--input", p("in1080.png"), "--out", "3840x2160",
+             "--output", p("vf.png")]))
+        out = read_png(p("vf.png"))
+        assert out.shape == (3, 2160, 3840) and res["frames"] == 1, \
+            out.shape
+        for icc in (False, True):
+            name = "image_viewer_icc" if icc else "image_viewer"
+            driven(name, lambda icc=icc: image_viewer.main(
+                [p("in2160.png"), "--osd", p("osd.png"), "--lut",
+                 p("creative.cube"), "--out", "1920x1080", "--output",
+                 p(f"{name}.png")] + (["--icc", p("p3.icc")] if icc
+                                      else [])))
+            out = read_png(p(f"{name}.png"))
+            assert out.shape[-2:] == (1080, 1920), out.shape
+            assert np.isfinite(out).all() and out[:3].std() > 0.05
+
+        # colors: 60 frames of 4K into a y4m
+        driven("colors", lambda: colors.main(
+            ["--size", "3840x2160", "--frames", "60", "--write-y4m",
+             p("colors.y4m")]))
+        head, frames_c = _y4m_planes(p("colors.y4m"))
+        assert head.startswith(b"YUV4MPEG2 W3840 H2160") and \
+            len(frames_c) == 60 and \
+            frames_c[0].size == 3 * 3840 * 2160, (head, len(frames_c))
+        del frames_c
+        for d in ("cuda", "cpu"):
+            colors.main(["--size", "64x48", "--frames", "60", "--device", d,
+                         "--write-y4m", p(f"colors_{d}.y4m")])
+        with open(p("colors_cuda.y4m"), "rb") as fg, \
+                open(p("colors_cpu.y4m"), "rb") as fc:
+            assert fg.read() == fc.read(), "colors: card vs CPU bytes"
+
+    # multichip_bench on the one-rank NCCL mesh
+    rows = driven("multichip_bench", lambda: multichip_bench.main(
+        ["--size", "1920x1080", "--iters", "3"]))
+    assert len(rows) == 1 and rows[0]["route"] == "halo", rows
+    assert launches["multichip_bench"]["k1"] >= 3, launches
+    figures["path_l_multichip_bench"] = rows[0]
+
+    # bench_micro over every pass (K2, K3 captured on the first FS call)
+    os.makedirs("chiprun_out", exist_ok=True)
+    bm_json = os.path.join("chiprun_out", "bench_micro_h100.json")
+    k2.wavefront = cap_k2
+    k3.shear_to_colmaj, k3.unshear_from_colmaj = cap_k3(True), cap_k3(False)
+    try:
+        rc = driven("bench_micro", lambda: bench_micro.main(
+            ["--size", "1920x1080", "--json", bm_json]))
+    finally:
+        k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj = \
+            real[1:]
+    with open(bm_json) as f:
+        bm = json.load(f)
+    untimed = [n for n, v in bm["passes"].items()
+               if not (v.get("ms") or 0) > 0]
+    assert rc == 0 and not bm["failed"] and not untimed, \
+        (rc, bm["failed"], untimed)
+    bad = bench_micro.profile_violations(bm["passes"])
+    assert not bad, bad
+    assert all(launches["bench_micro"][n] > 0 for n in counters), launches
+
+    # bench_playback and profile_stages
+    pb_json = os.path.join("chiprun_out", "bench_playback_h100.json")
+    assert driven("bench_playback", lambda: bench_playback.main(
+        ["--frames", "6", "--out", pb_json])) == 0
+    with open(pb_json) as f:
+        figures["path_l_bench_playback"] = json.load(f)["formats"]
+    assert driven("profile_stages", lambda: profile_stages.main(
+        ["8"])) == 0
+
+    # the multi-device tools on the card: one NCCL rank
+    sweep_json = os.path.join("chiprun_out", "option_sweep_h100.json")
+    assert driven("option_sweep_parity", lambda: option_sweep_parity.main(
+        ["--keys", "deband,upscaler,dither,error_diffusion,peak_detect",
+         "--out", sweep_json])) == 0
+    with open(sweep_json) as f:
+        sweep = json.load(f)
+    assert sweep["summary"]["device"].startswith("cuda") and \
+        all(r["status"] == "ok" for r in sweep["rows"]), sweep["summary"]
+    mcp_json = os.path.join("chiprun_out", "multichip_perf_h100.json")
+    assert driven("multichip_perf", lambda: multichip_perf.main(
+        ["--mesh", "1x1", "--out", mcp_json])) == 0
+    with open(mcp_json) as f:
+        mcp = json.load(f)
+    assert mcp["device"].startswith("cuda") and \
+        set(mcp["routes"].values()) == {"halo"}, mcp["routes"]
+    assert driven("multihost_smoke", lambda: multihost_smoke.main(
+        ["--procs", "1"])) == 0
+    figures["path_l_option_sweep"] = [
+        (r["keys"], r["values"], r["route"], r["diff_mean"])
+        for r in sweep["rows"]]
+    figures["path_l_multichip_perf_1x1"] = mcp["configs"]
+
+    # K1 on plplay's first new frame, K2 and K3 on bench_micro's first
+    # Floyd-Steinberg call, against their plain versions
+    k1_args = cap["k1"]
+    k1_err, k1_frac, k1_part = _check_k1(k1, k1_args)
+    k1_ms = _cuda_ms(lambda: k1.color_map_tail(*k1_args), 20)
+    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
+        k1_args[0], k1_args[1].consts, *k1_args[2:], k1_args[1].instance), 2)
+    assert len(cap["k3"]) == 2, len(cap["k3"])
+    ed_entries = _k2_k3_entries(k2, k3, cap["k2"], cap["k3"], "path_l",
+                                launches["bench_micro"], 20)
+    figures.update({
+        "path_l_seconds": time.perf_counter() - t_path,
+        "path_l_seconds_by_program": seconds,
+        "path_l_launches": launches,
+        "path_l_bench_micro_ms": {n: v["ms"] for n, v in
+                                  bm["passes"].items()},
+        "k1_path_l_differing_fraction": k1_frac})
+    entries = [
+        _k1_entry(k1, "k1_color_map_no_dither_path_l", k1_args, k1_part,
+                  launches["plplay"]["k1"], k1_err, k1_ms, k1_plain_ms),
+        *ed_entries]
     return figures, entries
 
 
@@ -2157,27 +2385,19 @@ def _check_generic(k1, args):
     return err, part_k
 
 
-def _io_bytes(args, part):
-    img, plan, tone, lut = args
-    return (2 * 3 * img.shape[-2] * img.shape[-1] * 4 + plan.consts.nbytes +
-            (part.numel() * 4 if part is not None else 0) +
-            (tone.numel() * 4 if tone is not None else 0) +
-            (lut.numel() * 4 if lut is not None else 0))
-
-
 def _k1_generic_table(lt, k1, trender, W, H, dev):
     """Every generic case at W x H: held against its plain version (bit
     for bit), timed with it, its operations a pixel and its bounds."""
     import torch
+    from libplacebo_tpu_torch.tools.bench_micro import k1_bound
     gen = torch.Generator(device=dev).manual_seed(29)
     noise = torch.rand((3, H, W), device=dev, generator=gen)
-    npix = W * H
     table = {}
     for case in GENERIC_CASES:
         args = _generic_args(lt, k1, trender, case, W, H, dev, noise)
         err, part = _check_generic(k1, args)
         ops = k1.ops_per_pixel(args[1].consts, args[1].instance)
-        bound, by = _bound(_io_bytes(args, part), ops * npix)
+        bound, by = k1_bound(*args, part, ops)
         table[case] = {
             "mode": args[1].generic.mode._asdict(), "max_abs_err": err,
             "ops_per_pixel": ops, "bound_ms": bound, "bound_by": by,
@@ -2226,6 +2446,9 @@ def main() -> int:
     from libplacebo_tpu_torch.ops.cuda import error_diffusion as k2
     from libplacebo_tpu_torch.ops.cuda import shear as k3
     from libplacebo_tpu_torch.render import renderer as trender
+    from libplacebo_tpu_torch.tools.bench_micro import bound_ms
+    from libplacebo_tpu_torch.tools.bench_micro import k2_bound as k2_bound_of
+    from libplacebo_tpu_torch.tools.bench_micro import k3_bytes as bm_k3_bytes
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -2802,23 +3025,7 @@ def main() -> int:
     # differences upstream into 1-LSB flips)
     pg_err, pg_frac, pg_part = _check_k1(k1, pg_k1)
     assert pg_err == 0.0, pg_err
-    ph_k2_args = ph_k2
-    got = k2.wavefront(*ph_k2_args)
-    want = k2.wavefront_plain(*ph_k2_args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want), "K2 on path H"
-    ph_k2_err = float((got.float() - want.float()).abs().max())
-    del got, want
-    ph_k3_err = 0.0
-    for x, w_out, s, w, h, fwd in ph_k3:
-        got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(
-            x, w_out, s, w, h)
-        want = k3.shear_plain(x, w_out, s, w, h, fwd)
-        ph_k3_err = max(ph_k3_err,
-                        float((got.float() - want.float()).abs().max()))
-        assert torch.equal(got, want), "K3 on path H"
     assert ph_k3[0][5] and not ph_k3[1][5]
-    del got, want
     yuvG_s = _flagship_yuv(8, 64, 128, seed=7, bits=10)
     outs_g = {}
     for name, d in (("gpu", dev), ("cpu", "cpu")):
@@ -2964,19 +3171,9 @@ def main() -> int:
         rendererH, [_frame(lt, yuvsH[k % 8], dev,
                            cfg.sample_grain(GRAIN_SEED + 300 + k))
                     for k in range(n_timed)], paramsH)
-    k2_ph_ms = _cuda_ms(lambda: k2.wavefront(*ph_k2_args), 5)
-    k2_ph_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*ph_k2_args), 1)
-    k3_ph_ms = k3_ph_plain_ms = k3_ph_lib_ms = 0.0
-    k3_ph_bytes = 0
-    for x, w_out, s, w, h, fwd in ph_k3:
-        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
-        k3_ph_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
-        k3_ph_plain_ms += _cuda_ms(
-            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
-        k3_ph_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
-        C = x.shape[1]
-        k3_ph_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
-                        else 2 * w * C * h) * x.element_size()
+    # K2 and K3 on path H's frame 2, exact against their plain versions
+    ph_entries = _k2_k3_entries(k2, k3, ph_k2, ph_k3, "path_h", ph_launches,
+                                5)
     # path F's stages by ablation: the back-to-back frame without
     # contrast recovery, without deband, and without both (the crop
     # keeps the tail plain)
@@ -3137,7 +3334,7 @@ def main() -> int:
     k2_chan_bands = k2.geometry(*chan.shape)[1]
     del band, chan
     k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*ed_args), 1)
-    k3_ms, k3_plain_ms, k3_lib_ms, k3_bytes = {}, {}, {}, 0
+    k3_ms, k3_plain_ms, k3_lib_ms = {}, {}, {}
     for x, w_out, s, w, h, fwd in (shear_in, unshear_in):
         d = "forward" if fwd else "inverse"
         wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
@@ -3145,12 +3342,11 @@ def main() -> int:
         k3_plain_ms[d] = _cuda_ms(
             lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
         k3_lib_ms[d] = _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
-        # the bytes the function needs: forward, the image read and the
-        # whole sheared frame written (K2 reads its zeros); inverse, only
-        # the w x C x h codes that the unshear keeps, read and written
-        C = x.shape[1]
-        k3_bytes += ((x.numel() + w_out * C * x.shape[2]) if fwd
-                     else 2 * w * C * h) * x.element_size()
+    # the bytes the function needs: forward, the image read and the whole
+    # sheared frame written (K2 reads its zeros); inverse, only the
+    # w x C x h codes that the unshear keeps, read and written
+    k3_bytes = sum(bm_k3_bytes(x, w_out, w, h, fwd)
+                   for x, w_out, _, w, h, fwd in (shear_in, unshear_in))
     lin = torch.rand((3, H, W), device=dev) * 49.0
     ewa_cfg = flt.find_filter_config("ewa_lanczos")
     ewa_ms = _cuda_ms(lambda: polar.sample_polar(
@@ -3169,7 +3365,7 @@ def main() -> int:
     ewa_ar_ops = n_out * (2 * float(np.mean([(w != 0).sum() for w in pp.wk]))
                           + 26 * pp.ar_w.shape[0] + 18)
     ewa_ar_bytes = (c3_ewa[0].numel() + n_out) * 4
-    ewa_ar_bound, ewa_ar_by = _bound(ewa_ar_bytes, ewa_ar_ops)
+    ewa_ar_bound, ewa_ar_by = bound_ms(ewa_ar_bytes, ewa_ar_ops)
     # 9. K2 on a pattern outside the compiled ten, its taps given at
     # launch, on config 5's sheared frame (the same shift): exact against
     # the plain version, timed beside the compiled instance
@@ -3227,21 +3423,12 @@ def main() -> int:
     ewa_ar_launches = sum(
         1 for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA)
-    n_taps = len(k2.taps_for(ed_kernel))
     # what the function needs: the ed_w x C x ed_h pixels of the frame
     # read, their codes written (the zeros outside the sheared image
     # change no code that the unshear keeps); per pixel: add, multiply,
     # round, fused err (2), clip (2), and a fused multiply-add (2) a tap
-    n_px = ed_w * colmaj.shape[1] * ed_h
-    k2_bytes = n_px * (4 + codes_k.element_size())
-    k2_ops = n_px * (7 + 2 * n_taps)
-    k2_bound, k2_by = _bound(k2_bytes, k2_ops)
-    k3_bound, k3_by = _bound(k3_bytes, 0)
-    # K2 and K3 on path H's frame 2: the same counts as config 5's
-    n_px_h = ph_k2_args[3] * ph_k2_args[0].shape[1] * ph_k2_args[4]
-    k2_ph_bound, k2_ph_by = _bound(n_px_h * (4 + codes_k.element_size()),
-                                   n_px_h * (7 + 2 * n_taps))
-    k3_ph_bound, k3_ph_by = _bound(k3_ph_bytes, 0)
+    k2_bound, k2_by = k2_bound_of(*ed_args)
+    k3_bound, k3_by = bound_ms(k3_bytes)
 
     # 20. path I: a 4K HDR10 clip transcoded to 1080p SDR (counted on its
     # own), K1's launch against its plain version, timed
@@ -3284,7 +3471,12 @@ def main() -> int:
     # at 4K, each counted on its own
     path_k, pk_entries = path_k_phase(lt, dev, counters, k1, k2, k3)
 
-    # 24. the degradation ladder, last, everything restored after it:
+    # 24. path L: the demos and tools through their main()s at full
+    # width, each counted on its own; K1-K3 on its inputs against their
+    # plain versions
+    path_l, pl_entries = path_l_phase(lt, dev, counters, k1, k2, k3)
+
+    # 25. the degradation ladder, last, everything restored after it:
     # (a) a plain stage made to fail (deband raising RuntimeError)
     # recovers, get_errors() shows `deband` and the log records it;
     # (b) K1's launcher raising KernelError and (c) raising the
@@ -3391,20 +3583,7 @@ def main() -> int:
                   pg_launches["k1"], pg_err, k1_pg_ms, k1_pg_plain_ms),
         _k1_entry(k1, "k1_color_map_path_i", pi_k1, pi_part, pi_launches,
                   pi_err, k1_pi_ms, k1_pi_plain_ms),
-        {"name": "k2_error_diffusion_path_h", "route": "cuda",
-         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
-         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
-         "launches": ph_launches["k2"], "max_abs_err": ph_k2_err,
-         "ms": k2_ph_ms, "plain_ms": k2_ph_plain_ms,
-         "bound_ms": k2_ph_bound, "bound_by": k2_ph_by, "library_ms": None},
-        {"name": "k3_shear_path_h", "route": "cuda",
-         "source": "libplacebo_tpu_torch/csrc/shear.cu",
-         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
-         "launches": ph_launches["k3"], "max_abs_err": ph_k3_err,
-         "ms": k3_ph_ms, "plain_ms": k3_ph_plain_ms,
-         "bound_ms": k3_ph_bound, "bound_by": k3_ph_by,
-         "library_ms": k3_ph_lib_ms},
-        *pj_entries, *pk_entries,
+        *ph_entries, *pj_entries, *pk_entries, *pl_entries,
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -3496,14 +3675,14 @@ def main() -> int:
         "path_h_frame_ms": ph_ms, "path_h_window_ms": ph_window_ms,
         "path_h_k2_launches_per_frame": ph_launches["k2"] / 8,
         "path_h_k3_launches_per_frame": ph_launches["k3"] / 8,
-        "path_h_tails": ph_tails, "k2_path_h_ms": k2_ph_ms,
-        "k3_path_h_ms": k3_ph_ms, "ladder": ladder,
+        "path_h_tails": ph_tails, "k2_path_h_ms": ph_entries[0]["ms"],
+        "k3_path_h_ms": ph_entries[1]["ms"], "ladder": ladder,
         **path_i, "k1_path_i_ms": k1_pi_ms,
         "k1_path_i_plain_ms": k1_pi_plain_ms,
         "k1_path_i_differing_fraction": pi_frac,
         "k1_path_i_ops_per_pixel": k1.ops_per_pixel(pi_k1[1].consts,
                                                     pi_k1[1].instance),
-        **path_j, **path_k,
+        **path_j, **path_k, **path_l,
         "gpu_vs_jax": gate_lines, "gpu_vs_jax_s": gate_s,
         "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
         "h274_1080p_ms": h274_ms, "h274_host_ms": h274_host_ms,
@@ -3525,8 +3704,8 @@ def main() -> int:
         "k1_ptxas": k1_ptxas, "k1_sm_clock_mhz": k1_mhz,
         "k1_instances": k1_instances,
         "k1_instruction_floor_ms": k1_floor_ms,
-        "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms, "k2_bytes": k2_bytes,
-        "k2_ops": k2_ops, "k2_columns": colmaj.shape[0],
+        "k2_ms": k2_ms, "k2_plain_ms": k2_plain_ms,
+        "k2_columns": colmaj.shape[0],
         "k2_ns_per_column": k2_ms * 1e6 / colmaj.shape[0],
         "k2_grid": [k2_blocks, k2_threads],
         "k2_one_band_ms": k2_band_ms, "k2_one_channel_ms": k2_chan_ms,
@@ -3598,6 +3777,20 @@ def main() -> int:
           f"replicated {path_k['path_k_replicated_collectives']}; "
           f"launches halo {path_k['path_k_halo_launches']}, replicated "
           f"{path_k['path_k_replicated_launches']}")
+    pl = path_l["path_l_plplay"]
+    pl_seconds = {k: round(v, 1) for k, v in
+                  path_l["path_l_seconds_by_program"].items()}
+    print(f"path L ({card}): plplay {pl['rendered']} vsyncs at "
+          f"{pl['fps']:.1f} fps, a vsync {pl['host_ms_per_vsync']:.3f} ms "
+          f"host-clocked, {pl['event_ms_per_vsync']:.3f} ms CUDA events "
+          f"(after the first vsync {pl['steady_host_ms_per_vsync']:.3f} and "
+          f"{pl['steady_event_ms_per_vsync']:.3f}), K1 "
+          f"{pl['launches']['k1']} launches; small plplay GPU vs CPU "
+          f"{path_l['path_l_plplay_small_gate']}; multichip_bench "
+          f"{path_l['path_l_multichip_bench']['ms_per_batch']:.3f} ms a "
+          f"batch of 2; launches by program {path_l['path_l_launches']}; "
+          f"seconds by program {pl_seconds}; path L "
+          f"{path_l['path_l_seconds']:.1f} s")
     print(f"ladder: {ladder}")
     print(card)
     print(json.dumps({"kernels": kernels}))

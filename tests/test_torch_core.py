@@ -177,8 +177,9 @@ def test_arrays_to_device_keeps_values_types_and_shapes():
 
 
 def test_package_imports_no_jax():
-    """The package, chip_smoke.py and tools/gpu_vs_cpu.py's compare mode
-    (run on the CPU over the path I preset) import neither JAX nor the
+    """The package, chip_smoke.py, tools/gpu_vs_cpu.py's compare mode
+    (run on the CPU over the path I preset), every demo and tool of the
+    package and bench_micro run on the CPU import neither JAX nor the
     JAX package."""
     code = ("import sys, libplacebo_tpu_torch, libplacebo_tpu_torch.carry, "
             "libplacebo_tpu_torch.utils.upload\n"
@@ -199,6 +200,15 @@ def test_package_imports_no_jax():
             "spec.loader.exec_module(gvc)\n"
             "lines, ok = gvc.run('cpu', ('path_i',))\n"
             "assert ok, lines\n"
+            "import pkgutil, importlib\n"
+            "import libplacebo_tpu_torch.demos as d, "
+            "libplacebo_tpu_torch.tools as t\n"
+            "for pkg in (d, t):\n"
+            "    for m in pkgutil.iter_modules(pkg.__path__):\n"
+            "        importlib.import_module(pkg.__name__ + '.' + m.name)\n"
+            "from libplacebo_tpu_torch.tools import bench_micro\n"
+            "assert bench_micro.main(['--cpu', '--size', '128x96', "
+            "'--n', '1']) == 0\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'libplacebo_tpu' or "
             "m.startswith('libplacebo_tpu.')]\n"
