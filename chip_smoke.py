@@ -5,11 +5,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each runs uncaught: any failure exits non-zero):
  1. build the hand-written kernels from csrc/ (one nvcc a library — K1
-    is one library a tone curve — all at once) and the native host code
-    (blue noise, film grain), keeping ptxas's register and spill report,
-    and read K1's pixel loop out of its SASS (libplacebo_tpu_torch/
-    _sass.py: instructions an iteration by class, calls, ptxas's stack
-    frame), for the flagship instance and the two of phase 7;
+    is one library a tone curve, and one a generic tail: those of paths
+    A and I and of `GENERIC_CASES`, planned on the CPU first — all at
+    once) and the native host code (blue noise, film grain), keeping
+    ptxas's register and spill report, and read K1's pixel loop out of
+    its SASS (libplacebo_tpu_torch/_sass.py: instructions an iteration
+    by class, calls, ptxas's stack frame), for the flagship instance and
+    the two of phase 7;
  2. the flagship path: render 3 chained frames — 1080p 8-bit limited
     BT.2020-NC yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak
     state carried — through libplacebo_tpu_torch.Renderer on "cuda",
@@ -63,7 +65,8 @@ Phases (each runs uncaught: any failure exits non-zero):
     PQ target with 10-bit dither), 3 chained frames, counts read as
     before (K1 3 times); the instance against its plain version on
     frame 2's input at 4K (bit for bit) and the GPU render against the
-    CPU render on a small input; timed;
+    CPU render on a small input; timed, with its instance's SASS a
+    pixel, ptxas's report and its instruction floor;
 11. path B, "SDR on a calibrated wide-gamut monitor": config 2's frames
     -> 3840x2160 8-bit through a Display P3 gamma 2.2 ICC profile built
     in code, with a 33^3 native LUT (its low-rank path at 1080p); the
@@ -73,9 +76,13 @@ Phases (each runs uncaught: any failure exits non-zero):
 12. K1's generic instance on twelve more tails at 4K (`GENERIC_CASES`:
     static curves, same-frame stats, the other gamut operators, HLG and
     BT.1886 targets, YCbCr and ICtCp encodes, white noise,
-    show_clipping, 3-bit gamma dither), each bit for bit against its
-    plain version and timed (in `k1_instances`), and the host's draw
-    of a 4K white-noise bias (`white_noise_host_ms`);
+    show_clipping, 3-bit gamma dither), each on its own compiled
+    instance, bit for bit against its plain version, timed, with the
+    instance's SASS a pixel, ptxas's report and its instruction floor
+    (in `k1_instances`); the seconds one tail's library takes to be
+    usable in a fresh process, cold (compiled) and warm (on disk)
+    (`k1_generic_build_s`), and the host's draw of a 4K white-noise
+    bias (`white_noise_host_ms`);
 13. path C, "Dolby Vision profile 5 on an SDR display": 1920x1080
     10-bit full-range yuv420p Dolby Vision frames, BT.2020 PQ, each
     with a new RPU parsed that frame (tests/golden/dovi/profile5.bin
@@ -223,8 +230,10 @@ Phases (each runs uncaught: any failure exits non-zero):
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
     empty, and so does an out-of-memory error raised inside K1's wrapper
-    (as a KernelError); everything restored, and no renderer of any path
-    has a feature or a hook disabled.
+    (as a KernelError), and a generic tail whose instance fails to build
+    (its generated header made to fail: a KernelError when the renderer
+    plans the tail, nothing launched); everything restored, and no
+    renderer of any path has a feature or a hook disabled.
 On every path but B, F, H, J and the distortion phase the renderer must
 count K1 tails only (no plain tails); their tails count as ineligible
 (plain in the reference).
@@ -2385,9 +2394,10 @@ def _check_generic(k1, args):
     return err, part_k
 
 
-def _k1_generic_table(lt, k1, trender, W, H, dev):
+def _k1_generic_table(lt, k1, trender, W, H, dev, shape_of):
     """Every generic case at W x H: held against its plain version (bit
-    for bit), timed with it, its operations a pixel and its bounds."""
+    for bit), timed with it, its operations a pixel and its bounds, and
+    its instance's shape (`shape_of(plan, npix)`)."""
     import torch
     from libplacebo_tpu_torch.tools.bench_micro import k1_bound
     gen = torch.Generator(device=dev).manual_seed(29)
@@ -2402,9 +2412,80 @@ def _k1_generic_table(lt, k1, trender, W, H, dev):
             "mode": args[1].generic.mode._asdict(), "max_abs_err": err,
             "ops_per_pixel": ops, "bound_ms": bound, "bound_by": by,
             "ms": _cuda_ms(lambda: k1.color_map_tail(*args), 10),
-            "plain_ms": _cuda_ms(lambda: k1.tail_plain(*args), 2)}
+            "plain_ms": _cuda_ms(lambda: k1.tail_plain(*args), 2),
+            **shape_of(args[1], W * H)}
         del args
     return table
+
+
+def _planned_generic(lt, k1, trender):
+    """The generic plans of path A, path I and every GENERIC_CASES tail,
+    made on the CPU at a small size (a plan is host data, and the key its
+    instance is compiled with does not depend on the frame size), so
+    phase 1 builds their libraries beside the templated ones: path A
+    from one small render, path I from one small transcode, each K1 plan
+    captured."""
+    import shutil
+    import tempfile
+    import torch
+    from libplacebo_tpu_torch import runtime
+    plans, seen, real = {}, [], k1.color_map_tail
+
+    def cap(img, plan, tone, lut):
+        seen.append(plan)
+        return real(img, plan, tone, lut)
+    k1.color_map_tail = cap
+    tmp = tempfile.mkdtemp(prefix="k1_plans_")
+    try:
+        col, rep, bits, tgt, params = path_cell(lt, "A", 256, 64)
+        lt.Renderer(device="cpu").render(_frame_cell(
+            lt, _flagship_yuv(1, 32, 128, bits=10)[0], "cpu", col, rep,
+            bits), tgt, params)
+        plans["path_a"] = seen[-1]
+        src = os.path.join(tmp, "in.y4m")
+        path_i_write_clip(src, path_i_yuv(1, 64, 512, seed=7))
+        path_i_transcode(lt, src, os.path.join(tmp, "out.y4m"),
+                         lt.Renderer(ctx=runtime.create_dummy()))
+        plans["path_i"] = seen[-1]
+    finally:
+        k1.color_map_tail = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    noise = torch.rand((3, 64, 256),
+                       generator=torch.Generator().manual_seed(1))
+    for case in GENERIC_CASES:
+        plans[case] = _generic_args(lt, k1, trender, case, 256, 64,
+                                    torch.device("cpu"), noise)[1]
+    assert all(p.tone == k1.GENERIC for p in plans.values()), plans
+    return plans
+
+
+def _generic_build_seconds(k1, plan):
+    """[cold, warm]: the seconds a fresh process takes to make the
+    library of `plan`'s generic instance usable (nvcc, then loading it;
+    then, with it on disk, the hash check and loading), each in its own
+    Python process on an empty build directory made for the purpose."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="k1_build_")
+    try:
+        with open(os.path.join(tmp, "k1_generic.h"), "w") as f:
+            f.write(plan.header)
+        code = (
+            "import ctypes, sys, time\n"
+            f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+            "from libplacebo_tpu_torch import _build\n"
+            "from libplacebo_tpu_torch.ops.cuda import color_map as k1\n"
+            f"_build.set_build_dir({os.path.join(tmp, 'build')!r})\n"
+            f"header = open({os.path.join(tmp, 'k1_generic.h')!r}).read()\n"
+            "t0 = time.perf_counter()\n"
+            "path, = _build.build_all([k1.generic_spec(header)])\n"
+            "ctypes.CDLL(path)\n"
+            "print(time.perf_counter() - t0)\n")
+        return [float(subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            check=True, timeout=600).stdout.split()[-1]) for _ in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _gather_shear(x, w_out, s, W, H, forward):
@@ -2458,16 +2539,37 @@ def main() -> int:
     counters = {"k1": k1, "k2": k2, "k3": k3}
 
     # 1. build: one compiler process per library, all started together
+    # (the generic tails' plans made on the CPU first: a library a tail)
     t0 = time.perf_counter()
-    build_all([*k1.build_specs(), k2.build_spec(), k3.build_spec(),
-               *native.build_specs()])
+    generic_plans = _planned_generic(lt, k1, trender)
+    generic_plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_all([*k1.build_specs(generic=generic_plans.values()),
+               k2.build_spec(), k3.build_spec(), *native.build_specs()])
     cdither.blue_noise(6)
     cfg.generate_offsets(GRAIN_SEED, 1, 1)
     build_s = time.perf_counter() - t0
     ptxas = {n: build_log(m.build()) for n, m in counters.items()}
-    k1_libs = k1.libraries()
-    ptxas.update({f"k1_tone{t}": build_log(lib) for t, lib in k1_libs.items()
+    # every K1 library of the run loaded here, the generic tails' too: a
+    # CUDA library loaded after a profiler session has started costs each
+    # later session device activities (path J counts a pass's launches)
+    k1_libs = k1.libraries(generic=generic_plans.values())
+    ptxas.update({f"k1_tone{t}": build_log(k1_libs[t]) for t in k1.TONE_LIBS
                   if t != 1})
+    # each generic tail's own instance: its pixel loop's SASS (one pixel
+    # an iteration) and ptxas's report; and one tail's library made
+    # usable in a fresh process, cold and warm.  Both run the toolkit's
+    # programs, so they run here, before any profiler session (after
+    # one, they cost later sessions device activities)
+    generic_sass = {}
+    for plan in generic_plans.values():
+        lib = k1_libs[plan.header]
+        report, = [v for n, v in _sass.ptxas_report(
+            build_log(lib)).items() if "k1_generic" in n]
+        generic_sass[plan.header] = (
+            os.path.basename(lib._name), report,
+            _sass.loop_mix(_sass.disassemble(lib._name), "k1_generic"))
+    k1_generic_build_s = _generic_build_seconds(k1, generic_plans["path_i"])
     ptxas_lines = {n: [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
                    for n, log in ptxas.items()}
@@ -3270,11 +3372,6 @@ def main() -> int:
         torch.from_numpy(ops_dither.bias_matrix(wn, 2 * H, 2 * W, k)).to(dev)
         torch.cuda.synchronize()
         white_noise_host_ms.append((time.perf_counter() - t) * 1e3)
-    gen_lib = k1_libs[k1.GENERIC]
-    k1_generic_sass = _sass.loop_mix(_sass.disassemble(gen_lib._name),
-                                     "k1_generic")
-    k1_generic_ptxas = [v for n, v in _sass.ptxas_report(
-        build_log(gen_lib)).items() if "k1_generic" in n]
     k1_ms = _cuda_ms(lambda: k1.color_map_tail(*flag_k1), 20)
     k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
         flag_k1[0], flag_k1[1].consts, *flag_k1[2:]), 3)
@@ -3313,9 +3410,25 @@ def main() -> int:
         return _sass.loop_mix(disasm[tone], inst)["per_iteration"]
     k1_instances = _k1_instance_table(lt, k1, trender, ops_dither, sass_of,
                                       npix, lanes, k1_mhz, 2 * W, 2 * H, dev)
+
+    def generic_shape(plan, n_px):
+        """A generic plan's own instance (phase 1 built and read it):
+        its pixel loop's SASS, ptxas's report and its instruction floor
+        for n_px pixels at the SM clock above."""
+        assert plan.header in generic_sass, "a tail phase 1 did not build"
+        name, report, mix = generic_sass[plan.header]
+        return {"library": name, "sass_per_pixel": mix["per_iteration"],
+                "sass_classes": mix["classes"],
+                "static_instructions": mix["static_instructions"],
+                "inner_loops": mix["inner_loops"], "ptxas": report,
+                "instruction_floor_ms": mix["per_iteration"] * n_px /
+                (lanes * k1_mhz * 1e6) * 1e3}
     k1_instances.update({
         f"generic,{case}": v for case, v in
-        _k1_generic_table(lt, k1, trender, 2 * W, 2 * H, dev).items()})
+        _k1_generic_table(lt, k1, trender, 2 * W, 2 * H, dev,
+                          generic_shape).items()})
+    k1_path_a_shape = generic_shape(pa_k1[1], npix)
+    assert k1_path_a_shape["ptxas"]["spill_stores"] == 0, k1_path_a_shape
     ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
     k2_runs = []
     k2_ms = _cuda_ms(lambda: k2_runs.append(k2.wavefront(*ed_args)), 5)
@@ -3414,15 +3527,6 @@ def main() -> int:
                                  p.shape[-1]))
         for p, tb, c in zip(planes, tables, cfgs)], 5)
 
-    # the anti-ringing EWA's launches a call, counted by the profiler
-    # last: its tracing slows the host's launches after it
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        polar.sample_polar(*ewa_ar_args)
-        torch.cuda.synchronize()
-    ewa_ar_launches = sum(
-        1 for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA)
     # what the function needs: the ed_w x C x ed_h pixels of the frame
     # read, their codes written (the zeros outside the sheared image
     # change no code that the unshear keeps); per pixel: add, multiply,
@@ -3444,6 +3548,25 @@ def main() -> int:
         k1_pi_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
             pi_k1[0], pi_k1[1].consts, *pi_k1[2:], pi_k1[1].instance), 3)
     k1_pi_ms = _cuda_ms(lambda: k1.color_map_tail(*pi_k1), 20)
+    # path I's own instance: within 10% of the flagship's pixel loop
+    k1_path_i_shape = generic_shape(pi_k1[1], pi_k1[0].shape[-2] *
+                                    pi_k1[0].shape[-1])
+    assert k1_path_i_shape["sass_per_pixel"] <= 2050 and \
+        k1_path_i_shape["ptxas"]["spill_stores"] == 0, k1_path_i_shape
+
+    # the anti-ringing EWA's launches a call, counted by the first
+    # profiler session of the run, after path I: its tracing slows the
+    # host's launches after it, and a kernel library first loaded or
+    # launched after a session (or the toolkit's cuobjdump run) costs
+    # later sessions device activities, which path J counts, so every K1
+    # library has run before it
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        polar.sample_polar(*ewa_ar_args)
+        torch.cuda.synchronize()
+    ewa_ar_launches = sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
 
     # 21. path J: an mpv user's shaders (a RAVU-lite-class luma doubler
     # and a stateful temporal-EMA compute hook, through Options.add_hook)
@@ -3482,7 +3605,9 @@ def main() -> int:
     # (b) K1's launcher raising KernelError and (c) raising the
     # exception type torch uses for a CUDA error (simulated: a real one
     # would leave the context unusable) each propagate out of
-    # Renderer.render with get_errors() empty
+    # Renderer.render with get_errors() empty; (d) an out-of-memory error
+    # in K1's wrapper and (e) a generic tail whose build fails raise
+    # KernelError
     from libplacebo_tpu_torch.core import log as core_log
     ladder = {}
     logged = []
@@ -3554,6 +3679,31 @@ def main() -> int:
     rl.render(_frame(lt, small_f, dev), st, params)
     torch.cuda.synchronize()
     assert k1.launches == 1 and rl.get_errors() == (frozenset(), frozenset())
+    # (e) a generic tail whose instance cannot be built (its generated
+    # header made to fail) raises KernelError when the renderer plans it:
+    # nothing launches, nothing degrades, no other instance runs it
+    real_header = k1.generic_header
+    k1.generic_header = lambda key: \
+        real_header(key) + "#error synthetic build failure\n"
+    col_e, rep_e, bits_e, tgt_e, params_e = path_cell(lt, "A", 256, 128)
+    rl = lt.Renderer(device=dev)
+    for mod in counters.values():
+        mod.launches = 0
+    try:
+        rl.render(_frame_cell(lt, _flagship_yuv(1, 64, 128, seed=7,
+                                                bits=10)[0], dev, col_e,
+                              rep_e, bits_e), tgt_e, params_e)
+        raised = None
+    except Exception as e:      # noqa: BLE001 - checked below
+        raised = e
+    finally:
+        k1.generic_header = real_header
+    torch.cuda.synchronize()
+    assert isinstance(raised, lt.KernelError) and \
+        "synthetic build failure" in str(raised), raised
+    assert all(m.launches == 0 for m in counters.values())
+    assert rl.get_errors() == (frozenset(), frozenset())
+    ladder["e_raised"] = f"{type(raised).__name__}: {str(raised)[:160]}"
     # no feature and no hook was quietly disabled on any path
     for r in (renderer, renderer5, renderer4, renderer2, renderer3,
               rendererA, rendererB, rendererC, rendererD, rendererX,
@@ -3638,6 +3788,7 @@ def main() -> int:
         "k1_path_a_ms": k1_pa_ms, "k1_path_a_plain_ms": k1_pa_plain_ms,
         "k1_path_a_ops_per_pixel": k1.ops_per_pixel(pa_k1[1].consts,
                                                     pa_k1[1].instance),
+        "k1_path_a_instance": k1_path_a_shape,
         "path_c_frame_ms_median": statistics.median(pc_ms),
         "path_c_frame_ms": pc_ms, "path_c_window_ms": pc_window_ms,
         "path_d_frame_ms_median": statistics.median(pd_ms),
@@ -3682,6 +3833,10 @@ def main() -> int:
         "k1_path_i_differing_fraction": pi_frac,
         "k1_path_i_ops_per_pixel": k1.ops_per_pixel(pi_k1[1].consts,
                                                     pi_k1[1].instance),
+        "k1_path_i_instance": k1_path_i_shape,
+        "k1_generic_build_s": {"cold": k1_generic_build_s[0],
+                               "warm": k1_generic_build_s[1]},
+        "k1_generic_plan_s": generic_plan_s,
         **path_j, **path_k, **path_l,
         "gpu_vs_jax": gate_lines, "gpu_vs_jax_s": gate_s,
         "dovi_decode_1080p_ms": dovi_ms, "dovi_rpu_host_ms": rpu_host_ms,
@@ -3691,10 +3846,6 @@ def main() -> int:
         "path_b_icc_encode_4k_ms": icc_ms,
         "white_noise_host_ms": white_noise_host_ms,
         "small_path_render": small_paths,
-        "k1_generic_sass": {k: k1_generic_sass[k] for k in (
-            "per_iteration", "classes", "static_instructions", "calls",
-            "inner_loops")},
-        "k1_generic_ptxas": k1_generic_ptxas,
         "small_config4_config2_config3_render": small42,
         "config4_peak_state": state4.tolist(),
         "k1_sass": {v: {k: m[k] for k in (

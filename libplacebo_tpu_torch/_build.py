@@ -8,8 +8,9 @@ seconds).  A build that fails raises: there is no fallback
 implementation to drop back to.
 
 A library is named by its spec, (name, sources, compiler, flags).
-`build_all` starts one compiler process for every spec at once, so a
-fresh checkout builds in the time of its slowest library.
+`build_all` starts one compiler process for every spec at once (up to
+two a CPU core), so a fresh checkout builds in the time of its slowest
+library.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 
 __all__ = ["BUILD_DIR", "KernelError", "is_kernel_failure", "kernel_work",
            "build_all", "build_log", "build_shared", "generated_include",
-           "load_shared", "nvcc_path", "set_build_dir"]
+           "include_digest", "load_shared", "nvcc_path", "set_build_dir"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
@@ -92,13 +93,17 @@ def nvcc_path() -> str:
                        "toolkit under /usr/local/cuda)")
 
 
+def include_digest(filename: str, text: str) -> str:
+    """The hash that names a generated source's directory."""
+    return hashlib.sha256(f"{filename}\n{text}".encode()).hexdigest()[:16]
+
+
 def generated_include(filename: str, text: str) -> str:
     """Write `text`, a source made at build time, as
     BUILD_DIR/gen-<hash>/<filename> and return that directory for `-I`.
     Its name follows the text, so the flags, and with them the hash of
     every library built against it, change when the text does."""
-    digest = hashlib.sha256(f"{filename}\n{text}".encode()).hexdigest()
-    inc = os.path.join(BUILD_DIR, f"gen-{digest[:16]}")
+    inc = os.path.join(BUILD_DIR, f"gen-{include_digest(filename, text)}")
     path = os.path.join(inc, filename)
     if not os.path.exists(path):
         os.makedirs(inc, exist_ok=True)
@@ -163,11 +168,19 @@ def build_shared(name: str, sources, compiler: str, flags) -> str:
 
 
 def build_all(specs) -> list:
-    """build_shared for every (name, sources, compiler, flags) spec, all
-    compiler processes started together; returns the paths."""
-    jobs = [_start(*spec) for spec in specs]
+    """build_shared for every (name, sources, compiler, flags) spec, the
+    compiler processes started together (at most two a CPU core at a
+    time, in order); returns the paths."""
+    specs = list(specs)
+    limit = 2 * (os.cpu_count() or 4)
+    jobs: list = []
     try:
-        return [_finish(out, job) for out, job in jobs]
+        paths = []
+        for i in range(len(specs)):
+            while len(jobs) < min(len(specs), i + limit):
+                jobs.append(_start(*specs[len(jobs)]))
+            paths.append(_finish(*jobs[i]))
+        return paths
     finally:
         for _, job in jobs:
             if job is not None and job[3].poll() is None:

@@ -12,12 +12,16 @@ two kinds:
   through one IPT round trip, or the pass-through fast path), sRGB
   delinearize, identity RGB encode, ordered dither, and with a tone
   curve the per-stripe peak partials (`plan_tail`, `INSTANCES`);
-- one generic instance for every other tail (`plan_generic`): a static
+- the generic instance for every other tail (`plan_generic`): a static
   curve or a dynamic one with same-frame stats, all nine gamut
   operators, every target transfer, non-identity encodes, show_clipping
-  and white-noise or low-depth gamma dither, its parts chosen by ids
-  uniform across a launch (`GenericMode`).  Its plain version is the
-  port's own stages (`GenericSpec.plain`, built by the renderer).
+  and white-noise or low-depth gamma dither.  It is compiled once a
+  tail, at first use: the tail's ids (`GenericMode`), matrix-row mix
+  codes, fit-row masks and switches become a generated header
+  (`generic_header`), so the instance a launch runs has every
+  launch-uniform choice made at compile time (`prepare`, called by the
+  renderer when it plans the tail).  Its plain version is the port's
+  own stages (`GenericSpec.plain`, built by the renderer).
 
 Everything static is planned on the host in float64 and packed once
 into one float32 vector (`LAYOUT`), kept in host memory: each launch
@@ -61,8 +65,9 @@ from ..peak_detect import stripe_partials
 __all__ = ["LAYOUT", "TailPlan", "RowMasks", "plan_tail", "pack_constants",
            "row_masks", "color_map_tail", "color_map_plain",
            "pick_block_rows", "launches", "ops_per_pixel", "sqrt_check",
-           "build", "build_specs", "INSTANCES", "TONES", "GAMUTS",
-           "instance_name"]
+           "build", "build_specs", "libraries", "INSTANCES", "TONES",
+           "GAMUTS", "TONE_LIBS", "instance_name", "GenericKey",
+           "generic_key", "generic_header", "generic_spec", "prepare"]
 
 _NCOEF = (2 * HARMONICS + 1) * (POLY_DEG + 1)
 _NFOURIER = 2 * HARMONICS + 1
@@ -220,7 +225,8 @@ class TailPlan:
     read-only copy), the dither LUT (None = no dither), the kernel
     instance (`tone` index into TONES, `gamut` into GAMUTS), its runtime
     `flags` (FLAG_*), and the row masks, always derived from those
-    constants."""
+    constants; a generic plan also carries the header its instance is
+    compiled with (`generic_header`)."""
     consts: np.ndarray
     lut: Optional[np.ndarray] = None
     tone: int = 1
@@ -228,6 +234,7 @@ class TailPlan:
     flags: int = 0
     generic: Optional[GenericSpec] = None
     rows: RowMasks = field(init=False)
+    header: Optional[str] = field(init=False, compare=False)
 
     def __post_init__(self):
         if self.tone == GENERIC:
@@ -241,6 +248,8 @@ class TailPlan:
         consts.setflags(write=False)
         object.__setattr__(self, "consts", consts)
         object.__setattr__(self, "rows", row_masks(consts))
+        object.__setattr__(self, "header", generic_header(generic_key(self))
+                           if self.tone == GENERIC else None)
 
     @property
     def instance(self):
@@ -403,14 +412,18 @@ def plan_tail(chain, params, dst_color, target, fused_peak: bool,
 # The generic instance: every other tail the reference's kernel runs
 # ---------------------------------------------------------------------------
 #
-# One more kernel (csrc/color_map.cu, built with -DK1_TONE=-1) takes the
-# chain's parts as ids that are uniform across a launch: the static tone
-# curve or a dynamic one (its stats measured in the same pass or the
-# frame before), every gamut operator, every target transfer, the encode
-# (a matrix, or the non-linear systems), show_clipping, and an ordered,
-# white-noise or low-depth gamma dither.  Its plain version is the
-# port's own stages (`GenericSpec.plain`, built by the renderer); the
-# kernel repeats their arithmetic as PyTorch runs it on the card.
+# One more kernel (csrc/color_map.cu, built with -DK1_TONE=-1) runs the
+# chain's parts by ids: the static tone curve or a dynamic one (its stats
+# measured in the same pass or the frame before), every gamut operator,
+# every target transfer, the encode (a matrix, or the non-linear
+# systems), show_clipping, and an ordered, white-noise or low-depth gamma
+# dither.  The ids, the mix codes of the chain's matrix rows, the fit-row
+# masks and a few switches of the plan form its GenericKey; each key is
+# compiled into a library of its own from a generated header
+# (`generic_header`), so none of them is a runtime value in the kernel.
+# Its plain version is the port's own stages (`GenericSpec.plain`, built
+# by the renderer); the kernel repeats their arithmetic as PyTorch runs
+# it on the card.
 
 GENERIC = -1
 # ids shared with csrc/color_map.cu (passed as -DK1G_* macros)
@@ -427,7 +440,7 @@ G_DITHER = ("none", "lut", "table")
 
 
 class GenericMode(NamedTuple):
-    """The generic instance's launch-uniform ids (csrc: K1Mode)."""
+    """The generic instance's part ids (csrc: the header's kG_*)."""
     kind: int = 1          # 0 the pass-through chain, 1 the IPT round trip
     gamut: int = 0         # G_GAMUTS
     tone_kind: int = 0     # 0 none, 1 dynamic (TONES), 2 static (G_STATIC)
@@ -751,6 +764,90 @@ def plan_generic(chain, params, src_color, dst_color, target,
                        dither=dmode)
     return TailPlan(consts, dither[1] if dither else None, tone=GENERIC,
                     gamut=GENERIC, generic=GenericSpec(mode, dynamic, plain))
+
+
+# the exponents torch.pow special-cases on the card (csrc: tpow_case), in
+# the order it tests them; any other takes powf
+_POW_CASES = (0.0, 1.0, 0.5, -1.0, 2.0, 3.0)
+# the plan's switches the generic instance is compiled with, beside its
+# ids, mix codes and fit-row masks (csrc: the header's kG_<name>)
+G_SWITCHES = ("bezier", "st40_linear", "bt2390_knee", "tone_pow",
+              "trc_scaled", "dither_steps", "dither_pow")
+_G_ROWS = ("src_kept", "dst_kept", "src_swap", "dst_swap")
+
+
+def _pow_case(e) -> int:
+    """torch.pow's case of the float32 exponent `e` (csrc: tpow_case)."""
+    e = float(np.float32(e))
+    return _POW_CASES.index(e) if e in _POW_CASES else len(_POW_CASES)
+
+
+class GenericKey(NamedTuple):
+    """Everything the generic instance of one tail is compiled with: the
+    ids, the 27 matrix rows' mix codes (g_mix), the fit-row masks the
+    gamut operator reads (`_G_ROWS`; 0 where it reads none) and the
+    switches (`G_SWITCHES`; 0 where the chain has no such part)."""
+    mode: GenericMode
+    mix: tuple
+    rows: tuple
+    switches: tuple
+
+
+def generic_key(plan: TailPlan) -> GenericKey:
+    """The GenericKey of a generic plan, read from its ids and packed
+    (float32) constants, as the kernel would read them at run time."""
+    mode = plan.generic.mode
+    c = plan.consts
+    mix = tuple(int(v) for v in c[_OFF["g_mix"]:_OFF["g_mix"] + 27])
+    gamut = G_GAMUTS[mode.gamut] if mode.kind else None
+    r = plan.rows
+    if gamut in ("perceptual", "softclip"):
+        rows = (r.src_kept, r.dst_kept, r.src_swap, r.dst_swap)
+    elif gamut in ("relative", "desaturate", "absolute"):
+        rows = (0, r.dst_kept, 0, r.dst_swap)
+    else:
+        rows = (0, 0, 0, 0)
+    q = c[_OFF["g_tone"] + 6:_OFF["g_tone"] + 56]
+    curve = G_STATIC[mode.curve] if mode.kind and mode.tone_kind == 2 \
+        else None
+    gamma_dither = bool(mode.dither and mode.flags & GFLAG_DITHER_GAMMA)
+    sw = dict(
+        bezier=int(q[10]) if curve == "st2094-40" else 0,
+        st40_linear=int(curve == "st2094-40" and q[7] != 0),
+        bt2390_knee=int(curve == "bt2390" and q[9] != 0),
+        tone_pow=_pow_case(q[6]) if curve == "bt2390" else
+        _pow_case(q[4]) if curve == "gamma" else 0,
+        trc_scaled=int(G_TRCS[mode.trc] != "linear" and
+                       c[_OFF["g_trc"]] != 0),
+        dither_steps=int(gamma_dither and c[_OFF["dither_scale"]] != 1),
+        dither_pow=_pow_case(c[_OFF["g_dith"]]) if gamma_dither else 0)
+    return GenericKey(mode, mix, rows, tuple(sw[n] for n in G_SWITCHES))
+
+
+def generic_header(key: GenericKey) -> str:
+    """The C++ header `k1_generic.h` that compiles the generic instance
+    for one tail (csrc/color_map.cu includes it under K1_TONE = -1): each
+    id, fit-row mask and switch as `constexpr int kG_<name> = <value>;`
+    and the mix codes as the table of `gmix`.  A function of the key
+    alone, so equal tails share a library."""
+    lines = ["// Generated by ops/cuda/color_map.py::generic_header: one",
+             "// tail of K1's generic instance, every launch-uniform choice",
+             "// a constant.",
+             "// ids (GenericMode)"]
+    lines += [f"constexpr int kG_{n} = {v};"
+              for n, v in zip(GenericMode._fields, key.mode)]
+    lines.append("// the boundary fits' row masks (RowMasks)")
+    lines += [f"constexpr int kG_{n} = {v};" for n, v in zip(_G_ROWS,
+                                                             key.rows)]
+    lines.append("// the plan's switches (color_map.py::generic_key)")
+    lines += [f"constexpr int kG_{n} = {v};"
+              for n, v in zip(G_SWITCHES, key.switches)]
+    lines += ["// the matrix rows' mix codes (color_map.py::_mix_code)",
+              "__host__ __device__ constexpr int gmix(int i) {",
+              "  constexpr int kCodes[27] = {" +
+              ", ".join(str(v) for v in key.mix) + "};",
+              "  return kCodes[i];", "}", ""]
+    return "\n".join(lines)
 
 
 # FP32 operations a pixel of the generic instance's parts, counted from
@@ -1155,15 +1252,43 @@ def instance_name(tone: int, gamut: int, dither: bool) -> str:
     return f"k1_color_mapILi{tone}ELi{gamut}ELb{int(dither)}EE"
 
 
-def build_specs():
+def build_specs(generic=()):
     """The kernel libraries' build specs (_build.build_all): one library
-    a tone curve, holding that curve's (gamut, dither) instances, so the
-    compilers run side by side."""
+    a tone curve, holding that curve's (gamut, dither) instances, and one
+    for each generic tail of `generic` (TailPlans), so the compilers run
+    side by side."""
     from ..._build import nvcc_path
-    tones = sorted({t for t, _ in INSTANCES}) + [GENERIC]
-    return [(f"k1_color_map_t{t}" if t >= 0 else "k1_color_map_generic",
-             ["csrc/color_map.cu"], nvcc_path(),
-             kernel_flags() + [f"-DK1_TONE={t}"]) for t in tones]
+    generic = list(generic)
+    if any(p.tone != GENERIC for p in generic):
+        raise ValueError("K1: build_specs(generic=...) takes generic plans")
+    specs = [(f"k1_color_map_t{t}", ["csrc/color_map.cu"], nvcc_path(),
+              kernel_flags() + [f"-DK1_TONE={t}"]) for t in TONE_LIBS]
+    return specs + [generic_spec(h) for h in
+                    dict.fromkeys(p.header for p in generic)]
+
+
+# the tone curves of the templated libraries
+TONE_LIBS = tuple(sorted({t for t, _ in INSTANCES}))
+_GENERIC_H = "k1_generic.h"
+
+
+def generic_spec(header: str):
+    """The build spec of the generic instance compiled with `header`
+    (TailPlan.header): the header written as build/gen-<hash>/
+    k1_generic.h, the library named by the same hash."""
+    from ..._build import generated_include, include_digest, nvcc_path
+    inc = generated_include(_GENERIC_H, header)
+    return (f"k1_color_map_g{include_digest(_GENERIC_H, header)}",
+            ["csrc/color_map.cu"], nvcc_path(),
+            kernel_flags() + ["-DK1_TONE=-1", "-I", inc])
+
+
+def _typed(lib):
+    lib.k1_sqrt_check_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.k1_sqrt_check_launch.restype = ctypes.c_int
+    lib.k1_error_string.argtypes = [ctypes.c_int]
+    lib.k1_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -1172,41 +1297,58 @@ def _kernel_lib(tone: int = 1):
     first use; looked up once, since finding the compiler costs more
     than a launch)."""
     from ..._build import load_shared
-    suffix = f"_t{tone}" if tone >= 0 else "_generic"
-    spec, = [sp for sp in build_specs() if sp[0].endswith(suffix)]
+    spec, = [sp for sp in build_specs() if sp[0] == f"k1_color_map_t{tone}"]
     lib = load_shared(*spec)
-    if tone >= 0:
-        fn = lib.k1_color_map_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
-            [ctypes.c_void_p]
-    else:
-        fn = lib.k1_generic_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
-            [ctypes.c_int] * len(GenericMode._fields) + [ctypes.c_void_p]
-        st = lib.k1_static_tone_launch
-        st.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        st.restype = ctypes.c_int
+    fn = lib.k1_color_map_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.k1_sqrt_check_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.k1_sqrt_check_launch.restype = ctypes.c_int
-    lib.k1_error_string.argtypes = [ctypes.c_int]
-    lib.k1_error_string.restype = ctypes.c_char_p
-    return lib
+    return _typed(lib)
 
 
-def libraries():
-    """Every K1 library, built and loaded: {tone index: library}."""
+@functools.lru_cache(maxsize=None)
+def _generic_lib(header: str):
+    """The loaded, typed library of the generic instance compiled with
+    `header` (built at first use)."""
+    from ..._build import load_shared
+    lib = load_shared(*generic_spec(header))
+    fn = lib.k1_generic_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    st = lib.k1_static_tone_launch
+    st.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    st.restype = ctypes.c_int
+    return _typed(lib)
+
+
+def prepare(plan: TailPlan):
+    """Compile (once) and load the library a generic plan launches: the
+    renderer calls it when it plans the tail, so no launch waits for a
+    build.  A failure raises KernelError (no other instance, and no
+    plain tail, runs in its place).  Returns the library."""
+    if plan.tone != GENERIC:
+        raise ValueError("K1: only a generic plan has a library of its own")
+    with kernel_work("K1"):
+        return _generic_lib(plan.header)
+
+
+def libraries(generic=()):
+    """Every templated K1 library and the libraries of the generic plans
+    `generic`, built side by side and loaded: {tone index or
+    TailPlan.header: library}."""
     from ..._build import build_all
-    build_all(build_specs())
-    return {t: _kernel_lib(t)
-            for t in sorted({t for t, _ in INSTANCES}) + [GENERIC]}
+    generic = list(generic)
+    build_all(build_specs(generic))
+    libs = {t: _kernel_lib(t) for t in TONE_LIBS}
+    libs.update({p.header: _generic_lib(p.header) for p in generic})
+    return libs
 
 
 def build():
-    """Compile (once) and load every K1 library; returns the flagship
-    chain's (the spline's)."""
+    """Compile (once) and load every templated K1 library; returns the
+    flagship chain's (the spline's)."""
     return libraries()[1]
 
 
@@ -1302,8 +1444,9 @@ def color_map_tail(img, plan, tone, lut):
 
 
 def _launch_generic(img, plan, tone, bias):
-    """Launch the generic instance (csrc: k1_generic_launch); `bias` is
-    the square dither LUT, the (H, W) white-noise frame or None."""
+    """Launch the plan's own generic instance (csrc: k1_generic_launch);
+    `bias` is the square dither LUT, the (H, W) white-noise frame or
+    None."""
     global launches
     C, H, W = img.shape
     _check(img, "img", (3, H, W))
@@ -1333,8 +1476,7 @@ def _launch_generic(img, plan, tone, bias):
                               device=img.device)
             partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
                                    device=img.device)
-        lib = _kernel_lib(GENERIC)
-        rows = plan.rows
+        lib = _generic_lib(plan.header)
         rc = lib.k1_generic_launch(
             img.data_ptr(), out.data_ptr(),
             sub.data_ptr() if sub is not None else None,
@@ -1342,9 +1484,7 @@ def _launch_generic(img, plan, tone, bias):
             plan.consts.ctypes.data,
             tone.data_ptr() if tone is not None else None,
             bias.data_ptr() if bias is not None else None,
-            n, H, W, bh, rows.src_kept, rows.dst_kept, rows.src_swap,
-            rows.dst_swap, *mode,
-            torch.cuda.current_stream(img.device).cuda_stream)
+            n, H, W, bh, torch.cuda.current_stream(img.device).cuda_stream)
         if rc != 0:
             raise KernelError("K1 launch failed: " +
                                lib.k1_error_string(rc).decode())
@@ -1353,18 +1493,16 @@ def _launch_generic(img, plan, tone, bias):
 
 
 def static_tone_on_card(x, plan):
-    """The generic instance's static curve alone on a 1D CUDA tensor of
-    PQ values (a test hook for `plan`'s static tone)."""
-    mode = plan.generic.mode
-    if mode.tone_kind != 2:
+    """The static curve of a generic plan alone, on a 1D CUDA tensor of
+    PQ values, through the plan's own library (a test hook)."""
+    if plan.generic.mode.tone_kind != 2:
         raise ValueError("K1: the plan has no static tone curve")
     _check(x, "x")
     with kernel_work("K1"):
         y = torch.empty_like(x)
-        lib = _kernel_lib(GENERIC)
+        lib = _generic_lib(plan.header)
         rc = lib.k1_static_tone_launch(
             x.data_ptr(), y.data_ptr(), x.numel(), plan.consts.ctypes.data,
-            mode.curve, mode.scaling,
             torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
             raise KernelError("K1 launch failed: " +

@@ -1430,7 +1430,8 @@ class Renderer:
         not eligible, in which case the plain stages run.  The gates are
         the reference's (renderer.py:1565-1574); an eligible tail runs
         a templated K1 instance where one exists (ops/cuda/color_map.py::
-        plan_tail), else the generic one (plan_generic), whose plain
+        plan_tail), else the generic one (plan_generic; on the card the
+        tail's own instance is compiled here, k1.prepare), whose plain
         version is the stages composed here as the reference's tail_fn
         composes them."""
         if not _tail_eligible(params, target, dst_w, dst_h, dst_crop,
@@ -1494,6 +1495,10 @@ class Renderer:
                                    target, fused_peak, dither, plain,
                                    static_tone=static_tp,
                                    show_bounds=thresholds)
+            if plan is not None and self.device.type == "cuda":
+                # the tail's own instance, compiled now rather than at its
+                # first launch (KernelError if it cannot be)
+                k1.prepare(plan)
         if plan is None:
             return None
         lut_t = torch.from_numpy(plan.lut).to(self.device) \

@@ -767,15 +767,40 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module")
+def generic_libraries():
+    """Every TAILS case's generic instance (dithered and not, as the
+    tests below plan them; an undithered case a templated instance runs
+    has none), compiled side by side in one build_all before the first
+    test launches one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    plans = []
+    with pytest.MonkeyPatch.context() as mp:
+        for key in TAILS:
+            for dither in (True, False):
+                src, dst, kw, bits, rep = TAILS[key]
+                if not dither:
+                    if bits <= 4:
+                        continue
+                    mp.setitem(TAILS, key, (src, dst, kw, 0, rep))
+                ttail, *_ = _tail_setup(key, 64, 256)
+                if ttail.plan.tone == k1.GENERIC:
+                    plans.append(ttail.plan)
+                mp.setitem(TAILS, key, (src, dst, kw, bits, rep))
+    return k1.libraries(generic=plans)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dither", [True, False])
 @pytest.mark.parametrize("key", list(TAILS))
-def test_k1_generic_matches_plain_on_card(cuda_device, monkeypatch, key,
-                                          dither):
+def test_k1_generic_matches_plain_on_card(cuda_device, generic_libraries,
+                                          monkeypatch, key, dither):
     """The generic instance on the card vs its plain version (the port's
     stages) on the same input, dithered and not: bit for bit, partials'
     histograms equal and sums rtol 1e-5; two launches give identical
-    outputs."""
+    outputs.  Each runs its own compiled instance (built up front by
+    the module's fixture)."""
     seen = _capture_plan(monkeypatch)
     h, w = 64, 256
     if not dither:
@@ -788,6 +813,7 @@ def test_k1_generic_matches_plain_on_card(cuda_device, monkeypatch, key,
     stats = (torch.tensor(0.3), torch.tensor(0.72)) if use_peak else None
     ttail(torch.from_numpy(x), stats)
     _, plan, tone, lut = seen[0]
+    assert plan.tone != k1.GENERIC or plan.header in generic_libraries
     img = torch.from_numpy(x).to(cuda_device)
     tone = tone.to(cuda_device) if tone is not None else None
     lut = lut.to(cuda_device) if lut is not None else None
@@ -814,14 +840,18 @@ def test_k1_generic_matches_plain_on_card(cuda_device, monkeypatch, key,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("key", [k for k in TAILS if k.startswith("static")])
-def test_k1_static_curve_matches_apply_device_on_card(cuda_device, key):
+def test_k1_static_curve_matches_apply_device_on_card(cuda_device,
+                                                      generic_libraries,
+                                                      key):
     """Each static curve of the generic instance alone, on PQ values
     over [0, 1], against core/tone_mapping.py::apply_device run by
     PyTorch on the card: bit for bit (NaN where both are NaN: a curve's
     BT.1886 helpers take a power of a rounding-negative base at the
-    input's lower end, in the reference as well)."""
+    input's lower end, in the reference as well).  The curve runs in
+    the plan's own library."""
     from libplacebo_tpu_torch.core import tone_mapping as ttm
     ttail, _, _, (ts, td, tp, tt), _ = _tail_setup(key, 16, 128)
+    assert ttail.plan.header in generic_libraries
     chain = trender.color_chain(ts, td, tp, False)
     tparams = trender._static_tone_params(ts, tp, chain)
     x = torch.linspace(0.0, 1.0, 1 << 16, device=cuda_device)
@@ -834,6 +864,32 @@ def test_k1_static_curve_matches_apply_device_on_card(cuda_device, key):
           f"{diff.max().item():.3g}, at {[(x[i].item(), got[i].item(),
                                            want[i].item()) for i in bad]}")
     assert same.all()
+
+
+@pytest.mark.cuda
+def test_k1_generic_build_failure_raises_and_launches_nothing(cuda_device,
+                                                               monkeypatch):
+    """A generic tail whose instance does not build (its generated header
+    made to fail) raises KernelError when the renderer plans it: no
+    kernel launches, nothing degrades, and no other instance or plain
+    tail renders it."""
+    real = k1.generic_header
+    monkeypatch.setattr(k1, "generic_header", lambda key: real(key) +
+                        "#error synthetic build failure\n")
+    tcolor_, trep, bits, ttgt, tkw = _path(tcs, "A", False)
+    tt = lt.Target(w=2 * SRC_W, h=2 * SRC_H, **ttgt)
+    rg = lt.Renderer(device=cuda_device)
+    before = k1.launches
+    trender.k1_tails = trender.plain_tails = 0
+    yuv = _yuv(1, bits, seed=5)[0]
+    with pytest.raises(lt.KernelError, match="synthetic build failure"):
+        rg.render(lt.frame_from_yuv420p(*yuv, color=tcolor_, repr=trep,
+                                        bit_depth=bits, device=cuda_device),
+                  tt, lt.RenderParams(**tkw))
+    torch.cuda.synchronize()
+    assert k1.launches == before
+    assert trender.k1_tails == trender.plain_tails == 0
+    assert rg.get_errors() == (frozenset(), frozenset())
 
 
 @pytest.mark.cuda
