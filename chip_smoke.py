@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (each runs uncaught: any failure exits non-zero):
  1. build the hand-written kernels from csrc/ (one nvcc a library — K1
     is one library a tone curve, and one a generic tail: those of paths
-    A and I and of `GENERIC_CASES`, planned on the CPU first — all at
-    once) and the native host code (blue noise, film grain), keeping
+    A and I and of `GENERIC_CASES`, planned on the CPU first; K2 one for
+    the built-in patterns and one for each of phase 9's — all at once) and the native host code (blue noise, film grain), keeping
     ptxas's register and spill report, and read K1's pixel loop out of
     its SASS (libplacebo_tpu_torch/_sass.py: instructions an iteration
     by class, calls, ptxas's stack frame), for the flagship instance and
@@ -26,11 +26,15 @@ Phases (each runs uncaught: any failure exits non-zero):
     3, K3 6 times); the output must be 8-bit codes;
  5. hold K1 without dither, K2 and K3 (both ways) against their plain
     versions on frame 2's inputs at 4K (K2 also for Jarvis-Judice-Ninke,
-    s = 3, on the same frame sheared for it), and the config-5 GPU render
-    against the CPU render on a small input;
+    s = 3, on the same frame sheared for it; K3 in the renderer's (C, H,
+    W) layout and in the reference's (W, C, H) layout through the
+    JAX-signature entries, each beside one torch.take of the same
+    relayout), and
+    the config-5 GPU render against the CPU render on a small input;
  6. time the renders (config 5 with a new grain seed every frame),
     every kernel, its plain version, K3's one-call PyTorch counterpart
-    (torch.gather), deband, grain, and the host's making of one frame's
+    (torch.take, its index built beforehand) and each direction's bound,
+    deband, grain, and the host's making of one frame's
     grain tables; K2's timed runs must all return the codes of its first
     (a race between its bands would show as a difference), and K2 is
     timed on one 32-row band and on one channel of the same columns,
@@ -53,9 +57,16 @@ Phases (each runs uncaught: any failure exits non-zero):
     input at 4K and the GPU render against the CPU render on a small
     input; time the render and the anti-ringing EWA alone on frame 2's
     1080p input (`ewa_ar_ms`, its launches a call and its bound);
- 9. K2 on a pattern outside the compiled ten (taps given at launch)
-    against its plain version on config 5's sheared frame at 4K: exact,
-    and timed beside the compiled Floyd-Steinberg instance;
+ 9. K2 on three patterns outside the compiled ten, each compiled into
+    a library of its own in phase 1 (`K2_CUSTOM`: config 5's shift, a
+    tap at sheared offset 18, a shift of 16): config 5's 4K frame
+    through ops.dithering.error_diffusion with each, every count set to
+    0 just before and read just after (K2's by library: once each);
+    then each on the frame sheared for it, exact against its plain
+    version, timed, with its bound; a renamed copy of Floyd-Steinberg gives the built-in
+    instance's codes, timed beside it in turns; the seconds one
+    pattern's library takes to be usable in a fresh process, cold and
+    warm (`k2_custom_build_s`);
 10. path A, "HLG broadcast on an HDR10 display" (`path_cell`): config
     4's 10-bit content as limited BT.2020-NC HLG -> 3840x2160 10-bit
     full-range BT.2020 PQ at 600 nits, RenderParams(upscaler=
@@ -255,6 +266,16 @@ import numpy as np
 
 LSB = 1.0 / 255.0
 GRAIN_SEED = 7391
+# phase 9's error-diffusion patterns outside the compiled ten, (name,
+# description, shift, pattern, divisor): config 5's shift; a tap at
+# sheared offset 18; a 34-column window
+K2_CUSTOM = [
+    ("custom-3row", "", 2,
+     ((0, 0, 0, 5, 2), (0, 3, 4, 1, 0), (0, 0, 1, 0, 0)), 16),
+    ("too-far", "", 8, ((0, 0, 0, 1, 0), (0, 0, 0, 0, 0), (0, 0, 0, 0, 1)),
+     2),
+    ("shift-16", "", 16,
+     ((0, 0, 0, 4, 1), (1, 2, 3, 2, 1), (0, 1, 1, 1, 1)), 18)]
 
 
 def _flagship_yuv(n, h, w, seed=0, bits=8):
@@ -385,36 +406,34 @@ def _k1_entry(k1, name, args, part, launches, max_abs_err, ms, plain_ms):
 
 
 def _k2_k3_entries(k2, k3, k2_args, k3_calls, path, launches, k2_reps):
-    """K2 on its captured arguments and K3 on each captured (x, w_out, s,
-    w, h, forward) call, exact against their plain versions (comparison
-    launches are not counted by the caller), each timed beside its plain
-    version (K3 also beside torch.gather's relayout), with its bound from
-    bench_micro's helpers.  Returns the kernels line's K2 and K3 entries
-    for `path`, with `launches` ({"k2": n, "k3": n}) from its run."""
+    """K2 on its captured arguments and K3 on each captured (forward,
+    args) call (bench_micro.capture_ed's form), exact against their
+    plain versions (comparison launches are not counted by the caller),
+    each timed beside its plain version (K3 also beside one torch.take
+    of the same relayout), with its bound from bench_micro's helpers.
+    Returns the kernels line's K2 and K3 entries for `path`, with
+    `launches` ({"k2": n, "k3": n}) from its run."""
     import torch
     from libplacebo_tpu_torch.tools.bench_micro import (bound_ms, k2_bound,
-                                                        k3_bytes)
+                                                        k3_bytes, k3_run)
     got, want = k2.wavefront(*k2_args), k2.wavefront_plain(*k2_args)
     torch.cuda.synchronize()
     assert torch.equal(got, want), f"K2 on {path}"
     k2_err = float((got.float() - want.float()).abs().max())
     del got, want
     k3_err = k3_ms = k3_plain_ms = k3_lib_ms = 0.0
-    for x, w_out, s, w, h, fwd in k3_calls:
-        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
-        got = wrapper(x, w_out, s, w, h)
-        want = k3.shear_plain(x, w_out, s, w, h, fwd)
+    for fwd, args in k3_calls:
+        got, want = k3_run(fwd, args), k3_run(fwd, args, plain=True)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (f"K3 on {path}", fwd)
         k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
         del got, want
-        k3_ms += _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
-        k3_plain_ms += _cuda_ms(
-            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
-        k3_lib_ms += _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
+        k3_ms += _cuda_ms(lambda: k3_run(fwd, args), 20)
+        k3_plain_ms += _cuda_ms(lambda: k3_run(fwd, args, plain=True), 2)
+        k3_lib_ms += _cuda_ms(_take_shear(fwd, args), 20)
     k2_b, k2_by = k2_bound(*k2_args)
-    k3_b, k3_by = bound_ms(sum(k3_bytes(x, w_out, w, h, fwd)
-                               for x, w_out, _, w, h, fwd in k3_calls))
+    k3_b, k3_by = bound_ms(sum(k3_bytes(fwd, args)
+                               for fwd, args in k3_calls))
     return [
         {"name": f"k2_error_diffusion_{path}", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
@@ -429,6 +448,31 @@ def _k2_k3_entries(k2, k3, k2_args, k3_calls, path, launches, k2_reps):
          "launches": launches["k3"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_b,
          "bound_by": k3_by, "library_ms": k3_lib_ms}]
+
+
+def _k3_capture(store, keep=None):
+    """Wrap K3's (C, H, W) entries so that each call is appended to
+    `store` as bench_micro.capture_ed's (forward, args), its tensor
+    cloned, where keep(call index) is true (every call by default).
+    Returns the function that restores the entries."""
+    from libplacebo_tpu_torch.ops.cuda import shear as k3
+    real = (k3.shear_chw, k3.unshear_chw)
+    seen = [0]
+
+    def wrap(forward):
+        def run(t, s, *rest):
+            if keep is None or keep(seen[0]):
+                args = (t.clone(), s) + rest
+                store.append((forward, args if forward else
+                              args + (None,) * (4 - len(args))))
+            seen[0] += 1
+            return real[0 if forward else 1](t, s, *rest)
+        return run
+    k3.shear_chw, k3.unshear_chw = wrap(True), wrap(False)
+
+    def restore():
+        k3.shear_chw, k3.unshear_chw = real
+    return restore
 
 
 def _k1_instance_table(lt, k1, trender, ops_dither, sass_of, npix, lanes,
@@ -1552,24 +1596,16 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
     instrument(ema)
 
     # frame 2's K2 input and K3 inputs, kept for the exactness checks
-    cap = {"k2": None, "k3": [], "n2": 0, "n3": 0}
-    real = (k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj)
+    cap = {"k2": None, "k3": [], "n2": 0}
+    real = k2.wavefront
 
     def cap_k2(colmaj, kernel, depth, w, h):
         if cap["n2"] == 2:
             cap["k2"] = (colmaj.clone(), kernel, depth, w, h)
         cap["n2"] += 1
-        return real[0](colmaj, kernel, depth, w, h)
-
-    def cap_k3(forward):
-        def run(x, w_out, s, w, h):
-            if cap["n3"] in (4, 5):
-                cap["k3"].append((x.clone(), w_out, s, w, h, forward))
-            cap["n3"] += 1
-            return real[1 if forward else 2](x, w_out, s, w, h)
-        return run
+        return real(colmaj, kernel, depth, w, h)
     k2.wavefront = cap_k2
-    k3.shear_to_colmaj, k3.unshear_from_colmaj = cap_k3(True), cap_k3(False)
+    restore_k3 = _k3_capture(cap["k3"], lambda i: i in (4, 5))
     try:
         for mod in counters.values():
             mod.launches = 0
@@ -1588,7 +1624,8 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
         tails = (trender.k1_tails, trender.plain_tails,
                  trender.ineligible_tails)
     finally:
-        k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj = real
+        k2.wavefront = real
+        restore_k3()
     assert launches == {"k1": 0, "k2": 8, "k3": 16}, launches
     assert tails == (0, 0, 8), tails
     assert not errors and renderer.get_errors() == \
@@ -1603,7 +1640,7 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
     codes = out * 255.0
     assert float((codes - torch.round(codes)).abs().max()) <= 255e-6
-    assert len(cap["k3"]) == 2 and cap["k3"][0][5] and not cap["k3"][1][5]
+    assert len(cap["k3"]) == 2 and cap["k3"][0][0] and not cap["k3"][1][0]
 
     # a warm frame: the hooks synchronize nowhere and upload nothing
     uploads = (ravu.cache.uploads, ema.cache.uploads)
@@ -1953,8 +1990,7 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
     step5(sharded_state_init(mesh, 2), *batches5[0],
           grain_tables=grain_tables(0))                    # warm-up
     cap = {"k1": [], "k2": [], "k3": []}
-    real = (k1.color_map_tail, k2.wavefront, k3.shear_to_colmaj,
-            k3.unshear_from_colmaj)
+    real = (k1.color_map_tail, k2.wavefront)
 
     def cap1(img, plan, tone, lut):
         if len(cap["k1"]) < 2:
@@ -1966,13 +2002,6 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
         if len(cap["k2"]) < 2:
             cap["k2"].append((colmaj.clone(), kernel, depth, w, h))
         return real[1](colmaj, kernel, depth, w, h)
-
-    def cap3(forward):
-        def run(x, w_out, s, w, h):
-            if len(cap["k3"]) < 4:
-                cap["k3"].append((x.clone(), w_out, s, w, h, forward))
-            return real[2 if forward else 3](x, w_out, s, w, h)
-        return run
     box5 = {"state": sharded_state_init(mesh, 2), "states": []}
 
     def run_rep(c):
@@ -1981,12 +2010,12 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
         box5["states"].append(box5["state"].clone())
         return out
     k1.color_map_tail, k2.wavefront = cap1, cap2
-    k3.shear_to_colmaj, k3.unshear_from_colmaj = cap3(True), cap3(False)
+    restore_k3 = _k3_capture(cap["k3"], lambda i: i < 4)
     try:
         outs5, rep_ms, launches5, tails5 = counted(run_rep, calls5)
     finally:
-        (k1.color_map_tail, k2.wavefront, k3.shear_to_colmaj,
-         k3.unshear_from_colmaj) = real
+        k1.color_map_tail, k2.wavefront = real
+        restore_k3()
     n5 = PATH_K_CONFIG5_FRAMES
     assert launches5 == {"k1": n5, "k2": n5, "k3": 2 * n5}, launches5
     assert tails5 == (n5, 0, 0), tails5
@@ -2107,8 +2136,7 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
     t_path = time.perf_counter()
     figures, seconds, launches = {}, {}, {}
     cap = {"k1": None, "k2": None, "k3": []}
-    real = (k1.color_map_tail, k2.wavefront, k3.shear_to_colmaj,
-            k3.unshear_from_colmaj)
+    real = (k1.color_map_tail, k2.wavefront)
 
     def cap_k1(img, plan, tone, lut):
         if cap["k1"] is None:
@@ -2120,13 +2148,6 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
         if cap["k2"] is None:
             cap["k2"] = (colmaj.clone(), kernel, depth, w, h)
         return real[1](colmaj, kernel, depth, w, h)
-
-    def cap_k3(forward):
-        def run(x, w_out, s, w, h):
-            if not any(c[5] == forward for c in cap["k3"]):
-                cap["k3"].append((x.clone(), w_out, s, w, h, forward))
-            return real[2 if forward else 3](x, w_out, s, w, h)
-        return run
 
     def driven(name, fn):
         """fn() with every launch count set to 0 just before and read
@@ -2226,13 +2247,13 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
     os.makedirs("chiprun_out", exist_ok=True)
     bm_json = os.path.join("chiprun_out", "bench_micro_h100.json")
     k2.wavefront = cap_k2
-    k3.shear_to_colmaj, k3.unshear_from_colmaj = cap_k3(True), cap_k3(False)
+    restore_k3 = _k3_capture(cap["k3"], lambda i: i < 2)
     try:
         rc = driven("bench_micro", lambda: bench_micro.main(
             ["--size", "1920x1080", "--json", bm_json]))
     finally:
-        k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj = \
-            real[1:]
+        k2.wavefront = real[1]
+        restore_k3()
     with open(bm_json) as f:
         bm = json.load(f)
     untimed = [n for n, v in bm["passes"].items()
@@ -2459,26 +2480,27 @@ def _planned_generic(lt, k1, trender):
     return plans
 
 
-def _generic_build_seconds(k1, plan):
+def _build_seconds(module, spec, header):
     """[cold, warm]: the seconds a fresh process takes to make the
-    library of `plan`'s generic instance usable (nvcc, then loading it;
-    then, with it on disk, the hash check and loading), each in its own
-    Python process on an empty build directory made for the purpose."""
+    library built from `header` by ops/cuda/<module>.<spec> usable
+    (nvcc, then loading it; then, with it on disk, the hash check and
+    loading), each in its own Python process on an empty build directory
+    made for the purpose."""
     import shutil
     import tempfile
-    tmp = tempfile.mkdtemp(prefix="k1_build_")
+    tmp = tempfile.mkdtemp(prefix=f"{module}_build_")
     try:
-        with open(os.path.join(tmp, "k1_generic.h"), "w") as f:
-            f.write(plan.header)
+        with open(os.path.join(tmp, "header.h"), "w") as f:
+            f.write(header)
         code = (
             "import ctypes, sys, time\n"
             f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
             "from libplacebo_tpu_torch import _build\n"
-            "from libplacebo_tpu_torch.ops.cuda import color_map as k1\n"
+            f"from libplacebo_tpu_torch.ops.cuda import {module} as m\n"
             f"_build.set_build_dir({os.path.join(tmp, 'build')!r})\n"
-            f"header = open({os.path.join(tmp, 'k1_generic.h')!r}).read()\n"
+            f"header = open({os.path.join(tmp, 'header.h')!r}).read()\n"
             "t0 = time.perf_counter()\n"
-            "path, = _build.build_all([k1.generic_spec(header)])\n"
+            f"path, = _build.build_all([m.{spec}(header)])\n"
             "ctypes.CDLL(path)\n"
             "print(time.perf_counter() - t0)\n")
         return [float(subprocess.run(
@@ -2488,22 +2510,53 @@ def _generic_build_seconds(k1, plan):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _gather_shear(x, w_out, s, W, H, forward):
-    """K3's function as one torch.gather over the source with one zero
-    column appended, its index built beforehand (set-up, not timed)."""
+def _take_shear(forward, args):
+    """One captured K3 call's relayout (its (forward, args), as
+    bench_micro.capture_ed keeps it) as one torch.take over the source,
+    flattened with one zero appended, its index built beforehand (set-up,
+    not timed): forward (C, H, W) -> (Wsp, C, H), inverse (Wsp, C, H) ->
+    (C, H, W) (the codes moved; the scale is not a relayout's)."""
     import torch
-    w_in, C, Hp = x.shape
-    src = torch.arange(w_out, device=x.device)[:, None] + \
-        (-s if forward else s) * torch.arange(Hp, device=x.device)[None, :]
+    x, s = args[0], args[1]
+    dev = x.device
     if forward:
-        valid = (src >= 0) & (src < W)
+        C, H, W = x.shape
+        w = torch.arange(W + (H - 1) * s, device=dev)[:, None, None]
+        c = torch.arange(C, device=dev)[None, :, None]
+        y = torch.arange(H, device=dev)[None, None, :]
+        col = w - s * y
+        idx = torch.where((col >= 0) & (col < W), (c * H + y) * W + col,
+                          C * H * W)
     else:
-        valid = torch.arange(w_out, device=x.device)[:, None] < W
-    valid = valid & (torch.arange(Hp, device=x.device)[None, :] < H)
-    idx = torch.where(valid, src, w_in)[:, None, :].expand(
-        w_out, C, Hp).contiguous()
-    xz = torch.cat([x, torch.zeros_like(x[:1])])
-    return lambda: torch.gather(xz, 0, idx)
+        W = args[2]
+        _, C, H = x.shape
+        c = torch.arange(C, device=dev)[:, None, None]
+        y = torch.arange(H, device=dev)[None, :, None]
+        col = torch.arange(W, device=dev)[None, None, :] + s * y
+        idx = (col * C + c) * H + y
+    src = torch.cat([x.reshape(-1), torch.zeros_like(x.reshape(-1)[:1])])
+    idx = idx.contiguous()
+    return lambda: torch.take(src, idx)
+
+
+def _take_colmaj(forward, args):
+    """The reference layout's entries (shear_to_colmaj's or
+    unshear_from_colmaj's (x, w_out, s, W, H)) as one torch.take over
+    the source flattened with one zero appended, the index built
+    beforehand (set-up, not timed): (w_in, C, Hp) -> (w_out, C, Hp),
+    out[w, c, y] = x[w -/+ s*y, c, y], 0 outside the image."""
+    import torch
+    x, w_out, s, W, H = args
+    _, C, Hp = x.shape
+    dev = x.device
+    w = torch.arange(w_out, device=dev)[:, None, None]
+    c = torch.arange(C, device=dev)[None, :, None]
+    y = torch.arange(Hp, device=dev)[None, None, :]
+    col = w - s * y if forward else w + s * y
+    ok = (y < H) & ((col >= 0) & (col < W) if forward else w < W)
+    idx = torch.where(ok, (col * C + c) * Hp + y, x.numel()).contiguous()
+    src = torch.cat([x.reshape(-1), torch.zeros_like(x.reshape(-1)[:1])])
+    return lambda: torch.take(src, idx)
 
 
 def main() -> int:
@@ -2519,6 +2572,7 @@ def main() -> int:
     from libplacebo_tpu_torch.core import filters as flt
     from libplacebo_tpu_torch.core import film_grain as cfg
     from libplacebo_tpu_torch.core.common import RectF
+    from libplacebo_tpu_torch.core.fastmath import rcp
     from libplacebo_tpu_torch.ops import deband as ops_deband
     from libplacebo_tpu_torch.ops import dithering as ops_dither
     from libplacebo_tpu_torch.ops import film_grain as ops_fg
@@ -2530,6 +2584,7 @@ def main() -> int:
     from libplacebo_tpu_torch.tools.bench_micro import bound_ms
     from libplacebo_tpu_torch.tools.bench_micro import k2_bound as k2_bound_of
     from libplacebo_tpu_torch.tools.bench_micro import k3_bytes as bm_k3_bytes
+    from libplacebo_tpu_torch.tools.bench_micro import k3_run
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -2544,8 +2599,11 @@ def main() -> int:
     generic_plans = _planned_generic(lt, k1, trender)
     generic_plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    k2_custom = [cdither.ErrorDiffusionKernel(*case) for case in K2_CUSTOM]
     build_all([*k1.build_specs(generic=generic_plans.values()),
-               k2.build_spec(), k3.build_spec(), *native.build_specs()])
+               k2.build_spec(), k3.build_spec(), *native.build_specs(),
+               *[k2.build_spec(k2.tap_table_header([k]))
+                 for k in k2_custom]])
     cdither.blue_noise(6)
     cfg.generate_offsets(GRAIN_SEED, 1, 1)
     build_s = time.perf_counter() - t0
@@ -2569,7 +2627,11 @@ def main() -> int:
         generic_sass[plan.header] = (
             os.path.basename(lib._name), report,
             _sass.loop_mix(_sass.disassemble(lib._name), "k1_generic"))
-    k1_generic_build_s = _generic_build_seconds(k1, generic_plans["path_i"])
+    k1_generic_build_s = _build_seconds("color_map", "generic_spec",
+                                        generic_plans["path_i"].header)
+    k2_custom_build_s = _build_seconds(
+        "error_diffusion", "build_spec",
+        k2.tap_table_header([k2_custom[0]]))
     ptxas_lines = {n: [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
                    for n, log in ptxas.items()}
@@ -2608,7 +2670,6 @@ def main() -> int:
     frames = [_frame(lt, f, dev) for f in yuvs]
     captured = {"k1": [], "k2": [], "k3": [], "ewa": []}
     real = {"k1": k1.color_map_tail, "k2": k2.wavefront,
-            "k3f": k3.shear_to_colmaj, "k3i": k3.unshear_from_colmaj,
             "ewa": polar.sample_polar}
 
     # at most this many K1 inputs kept (None: all): path G keeps two, so
@@ -2625,12 +2686,6 @@ def main() -> int:
         captured["k2"].append((colmaj.clone(), kernel, depth, w, h))
         return real["k2"](colmaj, kernel, depth, w, h)
 
-    def cap_k3(forward):
-        def run(x, w_out, s, w, h):
-            captured["k3"].append((x.clone(), w_out, s, w, h, forward))
-            return real["k3f" if forward else "k3i"](x, w_out, s, w, h)
-        return run
-
     def cap_ewa(img, cfg, dst_h, dst_w, rect=None, antiring=0.0):
         captured["ewa"].append((img.clone(), cfg, dst_h, dst_w, rect,
                                 antiring))
@@ -2638,8 +2693,7 @@ def main() -> int:
 
     k1.color_map_tail = cap_k1
     k2.wavefront = cap_k2
-    k3.shear_to_colmaj = cap_k3(True)
-    k3.unshear_from_colmaj = cap_k3(False)
+    restore_k3 = _k3_capture(captured["k3"])
     renderer = lt.Renderer(device=dev)
     params4 = lt.RenderParams(upscaler="ewa_lanczos",
                               tone_mapping_function="bt2390",
@@ -2817,8 +2871,7 @@ def main() -> int:
         polar.sample_polar = real["ewa"]
         k1.color_map_tail = real["k1"]
         k2.wavefront = real["k2"]
-        k3.shear_to_colmaj = real["k3f"]
-        k3.unshear_from_colmaj = real["k3i"]
+        restore_k3()
     assert flag_launches == {"k1": 3, "k2": 0, "k3": 0}, flag_launches
     assert c5_launches == {"k1": 3, "k2": 3, "k3": 6}, c5_launches
     assert c4_launches == {"k1": 3, "k2": 0, "k3": 0}, c4_launches
@@ -2961,10 +3014,9 @@ def main() -> int:
     k1n_err, k1n_frac, k1n_part = _check_k1(k1, c5_k1)
     colmaj, ed_kernel, depth, ed_w, ed_h = captured["k2"][1]
     shear_in, unshear_in = captured["k3"][2], captured["k3"][3]
-    assert shear_in[5] and not unshear_in[5]
+    assert shear_in[0] and not unshear_in[0]
     jjn = cdither.find_error_diffusion_kernel("jarvis-judice-ninke")
-    colmaj3 = k3.shear_to_colmaj(shear_in[0], ed_w + (ed_h - 1) * jjn.shift,
-                                 jjn.shift, ed_w, ed_h)
+    colmaj3 = k3.shear_chw(shear_in[1][0], jjn.shift)
     # the kernel writes every sheared position: whole arrays are exact
     k2_err = 0.0
     for args in ((colmaj, ed_kernel, depth, ed_w, ed_h),
@@ -2979,13 +3031,27 @@ def main() -> int:
             codes_k = got
     del colmaj3, got, want
     k3_err = 0.0
-    for x, w_out, s, w, h, fwd in (shear_in, unshear_in):
-        got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(
-            x, w_out, s, w, h)
-        want = k3.shear_plain(x, w_out, s, w, h, fwd)
-        lib = _gather_shear(x, w_out, s, w, h, fwd)()
+    for fwd, args in (shear_in, unshear_in):
+        got, want = k3_run(fwd, args), k3_run(fwd, args, plain=True)
+        # torch.take's relayout: the codes moved, unscaled
+        lib = _take_shear(fwd, args)()
+        moved = want if fwd else k3_run(fwd, args[:3] + (None,), plain=True)
         k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
-        assert torch.equal(got, want) and torch.equal(lib, want)
+        assert torch.equal(got, want) and torch.equal(lib, moved)
+    # the reference's (W, C, H) layout through the JAX-signature entries
+    # (their own kernel body; on no path): the frame and its codes,
+    # exact, and torch.take's relayout too
+    xcm = shear_in[1][0].permute(2, 0, 1).contiguous()
+    s5 = ed_kernel.shift
+    colmaj_calls = ((True, (xcm, colmaj.shape[0], s5, ed_w, ed_h)),
+                    (False, (codes_k, ed_w, s5, ed_w, ed_h)))
+    for fwd, args in colmaj_calls:
+        got = (k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(*args)
+        want = k3.shear_plain(*args, fwd)
+        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
+        assert torch.equal(got, want), ("K3 (W, C, H)", fwd)
+        assert torch.equal(_take_colmaj(fwd, args)(), want)
+    assert torch.equal(k3.shear_to_colmaj(*colmaj_calls[0][1]), colmaj)
 
     # 5b. config-5 GPU render vs the CPU render on a small input; error
     # diffusion turns ulp differences upstream into 1-LSB flips
@@ -3127,7 +3193,7 @@ def main() -> int:
     # differences upstream into 1-LSB flips)
     pg_err, pg_frac, pg_part = _check_k1(k1, pg_k1)
     assert pg_err == 0.0, pg_err
-    assert ph_k3[0][5] and not ph_k3[1][5]
+    assert ph_k3[0][0] and not ph_k3[1][0]
     yuvG_s = _flagship_yuv(8, 64, 128, seed=7, bits=10)
     outs_g = {}
     for name, d in (("gpu", dev), ("cpu", "cpu")):
@@ -3447,19 +3513,31 @@ def main() -> int:
     k2_chan_bands = k2.geometry(*chan.shape)[1]
     del band, chan
     k2_plain_ms = _cuda_ms(lambda: k2.wavefront_plain(*ed_args), 1)
-    k3_ms, k3_plain_ms, k3_lib_ms = {}, {}, {}
-    for x, w_out, s, w, h, fwd in (shear_in, unshear_in):
+    k3_ms, k3_plain_ms, k3_lib_ms, k3_dir_bound = {}, {}, {}, {}
+    for fwd, args in (shear_in, unshear_in):
         d = "forward" if fwd else "inverse"
-        wrapper = k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj
-        k3_ms[d] = _cuda_ms(lambda: wrapper(x, w_out, s, w, h), 20)
-        k3_plain_ms[d] = _cuda_ms(
-            lambda: k3.shear_plain(x, w_out, s, w, h, fwd), 2)
-        k3_lib_ms[d] = _cuda_ms(_gather_shear(x, w_out, s, w, h, fwd), 20)
+        k3_ms[d] = _cuda_ms(lambda: k3_run(fwd, args), 20)
+        k3_plain_ms[d] = _cuda_ms(lambda: k3_run(fwd, args, plain=True), 2)
+        k3_lib_ms[d] = _cuda_ms(_take_shear(fwd, args), 20)
+        k3_dir_bound[d] = bound_ms(bm_k3_bytes(fwd, args))[0]
     # the bytes the function needs: forward, the image read and the whole
     # sheared frame written (K2 reads its zeros); inverse, only the
-    # w x C x h codes that the unshear keeps, read and written
-    k3_bytes = sum(bm_k3_bytes(x, w_out, w, h, fwd)
-                   for x, w_out, _, w, h, fwd in (shear_in, unshear_in))
+    # w x C x h codes that the unshear keeps, read, and written scaled
+    k3_bytes = sum(bm_k3_bytes(fwd, args) for fwd, args in (shear_in,
+                                                            unshear_in))
+    # the reference layout's entries on the same frame (their own body):
+    # the frame read and the sheared frame written, the kept codes read
+    # and written; beside one torch.take each way
+    k3_colmaj_ms = sum(_cuda_ms(lambda: (
+        k3.shear_to_colmaj if fwd else k3.unshear_from_colmaj)(*args), 10)
+        for fwd, args in colmaj_calls)
+    k3_colmaj_lib_ms = sum(_cuda_ms(_take_colmaj(fwd, args), 10)
+                           for fwd, args in colmaj_calls)
+    k3_colmaj_plain_ms = sum(_cuda_ms(lambda: k3.shear_plain(*args, fwd), 1)
+                             for fwd, args in colmaj_calls)
+    k3_colmaj_bound, k3_colmaj_by = bound_ms(
+        (xcm.numel() + colmaj.numel()) * 4 +
+        2 * codes_k.element_size() * ed_w * colmaj.shape[1] * ed_h)
     lin = torch.rand((3, H, W), device=dev) * 49.0
     ewa_cfg = flt.find_filter_config("ewa_lanczos")
     ewa_ms = _cuda_ms(lambda: polar.sample_polar(
@@ -3479,22 +3557,77 @@ def main() -> int:
                           + 26 * pp.ar_w.shape[0] + 18)
     ewa_ar_bytes = (c3_ewa[0].numel() + n_out) * 4
     ewa_ar_bound, ewa_ar_by = bound_ms(ewa_ar_bytes, ewa_ar_ops)
-    # 9. K2 on a pattern outside the compiled ten, its taps given at
-    # launch, on config 5's sheared frame (the same shift): exact against
-    # the plain version, timed beside the compiled instance
-    custom = cdither.ErrorDiffusionKernel(
-        "custom-3row", "taps given at launch", ed_kernel.shift,
-        ((0, 0, 0, 5, 2), (0, 3, 4, 1, 0), (0, 0, 1, 0, 0)), 16)
-    assert custom not in cdither.ERROR_DIFFUSION_KERNELS
-    k2_custom = k2.wavefront(colmaj, custom, depth, ed_w, ed_h)
-    k2_custom_plain = k2.wavefront_plain(colmaj, custom, depth, ed_w, ed_h)
+    # 9. K2 on patterns outside the compiled ten, each on its own
+    # compiled instance (built in phase 1): config 5's frame through
+    # error_diffusion, counted; then on the frame sheared for it, exact
+    # against the plain version (timed once, the same run) and timed
+    # beside the compiled Floyd-Steinberg instance; a renamed
+    # copy of Floyd-Steinberg runs the built-in instance, its codes and
+    # its time
+    k2_custom_runs = []
+    frame5 = shear_in[1][0]
+    # the path: config 5's frame through the user's entry,
+    # ops.dithering.error_diffusion (K3 -> K2 -> K3), with each pattern,
+    # every count set to 0 just before and read just after (a count a K2
+    # library)
+    for mod in counters.values():
+        mod.launches = 0
+    k2.launches_by.clear()
+    custom_out = [ops_dither.error_diffusion(frame5, depth, k)
+                  for k in k2_custom]
     torch.cuda.synchronize()
-    assert torch.equal(k2_custom, k2_custom_plain), "K2 custom pattern"
-    k2_custom_err = float((k2_custom.float() -
-                           k2_custom_plain.float()).abs().max())
-    del k2_custom, k2_custom_plain
-    k2_custom_ms = _cuda_ms(
-        lambda: k2.wavefront(colmaj, custom, depth, ed_w, ed_h), 5)
+    custom_counts = {n: m.launches for n, m in counters.items()}
+    custom_by_lib = dict(k2.launches_by)
+    assert custom_counts == {"k1": 0, "k2": len(k2_custom),
+                             "k3": 2 * len(k2_custom)}, custom_counts
+    inv_scale = rcp(float((1 << depth) - 1))      # error_diffusion's
+    for k, out in zip(k2_custom, custom_out):
+        lib, index = k2.prepare(k)
+        assert index == 0 and lib is not k2.build() and \
+            lib.k2_max_window() == max(off for _, off, _ in k2.taps_for(k))
+        cm = colmaj if k.shift == ed_kernel.shift else \
+            k3.shear_chw(frame5, k.shift)
+        args = (cm, k, depth, ed_w, ed_h)
+        got = k2.wavefront(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = k2.wavefront_plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), ("K2 custom pattern", k.name)
+        err = float((got.float() - want.float()).abs().max())
+        # the path's frame: the checked codes unsheared by the plain
+        # version
+        assert torch.equal(out, k3.unshear_chw_plain(want, k.shift, ed_w,
+                                                     inv_scale)), k.name
+        del got, want
+        k2_custom_runs.append({
+            "name": k.name, "shift": k.shift, "columns": cm.shape[0],
+            "launches": custom_by_lib.get(
+                k2.library_name(k2._header_of(k)[0]), 0),
+            "window": lib.k2_max_window(), "max_abs_err": err,
+            "ms": _cuda_ms(lambda: k2.wavefront(*args), 5),
+            "plain_ms": start.elapsed_time(end),
+            "bound": k2_bound_of(*args),
+            "ptxas": _sass.ptxas_report(build_log(lib))})
+        del cm, args
+    fs_copy = cdither.ErrorDiffusionKernel(
+        "my-floyd-steinberg", "a renamed copy", ed_kernel.shift,
+        ed_kernel.pattern, ed_kernel.divisor)
+    del custom_out
+    assert all(r["launches"] == 1 for r in k2_custom_runs), k2_custom_runs
+    # each instance's window in registers, or in a ring: no spills
+    assert all(r["ptxas"] and all(v["spill_stores"] == 0
+                                  for v in r["ptxas"].values())
+               for r in k2_custom_runs), k2_custom_runs
+    assert fs_copy != ed_kernel and k2.prepare(fs_copy) == \
+        k2.prepare(ed_kernel)
+    assert torch.equal(k2.wavefront(colmaj, fs_copy, depth, ed_w, ed_h),
+                       codes_k), "K2 renamed Floyd-Steinberg"
+    k2_renamed_ms = [_cuda_ms(lambda: k2.wavefront(
+        colmaj, kk, depth, ed_w, ed_h), 5) for kk in (ed_kernel, fs_copy,
+                                                       ed_kernel, fs_copy)]
     # deband and grain of one frame's three planes, as the renderer runs
     # them (tables drawn beforehand, as the render plan holds them)
     planes = [p.data for p in frames5[1].planes]
@@ -3533,6 +3666,16 @@ def main() -> int:
     # round, fused err (2), clip (2), and a fused multiply-add (2) a tap
     k2_bound, k2_by = k2_bound_of(*ed_args)
     k3_bound, k3_by = bound_ms(k3_bytes)
+    k2_custom_entries = [
+        {"name": "k2_error_diffusion_" + r["name"].replace("-", "_"),
+         "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
+         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "library_ms": None}
+        for r in k2_custom_runs]
 
     # 20. path I: a 4K HDR10 clip transcoded to 1080p SDR (counted on its
     # own), K1's launch against its plain version, timed
@@ -3746,7 +3889,14 @@ def main() -> int:
          "launches": c5_launches["k3"], "max_abs_err": k3_err,
          "ms": sum(k3_ms.values()), "plain_ms": sum(k3_plain_ms.values()),
          "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": sum(k3_lib_ms.values())}]
+         "library_ms": sum(k3_lib_ms.values())},
+        {"name": "k3_shear_colmaj", "route": "cuda",
+         "source": "libplacebo_tpu_torch/csrc/shear.cu",
+         "replaces": "libplacebo_tpu/ops/pallas/shear.py:149",
+         "launches": None, "max_abs_err": k3_err, "ms": k3_colmaj_ms,
+         "plain_ms": k3_colmaj_plain_ms, "bound_ms": k3_colmaj_bound,
+         "bound_by": k3_colmaj_by, "library_ms": k3_colmaj_lib_ms},
+        *k2_custom_entries]
     timings = {
         "card": card, "build_s": build_s,
         "frame_ms_median": statistics.median(frame_ms), "frame_ms": frame_ms,
@@ -3779,7 +3929,11 @@ def main() -> int:
         "ewa_ar_ms": ewa_ar_ms, "ewa_ar_launches_per_call": ewa_ar_launches,
         "ewa_ar_bound_ms": ewa_ar_bound, "ewa_ar_bound_by": ewa_ar_by,
         "ewa_ar_bytes": ewa_ar_bytes, "ewa_ar_ops": ewa_ar_ops,
-        "k2_custom_ms": k2_custom_ms, "k2_custom_max_abs_err": k2_custom_err,
+        "k2_custom": [{k: v for k, v in r.items() if k != "bound"}
+                      for r in k2_custom_runs],
+        "k2_custom_build_s": {"cold": k2_custom_build_s[0],
+                              "warm": k2_custom_build_s[1]},
+        "k2_renamed_fs_ms": k2_renamed_ms,
         "path_a_frame_ms_median": statistics.median(pa_ms),
         "path_a_frame_ms": pa_ms, "path_a_window_ms": pa_window_ms,
         "path_b_frame_ms_median": statistics.median(pb_ms),
@@ -3864,7 +4018,9 @@ def main() -> int:
         "k2_fill_us_per_band": (k2_chan_ms - k2_band_ms) * 1e3 /
         (k2_chan_bands - 1),
         "k3_ms": k3_ms, "k3_plain_ms": k3_plain_ms,
-        "k3_gather_ms": k3_lib_ms, "k3_bytes": k3_bytes,
+        "k3_take_ms": k3_lib_ms, "k3_bytes": k3_bytes,
+        "k3_bound_ms": k3_dir_bound,
+        "k3_colmaj_ms": k3_colmaj_ms, "k3_colmaj_take_ms": k3_colmaj_lib_ms,
         "ewa_ms": ewa_ms, "deband_ms": deband_ms, "grain_ms": grain_ms,
         "grain_tables_host_ms": tables_host_ms,
         "ptxas": ptxas_lines, "small_render_max_diff": small_diff,

@@ -20,17 +20,18 @@
 //   zeros through every full-mask shuffle.  Control flow is uniform over
 //   the warp (no early exit, predicated stores), so the compiler emits
 //   no divergence handling around the shuffles.
-// - A lane's pending errors for columns j .. j + max_off - 1 (max_off <=
-//   8) live in registers.  The kernel is a template over the pattern with
-//   the tap table compiled in (`pattern`), so every tap is one fmaf on a
-//   fixed register: no modulo, no shared memory, no local memory.
-// - Any other pattern runs on one more instance, `kCustom`, whose taps
-//   come with the launch (`CustomTaps`, a __grid_constant__ parameter:
-//   the constant bank, uniform over the warp).  Its window is
-//   kCustomSlots registers, and each slot takes the taps that land on it,
-//   row y's first, then y - 1's and y - 2's (at most one a row), each
-//   under a uniform test of the launch's bits: the same fmaf's in the
-//   same order as a compiled pattern, at a fixed register each.
+// - A lane's pending errors for columns j .. j + max_off - 1 live in
+//   registers.  The kernel is a template over the pattern with the tap
+//   table compiled in (`pattern`), so every tap is one fmaf on a fixed
+//   register: no modulo, no shared memory, no local memory.  The ten
+//   patterns of ERROR_DIFFUSION_KERNELS are one library (max_off <= 8);
+//   any other pattern is compiled into a library of its own from a header
+//   of the same form, when the renderer plans the frame
+//   (ops/cuda/error_diffusion.py::prepare).  A window longer than
+//   kRegWindow (a shift above 23) is a ring of a power-of-two number of
+//   slots [slot][32 rows] instead: in dynamic shared memory while it fits,
+//   else in the scratch, a region a band.  The ring takes the same fmaf's
+//   in the same order; only the place of the pending values changes.
 // - Rows y - 1 and y - 2 come by __shfl_up_sync.  Lanes 0 and 1 take the
 //   last two rows of the band above from a global boundary buffer: 2
 //   words a column, a group of kChunk = 16 columns written by the band
@@ -92,8 +93,8 @@ constexpr int kChunk = 16;          // columns a group, steps a chunk
 constexpr int kWords = 2 * kChunk;  // boundary words a chunk, one a lane
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kWords <= 32, "a chunk's words fit a warp");
-constexpr int kCustom = -1;         // the instance whose taps come at launch
-constexpr int kCustomSlots = 16;    // its window: sheared offsets 1 .. 16
+constexpr int kRegWindow = 48;      // the longest window in registers
+constexpr size_t kRingSmem = 200 * 1024;  // the largest ring in shared memory
 
 struct Pattern {
   int shift;
@@ -103,25 +104,32 @@ struct Pattern {
   float w[kMaxTaps];
 };
 
-// `kPatterns` and `constexpr Pattern pattern(int p)`: the taps of
-// core/dither.py::ERROR_DIFFUSION_KERNELS, in that order, as
-// ops/cuda/error_diffusion.py::taps_for makes them, written by
-// tap_table_header there into the build directory at build time.
+// `kPatterns` and `constexpr Pattern pattern(int p)`: the shift and the
+// taps (ops/cuda/error_diffusion.py::taps_for) of the library's patterns,
+// written by tap_table_header there into the build directory at build
+// time: core/dither.py::ERROR_DIFFUSION_KERNELS in that order, or one
+// other pattern.
 #include "k2_taps.h"
-
-// A pattern given at launch: its shift, and for each pending slot (the
-// sheared column offset slot + 1) the weights of the taps from rows y,
-// y - 1 and y - 2 that land there, bit dy of `rows` set where one does.
-struct CustomTaps {
-  int shift;
-  int rows[kCustomSlots];
-  float w[kCustomSlots][3];
-};
 
 __host__ __device__ constexpr int max_off(const Pattern& t) {
   int m = 1;
   for (int i = 0; i < t.n; i++) m = t.off[i] > m ? t.off[i] : m;
   return m;
+}
+
+// A ring window's slots: a power of two above the window.
+__host__ __device__ constexpr int ring_slots(int m) {
+  int r = 1;
+  while (r <= m) r *= 2;
+  return r;
+}
+
+// Where a window of m columns lives: 0 registers, 1 shared memory (a
+// ring of `*bytes`), 2 the scratch (a ring of `*bytes` a band).
+__host__ int window_place(int m, size_t* bytes) {
+  *bytes = (size_t)ring_slots(m) * 32 * sizeof(float);
+  if (m <= kRegWindow) return 0;
+  return *bytes <= kRingSmem ? 1 : 2;
 }
 
 __device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
@@ -178,6 +186,24 @@ __device__ __forceinline__ void add_taps(float* p, float e0, float e1,
                                          float e2,
                                          std::integer_sequence<int, I...>) {
   (add_tap<P, I>(p, e0, e1, e2), ...);     // in the reference's tap order
+}
+
+// One tap into a ring window: column j + off's slot of this lane's row.
+template <int P, int I>
+__device__ __forceinline__ void ring_tap(float* ring, int j, float e0,
+                                         float e1, float e2) {
+  constexpr int dy = pattern(P).dy[I];
+  constexpr int R = ring_slots(max_off(pattern(P)));
+  constexpr float w = pattern(P).w[I];
+  float* d = ring + ((j + pattern(P).off[I]) & (R - 1)) * 32;
+  *d = fmaf(dy == 0 ? e0 : (dy == 1 ? e1 : e2), w, *d);
+}
+
+template <int P, int... I>
+__device__ __forceinline__ void ring_taps(float* ring, int j, float e0,
+                                          float e1, float e2,
+                                          std::integer_sequence<int, I...>) {
+  (ring_tap<P, I>(ring, j, e0, e1, e2), ...);
 }
 
 // 16 bytes under a predicate.
@@ -249,12 +275,14 @@ template <int P, typename CodeT>
 __global__ void __launch_bounds__(32)
 k2_wavefront(const float* __restrict__ x, CodeT* __restrict__ codes,
              unsigned* __restrict__ scratch, int Wsp, int C, int Hp, int W,
-             int H, float scale, float minus_inv,
-             const __grid_constant__ CustomTaps custom) {
-  constexpr int M = P == kCustom ? kCustomSlots : max_off(pattern(P));
-  const int shift = P == kCustom ? custom.shift : pattern(P).shift;
+             int H, float scale, float minus_inv, float* __restrict__ gring) {
+  constexpr int M = max_off(pattern(P));
+  constexpr bool kRing = M > kRegWindow;
+  constexpr int R = ring_slots(M);
+  constexpr int shift = pattern(P).shift;
   constexpr int E = 16 / sizeof(CodeT);     // codes in 16 bytes
   __shared__ __align__(16) float xring[kXRing * 32];
+  extern __shared__ float sring[];          // a ring window, if there
   __shared__ __align__(16) CodeT cbuf[kChunk * 32];
   __shared__ float wbuf[kWords];
   __shared__ int ticket;
@@ -287,9 +315,13 @@ k2_wavefront(const float* __restrict__ x, CodeT* __restrict__ codes,
   for (int gr = 0; gr < kAhead; gr++)
     fetch_group(xring, xb, x, gr, Wsp, col, rows, vec_in, lane);
   unsigned w_next = ld_relaxed(up);
-  float p[M];
+  float p[kRing ? 1 : M];
 #pragma unroll
-  for (int m = 0; m < M; m++) p[m] = 0.0f;
+  for (int m = 0; m < (kRing ? 1 : M); m++) p[m] = 0.0f;
+  // a ring window: this lane's row of slots, zeroed
+  float* ring = (gring ? gring + (size_t)g * R * 32 : sring) + lane;
+  if constexpr (kRing)
+    for (int m = 0; m < R; m++) ring[m * 32] = 0.0f;
 
   for (int k = 0; k < nk; k++) {
     // this group's words were loaded a chunk ago; reload only while one
@@ -316,7 +348,13 @@ k2_wavefront(const float* __restrict__ x, CodeT* __restrict__ codes,
     float xn = xp[0];
 #pragma unroll
     for (int i = 0; i < kChunk; i++) {
-      const float cur = xn + p[0];
+      float pend = p[0];
+      if constexpr (kRing) {                // column j0 + i's slot, freed
+        float* slot = ring + ((j0 + i) & (R - 1)) * 32;
+        pend = *slot;
+        *slot = 0.0f;
+      }
+      const float cur = xn + pend;
       if (i + 1 < kChunk) xn = xp[(i + 1) * 32];
       const float r = rintf(cur * scale);
       const float e0 =
@@ -334,18 +372,13 @@ k2_wavefront(const float* __restrict__ x, CodeT* __restrict__ codes,
       const float e2 = lane == 0 ? b2 : (lane == 1 ? b1 : u2);
       // for the band below: words 2i, 2i + 1 = rows 31, 30
       if (lane >= 30) wbuf[2 * i + 31 - lane] = e0;
-#pragma unroll
-      for (int m = 0; m + 1 < M; m++) p[m] = p[m + 1];
-      p[M - 1] = 0.0f;
-      if constexpr (P == kCustom) {
-#pragma unroll
-        for (int m = 0; m < M; m++) {
-          const int r = custom.rows[m];
-          if (r & 1) p[m] = fmaf(e0, custom.w[m][0], p[m]);
-          if (r & 2) p[m] = fmaf(e1, custom.w[m][1], p[m]);
-          if (r & 4) p[m] = fmaf(e2, custom.w[m][2], p[m]);
-        }
+      if constexpr (kRing) {
+        ring_taps<P>(ring, j0 + i, e0, e1, e2,
+                     std::make_integer_sequence<int, pattern(P).n>{});
       } else {
+#pragma unroll
+        for (int m = 0; m + 1 < M; m++) p[m] = p[m + 1];
+        p[M - 1] = 0.0f;
         add_taps<P>(p, e0, e1, e2,
                     std::make_integer_sequence<int, pattern(P).n>{});
       }
@@ -379,56 +412,86 @@ struct Launch {
   unsigned* scratch;
   int Wsp, C, Hp, W, H;
   float scale, minus_inv;
-  CustomTaps custom;
   cudaStream_t st;
 };
 
 int bands(int C, int Hp) { return C * ((Hp + 31) / 32); }
 
+// The scratch's 32-bit words before a ring in it: the ticket's 128
+// bytes, then the boundary words.
+long long ring_offset(int Wsp, int C, int Hp) {
+  const long long nchunks = (Wsp + kChunk - 1) / kChunk;
+  return 32 + (long long)bands(C, Hp) * nchunks * kWords;
+}
+
 template <int P, typename CodeT>
 int launch(const Launch& a) {
-  k2_wavefront<P, CodeT><<<bands(a.C, a.Hp), 32, 0, a.st>>>(
+  size_t bytes;
+  const int place = window_place(max_off(pattern(P)), &bytes);
+  const size_t smem = place == 1 ? bytes : 0;
+  float* gring = place == 2 ? reinterpret_cast<float*>(
+      a.scratch + ring_offset(a.Wsp, a.C, a.Hp)) : nullptr;
+  if (smem > 48 * 1024) {     // above the default limit
+    cudaError_t err = cudaFuncSetAttribute(
+        k2_wavefront<P, CodeT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  k2_wavefront<P, CodeT><<<bands(a.C, a.Hp), 32, smem, a.st>>>(
       a.x, static_cast<CodeT*>(a.codes), a.scratch, a.Wsp, a.C, a.Hp, a.W,
-      a.H, a.scale, a.minus_inv, a.custom);
+      a.H, a.scale, a.minus_inv, gring);
   return (int)cudaGetLastError();
 }
 
 template <typename CodeT, int... P>
 int dispatch(int p, const Launch& a, std::integer_sequence<int, P...>) {
-  if (p == kCustom) return launch<kCustom, CodeT>(a);
   int rc = (int)cudaErrorInvalidValue;
   ((p == P ? (rc = launch<P, CodeT>(a), 0) : 0), ...);
   return rc;
 }
 
+template <int... P>
+int max_window(std::integer_sequence<int, P...>) {
+  int m = 1;
+  ((m = max_off(pattern(P)) > m ? max_off(pattern(P)) : m), ...);
+  return m;
+}
+
 }  // namespace
 
 // The scratch the wrapper clears before every launch, in 32-bit words
-// (the ticket's 128 bytes, then the boundary words), and the grid.
-extern "C" void k2_geometry(int Wsp, int C, int Hp, long long* words,
-                            int* blocks, int* threads) {
-  const long long nchunks = (Wsp + kChunk - 1) / kChunk;
-  *words = 32 + (long long)bands(C, Hp) * nchunks * kWords;
+// (the ticket's 128 bytes, the boundary words, and a ring window a band
+// where pattern `index`'s lives there), and the grid.
+extern "C" void k2_geometry(int index, int Wsp, int C, int Hp,
+                            long long* words, int* blocks, int* threads) {
+  int m = 1;
+  if (index >= 0 && index < kPatterns)
+    m = max_off(pattern(index));
+  size_t bytes;
+  *words = ring_offset(Wsp, C, Hp);
+  if (window_place(m, &bytes) == 2)
+    *words += (long long)bands(C, Hp) * (long long)(bytes / 4);
   *blocks = bands(C, Hp);
   *threads = 32;
 }
 
-// `index` names the pattern in core/dither.py::ERROR_DIFFUSION_KERNELS,
-// whose taps the kernel is compiled with, or is -1 for the pattern in
-// `custom` (a host CustomTaps, read only for index -1).
+// The library's longest window (its patterns' largest sheared offset).
+extern "C" int k2_max_window() {
+  return max_window(std::make_integer_sequence<int, kPatterns>{});
+}
+
+// `index` names the library's pattern (k2_taps.h: for the built-in
+// library, its place in core/dither.py::ERROR_DIFFUSION_KERNELS; a
+// pattern's own library has one, 0).
 extern "C" int k2_wavefront_launch(const float* x, void* codes,
                                    void* scratch, int int32_codes,
                                    int index, int Wsp, int C, int Hp, int W,
                                    int H, float scale, float inv_scale,
-                                   const void* custom, void* stream) {
-  if (index < kCustom || index >= kPatterns || Wsp < 1 || C < 1 || Hp < 1 ||
-      (index == kCustom && custom == nullptr))
+                                   void* stream) {
+  if (index < 0 || index >= kPatterns || Wsp < 1 || C < 1 || Hp < 1)
     return (int)cudaErrorInvalidValue;
   const Launch a{x, codes, static_cast<unsigned*>(scratch), Wsp, C, Hp, W,
-                 H, scale, -inv_scale,
-                 index == kCustom ? *static_cast<const CustomTaps*>(custom)
-                                  : CustomTaps{},
-                 (cudaStream_t)stream};
+                 H, scale, -inv_scale, (cudaStream_t)stream};
   const auto all = std::make_integer_sequence<int, kPatterns>{};
   if (int32_codes) return dispatch<int32_t>(index, a, all);
   return dispatch<int16_t>(index, a, all);

@@ -22,32 +22,38 @@ a time; the kernel (csrc/error_diffusion.cu) repeats its arithmetic
 operation for operation, so the two agree bit for bit.
 
 `wavefront` is the entry: a CPU tensor runs the plain version, a CUDA
-tensor launches the kernel (counted in `launches`) or raises.  The
-kernel is compiled for the patterns of `ERROR_DIFFUSION_KERNELS`, its
-tap tables generated from them (`tap_table_header`); any other pattern
-whose taps reach at most `CUSTOM_SLOTS` sheared columns ahead runs on
-one more instance that takes its taps with the launch (`custom_taps`).
+tensor launches the kernel (counted in `launches`, and by library in
+`launches_by`) or raises.  The kernel is a template over the pattern,
+its tap table compiled in from a generated header (`tap_table_header`).
+One library holds the patterns of `ERROR_DIFFUSION_KERNELS`; any other
+pattern is compiled into a library of its own, keyed by its shift and
+taps (`pattern_key`, so a renamed copy of a built-in pattern runs the
+built-in's instance).  `prepare` builds a pattern's library ahead of
+its first launch (the renderer calls it when it plans the frame); a
+failed build raises KernelError: nothing runs in the kernel's place.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..._build import KernelError, kernel_work
-from ...core.dither import ERROR_DIFFUSION_KERNELS, ErrorDiffusionKernel
+from ...core.dither import (ED_FLOYD_STEINBERG, ERROR_DIFFUSION_KERNELS,
+                            ErrorDiffusionKernel)
 from ...core.fastmath import fma, rcp
 
-__all__ = ["taps_for", "tap_table_header", "custom_taps", "code_dtype",
+__all__ = ["taps_for", "pattern_key", "tap_table_header", "code_dtype",
            "wavefront", "wavefront_plain", "launches", "build", "build_spec",
-           "geometry", "CUSTOM_SLOTS"]
+           "library_name", "prepare", "geometry", "launches_by"]
 
 launches = 0
-# the custom-pattern instance's window (kCustomSlots in the kernel)
-CUSTOM_SLOTS = 16
+# launches by library (library_name): the built-in patterns' and each
+# pattern's own
+launches_by: dict = {}
 
 
 def taps_for(kernel: ErrorDiffusionKernel) -> List[Tuple[int, int, float]]:
@@ -60,22 +66,37 @@ def taps_for(kernel: ErrorDiffusionKernel) -> List[Tuple[int, int, float]]:
             if kern[dy, dx + 2] != 0.0]
 
 
-def tap_table_header() -> str:
-    """The tap tables the kernel is compiled with, as the C++ header
+def pattern_key(kernel: ErrorDiffusionKernel) -> tuple:
+    """What the kernel computes with: the shift and, in taps_for order,
+    each tap's (dy, sheared offset, float32 weight bits).  Not the name:
+    patterns with one key share their compiled instance."""
+    return (kernel.shift,) + tuple(
+        (dy, off, int(np.float32(w).view(np.uint32)))
+        for dy, off, w in taps_for(kernel))
+
+
+def tap_table_header(kernels=None) -> str:
+    """The tap tables a K2 library is compiled with, as the C++ header
     `k2_taps.h` that csrc/error_diffusion.cu includes: `kPatterns` and
-    `pattern(p)`, the shift and `taps_for` of pattern p of
-    ERROR_DIFFUSION_KERNELS (weights as exact hex float literals)."""
-    lines = ["// Generated from core/dither.py::ERROR_DIFFUSION_KERNELS by",
-             "// ops/cuda/error_diffusion.py::tap_table_header.",
-             f"constexpr int kPatterns = {len(ERROR_DIFFUSION_KERNELS)};",
+    `pattern(p)`, the shift and taps_for of pattern p (weights as exact
+    hex float literals).  By default the patterns of
+    ERROR_DIFFUSION_KERNELS, commented with their names; a list of other
+    patterns is written from their keys alone."""
+    builtin = kernels is None
+    kernels = ERROR_DIFFUSION_KERNELS if builtin else list(kernels)
+    lines = ["// Generated by ops/cuda/error_diffusion.py::tap_table_header"
+             + (" from core/dither.py::ERROR_DIFFUSION_KERNELS." if builtin
+                else "."),
+             f"constexpr int kPatterns = {len(kernels)};",
              "__host__ __device__ constexpr Pattern pattern(int p) {",
              "  switch (p) {"]
-    for p, kernel in enumerate(ERROR_DIFFUSION_KERNELS):
+    for p, kernel in enumerate(kernels):
         taps = taps_for(kernel)
         dys, offs, wgts = (", ".join(v) for v in zip(
             *[(str(dy), str(off), float(w).hex() + "f")
               for dy, off, w in taps]))
-        lines += [f"    case {p}:  // {kernel.name}",
+        lines += [f"    case {p}:" + (f"  // {kernel.name}" if builtin
+                                      else ""),
                   f"      return {{{kernel.shift}, {len(taps)}, {{{dys}}}, "
                   f"{{{offs}}}, {{{wgts}}}}};"]
     lines += ["    default:", "      return {0, 0, {}, {}, {}};", "  }", "}",
@@ -83,24 +104,21 @@ def tap_table_header() -> str:
     return "\n".join(lines)
 
 
-def custom_taps(kernel: ErrorDiffusionKernel) -> np.ndarray:
-    """The kernel's `CustomTaps` launch parameter for `kernel`, as 32-bit
-    words: the shift, a bit mask a pending slot (bit dy: a tap from row
-    y - dy lands on sheared offset slot + 1), then each slot's three
-    float32 weights by dy.  Raises for a pattern that reaches outside
-    the window (an offset below 1 or above CUSTOM_SLOTS)."""
-    words = np.zeros(1 + CUSTOM_SLOTS * 4, np.uint32)
-    rows = words[1:1 + CUSTOM_SLOTS]
-    wgts = words[1 + CUSTOM_SLOTS:].view(np.float32).reshape(CUSTOM_SLOTS, 3)
-    words[0] = kernel.shift
-    for dy, off, w in taps_for(kernel):
-        if not 1 <= off <= CUSTOM_SLOTS:
-            raise ValueError(
-                f"K2: pattern {kernel.name!r} reaches sheared offset {off}; "
-                f"the kernel takes 1..{CUSTOM_SLOTS}")
-        rows[off - 1] |= 1 << dy
-        wgts[off - 1, dy] = w
-    return words
+# a built-in pattern's key -> its instance in the built-in library
+_BUILTIN = {pattern_key(k): i for i, k in enumerate(ERROR_DIFFUSION_KERNELS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _header_of(kernel: ErrorDiffusionKernel):
+    """(header of the library that runs `kernel`, its index there): the
+    built-in library's for a built-in key, else the pattern's own."""
+    if any(off < 1 for _, off, _ in taps_for(kernel)):
+        raise ValueError(f"K2: pattern {kernel.name!r} has a tap on or "
+                         f"before its own pixel")
+    index = _BUILTIN.get(pattern_key(kernel))
+    if index is not None:
+        return None, index
+    return tap_table_header([kernel]), 0
 
 
 def code_dtype(new_depth: int) -> torch.dtype:
@@ -139,46 +157,75 @@ def wavefront_plain(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
     return out
 
 
-def build_spec():
-    """The kernel library's build spec (_build.build_all); writes the
-    tap tables' header into the build directory."""
+@functools.lru_cache(maxsize=None)
+def library_name(header=None) -> str:
+    """The name of the library compiled with `header` (None: the
+    built-in patterns'): a pattern's own is named by its header's hash."""
+    from ..._build import include_digest
+    if header is None:
+        return "k2_error_diffusion"
+    return "k2_error_diffusion_p" + include_digest("k2_taps.h", header)
+
+
+def build_spec(header=None):
+    """The build spec (_build.build_all) of the library compiled with
+    `header` (tap_table_header's text; None: the built-in patterns');
+    writes the header into the build directory."""
     from ..._build import generated_include, nvcc_path
-    taps = generated_include("k2_taps.h", tap_table_header())
-    return ("k2_error_diffusion", ["csrc/error_diffusion.cu"], nvcc_path(),
+    taps = generated_include("k2_taps.h", header or tap_table_header())
+    return (library_name(header), ["csrc/error_diffusion.cu"], nvcc_path(),
             ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
              "-I", taps])
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_lib():
-    """The loaded, typed kernel library (built at first use; looked up
-    once, since finding the compiler costs more than a launch)."""
+def _kernel_lib(header=None):
+    """The loaded, typed library compiled with `header` (built at first
+    use; looked up once, since finding the compiler costs more than a
+    launch)."""
     from ..._build import load_shared
-    lib = load_shared(*build_spec())
+    lib = load_shared(*build_spec(header))
     fn = lib.k2_wavefront_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
-        [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.k2_geometry.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    lib.k2_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     lib.k2_geometry.restype = None
+    lib.k2_max_window.argtypes = []
+    lib.k2_max_window.restype = ctypes.c_int
     lib.k2_error_string.argtypes = [ctypes.c_int]
     lib.k2_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def build():
-    """Compile (once) and load the kernel library."""
+    """Compile (once) and load the built-in patterns' library."""
     return _kernel_lib()
 
 
-def geometry(Wsp: int, C: int, Hp: int) -> Tuple[int, int, int]:
+def prepare(kernel: ErrorDiffusionKernel):
+    """Compile (once) and load the library that runs `kernel`: the
+    renderer calls it when it plans the frame, and a caller of
+    ops.dithering.error_diffusion with a pattern of its own before the
+    first call, so no launch waits for a build.  A failure raises KernelError (nothing else diffuses the
+    frame on the card).  Returns (library, the pattern's index there)."""
+    header, index = _header_of(kernel)
+    with kernel_work("K2"):
+        return _kernel_lib(header), index
+
+
+def geometry(Wsp: int, C: int, Hp: int,
+             kernel: Optional[ErrorDiffusionKernel] = None
+             ) -> Tuple[int, int, int]:
     """(scratch words the wrapper clears, blocks, threads a block) of the
-    kernel's launch on a (Wsp, C, Hp) image."""
+    kernel's launch on a (Wsp, C, Hp) image with `kernel` (default
+    Floyd-Steinberg)."""
+    lib, index = prepare(kernel or ED_FLOYD_STEINBERG)
     words, blocks, threads = (ctypes.c_longlong(), ctypes.c_int(),
                               ctypes.c_int())
-    _kernel_lib().k2_geometry(Wsp, C, Hp, ctypes.byref(words),
-                              ctypes.byref(blocks), ctypes.byref(threads))
+    lib.k2_geometry(index, Wsp, C, Hp, ctypes.byref(words),
+                    ctypes.byref(blocks), ctypes.byref(threads))
     return words.value, blocks.value, threads.value
 
 
@@ -199,26 +246,22 @@ def wavefront(colmaj: torch.Tensor, kernel: ErrorDiffusionKernel,
     Wsp, C, Hp = colmaj.shape
     if H > Hp or not 1 <= new_depth <= 16:
         raise ValueError(f"K2: {H} rows in {Hp}, depth {new_depth}")
-    # a built-in pattern's compiled instance, else the custom one
-    if kernel in ERROR_DIFFUSION_KERNELS:
-        index, custom = ERROR_DIFFUSION_KERNELS.index(kernel), None
-    else:
-        index, custom = -1, custom_taps(kernel)
+    lib, index = prepare(kernel)
     with kernel_work("K2"):
         scale = float((1 << new_depth) - 1)
         dt = code_dtype(new_depth)
         out = torch.empty((Wsp, C, Hp), dtype=dt, device=colmaj.device)
         # the band ticket and the boundary words, zero at every launch
-        scratch = torch.zeros(geometry(Wsp, C, Hp)[0], dtype=torch.int32,
-                              device=colmaj.device)
-        lib = _kernel_lib()
+        scratch = torch.zeros(geometry(Wsp, C, Hp, kernel)[0],
+                              dtype=torch.int32, device=colmaj.device)
         rc = lib.k2_wavefront_launch(
             colmaj.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             int(dt == torch.int32), index, Wsp, C, Hp, W, H, scale, rcp(scale),
-            None if custom is None else custom.ctypes.data,
             torch.cuda.current_stream(colmaj.device).cuda_stream)
         if rc != 0:
             raise KernelError("K2 launch failed: " +
                                lib.k2_error_string(rc).decode())
     launches += 1
+    name = library_name(_header_of(kernel)[0])
+    launches_by[name] = launches_by.get(name, 0) + 1
     return out

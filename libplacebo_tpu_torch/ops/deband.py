@@ -119,8 +119,14 @@ def deband_rng_tables(p: DebandParams, shape: Tuple[int, ...], seed: int):
     return choices, noise
 
 
+@lru_cache(maxsize=4)
 def deband_tables(p: DebandParams, shape, seed: int, device):
-    """deband_rng_tables as tensors on `device`."""
+    """deband_rng_tables as tensors on `device`, uploaded once for the
+    last few (params, shape, seed, device): the renderer plans them once
+    a frame signature, but an eager deband(x) draws them every call, and
+    three 1080p tables (25 MB) uploaded from pageable memory cost more
+    than deband itself and hold the host until the card has finished its
+    queued work.  Shared between callers, so never write to them."""
     choices, noise = deband_rng_tables(p, tuple(shape), seed)
     return ([torch.from_numpy(c).to(device) for c in choices],
             torch.from_numpy(noise).to(device) if noise is not None

@@ -120,19 +120,19 @@ def dither(img, new_depth: int, params: Optional[DitherParams] = None,
 def error_diffusion(img, new_depth: int,
                     kernel: Optional[ErrorDiffusionKernel] = None):
     """Error-diffusion dither of a (..., C, H, W) image to `new_depth`
-    bits: shear to the column-major wavefront layout (kernel K3), walk
-    it (kernel K2), unshear the integer codes (K3), scale them back and
-    clip.  Nothing is padded: the result does not depend on padding."""
+    bits: shear the frame into the column-major wavefront layout (kernel
+    K3), walk it (kernel K2), and unshear the integer codes back into a
+    contiguous (..., C, H, W) frame scaled back and clipped (K3, the
+    scale and clip in the same pass).  Nothing is padded: the result
+    does not depend on padding."""
     k = kernel or dth.ED_FLOYD_STEINBERG
     *lead, H, W = img.shape
     x = img.reshape(-1, H, W)
-    s = k.shift
-    xcm = x.permute(2, 0, 1).contiguous()                   # (W, C, H)
-    colmaj = k3.shear_to_colmaj(xcm, W + (H - 1) * s, s, W, H)
+    colmaj = k3.shear_chw(x, k.shift)                       # (Wsp, C, H)
     codes = k2.wavefront(colmaj, k, new_depth, W, H)
-    codes = k3.unshear_from_colmaj(codes, W, s, W, H).permute(1, 2, 0)
-    out = codes.to(torch.float32) * rcp(float((1 << new_depth) - 1))
-    return torch.clamp(out, 0.0, 1.0).reshape(*lead, H, W)
+    out = k3.unshear_chw(codes, k.shift, W,
+                         rcp(float((1 << new_depth) - 1)))
+    return out.reshape(*lead, H, W)
 
 
 def error_diffusion_scan(img, new_depth: int,

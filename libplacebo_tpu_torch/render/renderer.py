@@ -62,7 +62,7 @@ from ..core.colorspace import (COLOR_HDR_BLACK, COLOR_SDR_WHITE, CSP_SRGB,
                                primaries_guess, system_is_ycbcr_like)
 from ..core.common import RectF
 from ..core.fastmath import fma
-from ..core.dither import find_error_diffusion_kernel
+from ..core.dither import ED_FLOYD_STEINBERG, find_error_diffusion_kernel
 from ..core.gamut_mapping import GamutMapConstants
 from ..core import tone_mapping as tm
 from ..core import transfer as tf
@@ -83,6 +83,7 @@ from ..ops import polar as ops_polar
 from ..ops import sampling as ops_sampling
 from ..ops import tone_dynamic as ops_tone
 from ..ops.cuda import color_map as k1
+from ..ops.cuda import error_diffusion as k2
 from ..ops.deband import DebandParams
 from ..ops.dithering import DitherParams
 from ..ops.peak_detect import PeakDetectParams
@@ -942,6 +943,10 @@ class Renderer:
         # reference
         ed_kernel = find_error_diffusion_kernel(params.error_diffusion) \
             if params.error_diffusion else None
+        if params.error_diffusion and self.device.type == "cuda":
+            # the pattern's K2 instance, compiled now rather than at its
+            # first launch (KernelError if it cannot be)
+            k2.prepare(ed_kernel or ED_FLOYD_STEINBERG)
 
         tail_eligible = need_color_map and _tail_eligible(
             params, target, dst_w, dst_h, dst_crop, has_alpha)

@@ -7,11 +7,15 @@ and the flagship's K1 tail.
 Each pass: its inputs made from a seed on the card, one warm-up call,
 then `--n` calls back to back between two CUDA events (the host clock
 on the CPU, where the times say nothing of a GPU).  Beside each pass's
-ms it records its device operations a call (kernels, copies and fills)
-and their summed device ms, from one torch.profiler session after every
-pass is timed (each operation counted for the pass it ran in, between
-two marker kernels on the device's timeline); its byte floor (the bytes of its inputs and outputs over
-3.35 TB/s, the H100's HBM rate); and, for the passes that run the
+ms it records its device operations a call (kernels, copies and fills),
+their summed device ms and the device's span between the call's two
+marker kernels, from one torch.profiler session after every pass is
+timed, each pass called PROFILE_ROUNDS times there (its reading is
+the slowest call among those whose operations fit their span: one
+stream's operations cannot take longer, so a call whose sum exceeds its
+span holds another pass's activity and is left out); its byte floor
+(the bytes of its inputs and outputs over 3.35 TB/s, the H100's HBM
+rate); and, for the passes that run the
 hand-written kernels, their bound on the inputs the pass gave them (K1:
 its bytes or its operations over 67 TFLOP/s; K2 and K3: their bytes and
 operations).  These bound helpers are the only copy: the smoke test
@@ -50,6 +54,10 @@ MARK_KERNEL, MARK_CYCLES = "spin_kernel", 1000
 # plus the tracer's cost, 0.01 ms an operation (deband's 84 operations
 # trace 0.6-0.85 ms longer than its untimed ms)
 DEVICE_MS_MARGIN, TRACE_MS_PER_OP = 1.25, 0.01
+# profiled calls a pass (its device ms is the slowest's that fits its
+# span), and the timestamps' rounding allowed when a call's operations
+# are held to the span between its markers
+PROFILE_ROUNDS, SPAN_SLACK_MS = 3, 0.002
 # the passes that launch nothing on the device (a view)
 NO_DEVICE_OPS = ("weave",)
 # the passes whose one operation is a copy to or from pageable host
@@ -99,41 +107,59 @@ def k2_bound(colmaj, kernel, depth: int, w: int, h: int):
                     n_px * (7 + 2 * len(k2.taps_for(kernel))))
 
 
-def k3_bytes(x, w_out: int, w: int, h: int, forward: bool) -> int:
-    """The bytes one K3 call must move (its wrapper's arguments): forward
-    it reads its input and writes the whole sheared (w_out, C, Hp) frame;
-    inverse it reads and writes the W x H codes it keeps."""
-    _, C, Hp = x.shape
-    n = (x.numel() + w_out * C * Hp) if forward else 2 * w * C * h
-    return n * x.element_size()
+def k3_bytes(forward: bool, args) -> int:
+    """The bytes one K3 call must move (its wrapper's arguments: forward
+    shear_chw's (x, s), inverse unshear_chw's (codes, s, W, inv_scale)):
+    forward it reads the (C, H, W) frame and writes the whole sheared
+    (Wsp, C, H) image; inverse it reads the W x H codes of each channel
+    it keeps and writes them, as float32 where it scales them."""
+    from ..ops.cuda import shear as k3
+    if forward:
+        x, s = args
+        C, H, W = x.shape
+        return (C * H * W + k3.sheared_width(W, H, s) * C * H) * \
+            x.element_size()
+    codes, _, W, inv_scale = args
+    n = codes.shape[1] * codes.shape[2] * W
+    return n * (codes.element_size() +
+                (4 if inv_scale is not None else codes.element_size()))
+
+
+def k3_run(forward: bool, args, plain: bool = False):
+    """One captured K3 call (`capture_ed`'s (forward, args)) again,
+    through the wrapper or its plain version."""
+    from ..ops.cuda import shear as k3
+    if forward:
+        return (k3.shear_chw_plain if plain else k3.shear_chw)(*args)
+    return (k3.unshear_chw_plain if plain else k3.unshear_chw)(*args)
 
 
 def capture_ed(x, depth: int, kernel):
     """One error-diffusion call of `x` with K2's and K3's arguments
-    captured: (K2's (colmaj, kernel, depth, w, h), [K3's (x, w_out, s, w,
-    h, forward)])."""
+    captured: (K2's (colmaj, kernel, depth, w, h), [K3's (forward,
+    args)], forward first)."""
     from ..ops import dithering as ops_dither
     from ..ops.cuda import error_diffusion as k2
     from ..ops.cuda import shear as k3
     k2_args, k3_calls = [], []
-    real = (k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj)
+    real = (k2.wavefront, k3.shear_chw, k3.unshear_chw)
 
     def cap_k2(*a):
         k2_args.append(a)
         return real[0](*a)
 
     def cap_k3(i, forward):
-        def run(x, w_out, s, w, h):
-            k3_calls.append((x, w_out, s, w, h, forward))
-            return real[i](x, w_out, s, w, h)
+        def run(*a):
+            k3_calls.append((forward, a + (None,) * (4 - len(a))
+                             if not forward else a))
+            return real[i](*a)
         return run
     k2.wavefront = cap_k2
-    k3.shear_to_colmaj, k3.unshear_from_colmaj = cap_k3(1, True), \
-        cap_k3(2, False)
+    k3.shear_chw, k3.unshear_chw = cap_k3(1, True), cap_k3(2, False)
     try:
         ops_dither.error_diffusion(x, depth, kernel)
     finally:
-        k2.wavefront, k3.shear_to_colmaj, k3.unshear_from_colmaj = real
+        k2.wavefront, k3.shear_chw, k3.unshear_chw = real
     if len(k2_args) != 1 or len(k3_calls) != 2:
         raise RuntimeError(f"error diffusion ran K2 {len(k2_args)} and K3 "
                            f"{len(k3_calls)} times, not 1 and 2")
@@ -144,9 +170,9 @@ def ed_bounds(k2_args, k3_calls) -> dict:
     """K3 forward, K2 and K3 inverse's bounds on one error-diffusion
     call's captured arguments (`capture_ed`)."""
     out = {"k2": k2_bound(*k2_args)}
-    for x, w_out, _, w, h, forward in k3_calls:
+    for forward, args in k3_calls:
         out["k3_forward" if forward else "k3_inverse"] = bound_ms(
-            k3_bytes(x, w_out, w, h, forward))
+            k3_bytes(forward, args))
     return out
 
 
@@ -198,19 +224,59 @@ def time_ms(fn, args, n: int, dev: torch.device) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def device_ops(timed, dev: torch.device) -> dict:
-    """{name: (device operations, their summed ms)} of one call of each
-    (name, fn, args) — kernels, copies and fills, as torch.profiler
-    records them on the card ({} on the CPU).  One profiler session for
-    every pass (short sessions back to back lose activities).  A marker
-    kernel (`torch.cuda._sleep`) runs to its end before each call and
-    after the last, and each call ends synchronized, so on the device's
-    own timeline every operation of a call starts between its marker and
-    the next: a pass's operations are those, whatever launched them (the
-    profiler links the hand-written kernels, launched through the driver
-    API from their own libraries, to no host op).  A pass whose ms is
-    well above its device ms is held back by the host (per-call planning,
-    launch issue)."""
+def split_rounds(ops, names, rounds: int) -> dict:
+    """Split one profiler session's device operations at its marker
+    kernels.  `ops` are (name, start us, duration us) in start order;
+    each of the passes `names` was called `rounds` times, a marker
+    before every call and after the last.  Returns {pass: [(operations,
+    their summed ms, span ms), ...] a round}, the span being the
+    device's time between the round's two markers (the end of the one
+    before to the start of the one after)."""
+    marks = [i for i, op in enumerate(ops) if MARK_KERNEL in op[0]]
+    if len(marks) != len(names) * rounds + 1:
+        gaps = [round(ops[j][1] - ops[i][1]) for i, j in zip(marks,
+                                                              marks[1:])]
+        raise RuntimeError(
+            f"the profiler recorded {len(marks)} of the "
+            f"{len(names) * rounds + 1} markers ({len(ops)} device "
+            f"operations; before the first marker "
+            f"{marks[0] if marks else None}; us between markers {gaps})")
+    out = {}
+    for p, name in enumerate(names):
+        out[name] = []
+        for r in range(rounds):
+            a, b = marks[p * rounds + r], marks[p * rounds + r + 1]
+            seg = ops[a + 1:b]
+            out[name].append((len(seg), sum(d for _, _, d in seg) / 1e3,
+                              (ops[b][1] - ops[a][1] - ops[a][2]) / 1e3))
+    return out
+
+
+def pass_reading(rounds):
+    """A pass's (operations, device ms, span ms) from its profiled rounds
+    (split_rounds): the slowest round by device ms among those whose
+    operations fit between their markers, so the gate holds every round
+    that can be read.  Operations on one stream cannot take more than
+    that span, so a round whose sum exceeds it holds an activity of
+    another pass (or a misread one) and is left out; None when no round
+    fits: the split is wrong."""
+    fits = [r for r in rounds if r[1] <= r[2] + SPAN_SLACK_MS]
+    return max(fits, key=lambda r: r[1]) if fits else None
+
+
+def device_ops(timed, dev: torch.device):
+    """split_rounds of one call of each (name, fn, args), called
+    PROFILE_ROUNDS times in turn — kernels, copies and fills, as
+    torch.profiler records them on the card ({} on the CPU).  One profiler session for every
+    pass (short sessions back to back lose activities).  A marker kernel
+    (`torch.cuda._sleep`) runs to its end before each call and after the
+    last, and each call ends synchronized, so on the device's own
+    timeline every operation of a call starts between its two markers:
+    a call's operations are those, whatever launched them (the profiler
+    links the hand-written kernels, launched through the driver API from
+    their own libraries, to no host op).  A pass whose ms is well above
+    its device ms is held back by the host (per-call planning, launch
+    issue)."""
     if dev.type != "cuda":
         return {}
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -236,27 +302,19 @@ def device_ops(timed, dev: torch.device) -> dict:
             torch.zeros(1, device=dev).add_(1)
         synchronize(dev)
         for _, fn, args in timed:
-            mark()
-            fn(*args)
-            synchronize(dev)
+            for _ in range(PROFILE_ROUNDS):
+                mark()
+                fn(*args)
+                synchronize(dev)
         mark()
         time.sleep(0.1)
         prof.step()
     cuda = torch.autograd.DeviceType.CUDA
-    ops = sorted((e for e in events if e.device_type == cuda),
-                 key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(ops) if MARK_KERNEL in e.name]
-    if len(marks) != len(timed) + 1:
-        gaps = [round(ops[j].time_range.start - ops[i].time_range.start)
-                for i, j in zip(marks, marks[1:])]
-        raise RuntimeError(
-            f"the profiler recorded {len(marks)} of the {len(timed) + 1} "
-            f"markers ({len(ops)} device operations; before the first "
-            f"marker {marks[0] if marks else None}; us between markers "
-            f"{gaps})")
-    return {name: (b - a - 1, sum(e.time_range.elapsed_us()
-                                  for e in ops[a + 1:b]) / 1e3)
-            for (name, _, _), a, b in zip(timed, marks, marks[1:])}
+    ops = sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                  for e in events if e.device_type == cuda),
+                 key=lambda op: op[1])
+    return split_rounds(ops, [name for name, _, _ in timed],
+                        PROFILE_ROUNDS)
 
 
 def define_passes(W: int, H: int, dev: torch.device):
@@ -511,7 +569,8 @@ def k1_setup(W: int, H: int, dev: torch.device):
 
 def run(W: int, H: int, n: int, dev: torch.device, want=None) -> dict:
     """Time every pass (those whose name holds one of `want`'s
-    substrings); returns the artifact's dict."""
+    substrings), then profile each PROFILE_ROUNDS times; returns the
+    artifact's dict."""
     results, failed, timed = {}, {}, []
     for name, setup in define_passes(W, H, dev):
         if want and not any(w in name for w in want):
@@ -543,13 +602,21 @@ def run(W: int, H: int, n: int, dev: torch.device, want=None) -> dict:
         ops = {}
     for name, fn, args, per in timed:
         r = results[name]
-        n_ops, busy = ops.get(name, (None, None))
+        got = pass_reading(ops[name]) if name in ops else None
+        n_ops, busy, span = got if got is not None else (None,) * 3
         r["launches"] = n_ops / per if n_ops is not None else None
         r["device_ms"] = busy / per if busy is not None else None
+        r["device_span_ms"] = span / per if span is not None else None
+        if name in ops:
+            r["profile_rounds"] = [list(rd) for rd in ops[name]]
         kb = "".join(f", {k} bound {v['ms']:.4f} ms ({v['by']})"
                      for k, v in r["kernel_bounds"].items())
-        dv = (f"{r['launches']:g} launches, device {r['device_ms']:.3f} ms"
-              if n_ops is not None else "launches not measured (CPU)")
+        dv = (f"{r['launches']:g} launches, device {r['device_ms']:.3f} ms "
+              f"(span {r['device_span_ms']:.3f})" if n_ops is not None else
+              "split wrong: " + ", ".join(
+                  f"{b_:.3f} ms in a {s_:.3f} ms span"
+                  for _, b_, s_ in ops[name]) if name in ops else
+              "launches not measured (CPU)")
         print(f"{name:28s} {r['ms']:9.3f} ms, {dv}, byte floor "
               f"{r['byte_floor_ms']:.4f} ms "
               f"(x{r['ms'] / r['byte_floor_ms']:.1f}){kb}", flush=True)

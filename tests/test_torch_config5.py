@@ -242,6 +242,45 @@ def test_shear_plain_matches_pallas(shape, s):
                             interpret=True)))
 
 
+@pytest.mark.parametrize("shape,s", [((3, 37, 53), 1), ((2, 33, 71), 2),
+                                     ((3, 45, 29), 3), ((1, 31, 97), 5)])
+def test_shear_chw_plain_matches_pallas(shape, s):
+    """K3's plain version in the renderer's (C, H, W) layout vs
+    shear_to_colmaj / unshear_from_colmaj in interpret mode, the JAX input
+    moved to (W, C, H) and padded to the reference's widths: the sheared
+    image is the reference's without its pad (which is zero), the
+    unshear of float32 and of int16 codes the reference's moved back, and
+    the scaled unshear its codes * (1/scale) clipped: exact."""
+    C, H, W = shape
+    rng = np.random.default_rng(17 + s)
+    x = rng.random((C, H, W)).astype(np.float32)
+    Ws = W + (H - 1) * s
+    Wp, Hp, Wsp = [-(-v // 128) * 128 for v in (W, H, Ws)]
+    xcm = np.pad(np.moveaxis(x, 2, 0), ((0, Wp - W), (0, 0), (0, Hp - H)))
+    ref = np.asarray(jshear(jnp.asarray(xcm), Wsp, s, W, H, interpret=True))
+    cm = k3.shear_chw(torch.from_numpy(x), s)
+    assert cm.shape == (Ws, C, H) and cm.is_contiguous()
+    np.testing.assert_array_equal(cm.numpy(), ref[:Ws, :, :H])
+    assert not ref[Ws:].any() and not ref[:, :, H:].any()
+    padded = np.pad(cm.numpy(), ((0, Wsp - Ws), (0, 0), (0, Hp - H)))
+    back = k3.unshear_chw(cm, s, W)
+    np.testing.assert_array_equal(back.numpy(), x)
+    np.testing.assert_array_equal(back.numpy(), np.moveaxis(np.asarray(
+        junshear(jnp.asarray(padded), Wp, s, W, H, interpret=True))[
+            :W, :, :H], 0, 2))
+    codes = np.asarray(junshear(jnp.asarray((padded * 255).astype(np.int16)),
+                                Wp, s, W, H, interpret=True))
+    codes = np.moveaxis(codes[:W, :, :H], 0, 2)             # (C, H, W)
+    t_codes = (cm * 255).to(torch.int16)
+    assert t_codes.dtype == torch.int16
+    np.testing.assert_array_equal(k3.unshear_chw(t_codes, s, W).numpy(),
+                                  codes)
+    inv = float(np.float32(1) / np.float32(255))
+    np.testing.assert_array_equal(
+        k3.unshear_chw(t_codes, s, W, inv).numpy(),
+        np.clip(codes.astype(np.float32) * np.float32(inv), 0.0, 1.0))
+
+
 @pytest.mark.parametrize("name", ED_KERNELS)
 def test_wavefront_plain_matches_pallas_and_scan(name):
     """The port's error_diffusion (K3 -> K2 -> K3, plain versions) and its
@@ -263,10 +302,36 @@ def test_wavefront_plain_matches_pallas_and_scan(name):
     np.testing.assert_array_equal(np.asarray(jscan(jnp.asarray(img), 3, jk)),
                                   pal)
     x = torch.from_numpy(img)
-    np.testing.assert_array_equal(tdith.error_diffusion(x, 3, tk).numpy(),
-                                  pal)
+    out = tdith.error_diffusion(x, 3, tk)
+    assert out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(), pal)
     np.testing.assert_array_equal(
         tdith.error_diffusion_scan(x, 3, tk).numpy(), pal)
+
+
+@pytest.mark.parametrize("case", ["batched", "strided"])
+def test_error_diffusion_returns_contiguous(case):
+    """error_diffusion (K3 (C, H, W) -> K2 -> K3 back, plain versions)
+    returns a contiguous (..., C, H, W) frame equal to the port's and the
+    JAX package's error_diffusion_scan: a batch of 2 frames of 2 channels,
+    and a strided view (every other column of a wider frame)."""
+    rng = np.random.default_rng(44)
+    if case == "batched":
+        img = rng.random((2, 2, 24, 40)).astype(np.float32)
+        x = torch.from_numpy(img)
+    else:
+        wide = rng.random((3, 24, 80)).astype(np.float32)
+        img = np.ascontiguousarray(wide[:, :, ::2])
+        x = torch.from_numpy(wide)[:, :, ::2]
+        assert not x.is_contiguous()
+    k = tdither.find_error_diffusion_kernel("sierra-lite")
+    out = tdith.error_diffusion(x, 4, k)
+    assert out.shape == x.shape and out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(),
+                                  tdith.error_diffusion_scan(x, 4, k).numpy())
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jscan(
+        jnp.asarray(img), 4, jdither.find_error_diffusion_kernel(
+            "sierra-lite"))))
 
 
 def test_wavefront_rounds_the_error_once():
@@ -284,17 +349,19 @@ def test_wavefront_rounds_the_error_once():
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
-def _compiled_tap_tables():
+def _compiled_tap_tables(text=None, n=None):
     """{pattern index: (name, shift, taps)} as K2 is compiled with them:
     the `pattern()` switch of the header `tap_table_header` generates
-    for csrc/error_diffusion.cu, read back from its C++ text."""
+    for csrc/error_diffusion.cu (by default the built-in library's), read
+    back from its C++ text (name None where the header has none)."""
     import re
-    text = k2.tap_table_header()
-    assert f"constexpr int kPatterns = " \
-        f"{len(tdither.ERROR_DIFFUSION_KERNELS)};" in text
+    if text is None:
+        text, n = k2.tap_table_header(), len(tdither.ERROR_DIFFUSION_KERNELS)
+    assert f"constexpr int kPatterns = {n};" in text
     tables = {}
-    for m in re.finditer(r"case (\d+):\s*//\s*([\w-]+)\s*return\s*\{(.*?)\};",
-                         text, re.S):
+    for m in re.finditer(
+            r"case (\d+):\s*(?://\s*([\w-]+))?\s*return\s*\{(.*?)\};",
+            text, re.S):
         head, dys, offs, wgts = re.fullmatch(
             r"(\d+,\s*\d+),\s*\{(.*?)\},\s*\{(.*?)\},\s*\{(.*?)\}",
             m.group(3).strip(), re.S).groups()
@@ -326,13 +393,17 @@ def test_k2_compiled_tap_table_equals_taps_for(index):
 
 
 # patterns outside ERROR_DIFFUSION_KERNELS: (name, shift, pattern,
-# divisor); "reach-16" puts a tap at the custom instance's last slot
+# divisor); "reach-16" reaches sheared offset 16, "too-far" 18 and
+# "shift-16" 34 (each compiled into a K2 library of its own on the card)
 CUSTOM_PATTERNS = [
     ("custom-3row", 2, ((0, 0, 0, 5, 2), (0, 3, 4, 1, 0), (0, 0, 1, 0, 0)),
      16),
     ("custom-wide", 3, ((0, 0, 0, 6, 3), (2, 3, 5, 3, 1), (1, 2, 3, 2, 1)),
      32),
     ("reach-16", 7, ((0, 0, 0, 2, 1), (0, 0, 1, 0, 0), (0, 0, 0, 0, 1)), 5),
+    ("too-far", 8, ((0, 0, 0, 1, 0), (0, 0, 0, 0, 0), (0, 0, 0, 0, 1)), 2),
+    ("shift-16", 16, ((0, 0, 0, 4, 1), (1, 2, 3, 2, 1), (0, 1, 1, 1, 1)),
+     18),
 ]
 
 
@@ -353,30 +424,106 @@ def test_custom_pattern_matches_scan(case):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
-@pytest.mark.parametrize("case", CUSTOM_PATTERNS, ids=lambda c: c[0])
-def test_custom_taps_parameter_layout(case):
-    """custom_taps, K2's launch parameter for a custom pattern, holds the
-    shift, each slot's rows and float32 weights: decoded, the taps of
-    taps_for in the order K2 adds them (slot by slot, rows in order)."""
+def _renamed_fs(mod):
+    fs = mod.ED_FLOYD_STEINBERG
+    return mod.ErrorDiffusionKernel("my-fs", "a renamed copy", fs.shift,
+                                    fs.pattern, fs.divisor)
+
+
+@pytest.mark.parametrize("case", CUSTOM_PATTERNS + ["renamed-fs"],
+                         ids=lambda c: c if isinstance(c, str) else c[0])
+def test_k2_pattern_header_and_key(case):
+    """A pattern outside ERROR_DIFFUSION_KERNELS is compiled from a header
+    of its own: read back, the shift and the taps of taps_for in its
+    order, float32 weights bit for bit, under no name, the library named
+    by the header's hash.  The key is the shift and taps, not the name: a
+    renamed copy of Floyd-Steinberg has Floyd-Steinberg's key and runs
+    its instance of the built-in library."""
+    if case == "renamed-fs":
+        k = _renamed_fs(tdither)
+        fs = tdither.ED_FLOYD_STEINBERG
+        assert k != fs and k2.pattern_key(k) == k2.pattern_key(fs)
+        header, index = k2._header_of(k)
+        assert header is None and \
+            tdither.ERROR_DIFFUSION_KERNELS[index] is fs
+        assert k2.library_name(header) == "k2_error_diffusion"
+        return
     k = _custom(tdither, case)
-    words = k2.custom_taps(k)
-    assert words.dtype == np.uint32 and words.size == 1 + 4 * k2.CUSTOM_SLOTS
-    assert words[0] == k.shift
-    rows = words[1:1 + k2.CUSTOM_SLOTS]
-    wgts = words[1 + k2.CUSTOM_SLOTS:].view(np.float32).reshape(-1, 3)
-    got = [(dy, slot + 1, float(wgts[slot, dy]))
-           for slot in range(k2.CUSTOM_SLOTS) for dy in range(3)
-           if rows[slot] >> dy & 1]
-    assert sorted(got, key=lambda t: (t[0], t[1])) == \
-        sorted(k2.taps_for(k), key=lambda t: (t[0], t[1]))
-    too_far = tdither.ErrorDiffusionKernel(
-        "too-far", "", 8, ((0, 0, 0, 1, 0), (0, 0, 0, 0, 0),
-                           (0, 0, 0, 0, 1)), 2)
-    with pytest.raises(ValueError, match="offset 18"):
-        k2.custom_taps(too_far)
+    header, index = k2._header_of(k)
+    assert index == 0 and k.name not in header
+    tables = _compiled_tap_tables(header, 1)
+    assert list(tables) == [0]
+    _, shift, taps = tables[0]
+    assert shift == k.shift
+    want = k2.taps_for(k)
+    assert [(dy, off) for dy, off, _ in taps] == \
+        [(dy, off) for dy, off, _ in want]
+    assert np.array_equal(np.float32([w for _, _, w in taps]).view(np.uint32),
+                          np.float32([w for _, _, w in want]).view(np.uint32))
+    assert k2.pattern_key(k) == (k.shift,) + tuple(
+        (dy, off, int(np.float32(w).view(np.uint32))) for dy, off, w in want)
+    renamed = tdither.ErrorDiffusionKernel("other", "", k.shift, k.pattern,
+                                           k.divisor)
+    assert k2._header_of(renamed) == (header, 0)
+    name = k2.library_name(header)
+    assert name.startswith("k2_error_diffusion_p") and \
+        name != k2.library_name()
 
 
-# -- the slice end to end ------------------------------------------------
+def test_k2_prepare_failure_raises_kernel_error(monkeypatch):
+    """A custom pattern's library that cannot be built raises KernelError
+    from prepare (the renderer's call when it plans the frame), and the
+    pattern is not cached as built: nothing would run in the kernel's
+    place on the card.  The CPU entry runs the plain version regardless
+    of the library."""
+    from libplacebo_tpu_torch import _build
+
+    def broken(name, *a):
+        raise _build.KernelError(f"build of {name} failed (synthetic)")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build, "load_shared", broken)
+    k = tdither.ErrorDiffusionKernel(
+        "unbuilt", "", 5, ((0, 0, 0, 3, 1), (1, 1, 2, 1, 0),
+                           (0, 0, 1, 0, 1)), 11)
+    for _ in range(2):
+        with pytest.raises(_build.KernelError, match="k2_error_diffusion_p"):
+            k2.prepare(k)
+    x = torch.rand((2, 9, 13), generator=torch.Generator().manual_seed(3))
+    cm = k3.shear_chw(x, k.shift)
+    assert torch.equal(k2.wavefront(cm, k, 4, 13, 9),
+                       k2.wavefront_plain(cm, k, 4, 13, 9))
+
+
+@pytest.mark.parametrize("name", ["jarvis-judice-ninke", "no-such-pattern"])
+def test_renderer_diffuses_with_its_named_pattern(monkeypatch, name):
+    """RenderParams.error_diffusion names the pattern (an unknown name
+    diffuses with Floyd-Steinberg, as in the reference): the renderer
+    diffuses the encoded frame with it, exact against the JAX
+    error_diffusion_scan with that pattern.  On the CPU it builds no K2
+    library (it prepares one only on the card)."""
+    seen = []
+    orig = tdith.error_diffusion
+
+    def capture(img, depth, kernel):
+        seen.append((img.clone(), depth, kernel))
+        return orig(img, depth, kernel)
+
+    def no_build(kernel):
+        raise AssertionError("K2 prepared on the CPU")
+    monkeypatch.setattr(tdith, "error_diffusion", capture)
+    monkeypatch.setattr(k2, "prepare", no_build)
+    yuv = _yuv(5, 32, 48)
+    target = lt.Target(w=96, h=64, color=lt.CSP_SRGB, bit_depth=8)
+    out = lt.Renderer(device="cpu").render(
+        _port_frame(*yuv, None), target,
+        lt.RenderParams(error_diffusion=name)).numpy()
+    (img, depth, kernel), = seen
+    assert kernel is tdither.find_error_diffusion_kernel(name) and depth == 8
+    jk = jdither.find_error_diffusion_kernel(name) or \
+        jdither.ED_FLOYD_STEINBERG
+    np.testing.assert_array_equal(
+        out, np.asarray(jscan(jnp.asarray(img.numpy()), 8, jk)))
+
 
 def _yuv(seed, h=SRC_H, w=SRC_W):
     rng = np.random.default_rng(seed)
@@ -488,9 +635,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,s", [((3, 37, 53), 2), ((3, 130, 200), 3)])
+@pytest.mark.parametrize("shape,s", [((3, 37, 53), 2), ((3, 130, 200), 3),
+                                     ((3, 70, 41), 9), ((2, 40, 33), 16)])
 def test_k3_kernel_matches_plain_on_card(cuda_device, shape, s):
-    """K3 both ways vs its plain version on the card: exact."""
+    """K3 both ways in the reference's (W, C, H) layout vs its plain
+    version on the card: exact, the inverse also into a padded width
+    (the kernel writes the pad's zeros); s = 9 and 16 take its body's
+    > 48 KB shared-memory path."""
     C, H, W = shape
     x = torch.rand((W, C, H), device=cuda_device)
     Ws = W + (H - 1) * s
@@ -501,7 +652,41 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, shape, s):
     codes = (cm * 255).to(torch.int16)
     back = k3.unshear_from_colmaj(codes, W, s, W, H)
     assert torch.equal(back, k3.shear_plain(codes, W, s, W, H, False))
-    assert k3.launches == before + 2
+    padded = k3.unshear_from_colmaj(codes, W + 3, s, W, H)
+    assert torch.equal(padded, k3.shear_plain(codes, W + 3, s, W, H, False))
+    assert k3.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,s", [((3, 37, 53), 1), ((3, 130, 200), 2),
+                                     ((2, 45, 29), 3), ((1, 31, 97), 5),
+                                     ((3, 70, 41), 9), ((2, 40, 33), 16),
+                                     ((3, 1080, 1920), 2)])
+def test_k3_chw_kernel_matches_plain_on_card(cuda_device, shape, s):
+    """K3 in the renderer's (C, H, W) layout vs its plain versions on the
+    card: the shear of a contiguous frame and of a strided view, the
+    unshear of int16 and int32 codes, and the scaled unshear into
+    float32: exact, each launch counted."""
+    C, H, W = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(H + s)
+    x = torch.rand((C, H, W), device=cuda_device, generator=gen)
+    before = k3.launches
+    cm = k3.shear_chw(x, s)
+    assert torch.equal(cm, k3.shear_chw_plain(x, s))
+    wide = torch.rand((C, H, 2 * W), device=cuda_device, generator=gen)
+    assert torch.equal(k3.shear_chw(wide[:, :, 1::2], s),
+                       k3.shear_chw_plain(wide[:, :, 1::2], s))
+    inv = float(np.float32(1) / np.float32(255))
+    for dt in (torch.int16, torch.int32):
+        codes = (cm * 255).round().to(dt)
+        back = k3.unshear_chw(codes, s, W)
+        assert back.dtype == dt and back.is_contiguous()
+        assert torch.equal(back, k3.unshear_chw_plain(codes, s, W))
+        scaled = k3.unshear_chw(codes, s, W, inv)
+        assert scaled.dtype == torch.float32 and scaled.is_contiguous()
+        assert torch.equal(scaled, k3.unshear_chw_plain(codes, s, W, inv))
+    torch.cuda.synchronize()
+    assert k3.launches == before + 6
 
 
 @pytest.mark.cuda
@@ -566,10 +751,14 @@ def _k2_exact_on_card(cuda_device, shape, name, depth):
 @pytest.mark.parametrize("case", CUSTOM_PATTERNS, ids=lambda c: c[0])
 @pytest.mark.parametrize("shape", [(3, 70, 41), (2, 96, 160)])
 def test_k2_custom_pattern_on_card(cuda_device, shape, case, depth):
-    """A pattern outside ERROR_DIFFUSION_KERNELS runs on K2's custom
-    instance (taps given at launch): exact against the plain version,
-    across band boundaries, at 8 and 16 bits."""
+    """A pattern outside ERROR_DIFFUSION_KERNELS runs on its own compiled
+    K2 instance (a library built from its header, its window its own
+    largest offset, up to 34 for shift-16): exact against the plain
+    version, across band boundaries, at 8 and 16 bits."""
     k = _custom(tdither, case)
+    lib, index = k2.prepare(k)
+    assert index == 0 and \
+        lib.k2_max_window() == max(off for _, off, _ in k2.taps_for(k))
     C, H, W = shape
     x = torch.rand((C, H, W), device=cuda_device,
                    generator=torch.Generator(device=cuda_device).manual_seed(
@@ -582,6 +771,39 @@ def test_k2_custom_pattern_on_card(cuda_device, shape, case, depth):
     torch.cuda.synchronize()
     assert k2.launches == before + 1
     assert torch.equal(out, k2.wavefront_plain(cm, k, depth, W, H))
+
+
+# patterns whose windows do not fit in registers: (name, shift, pattern,
+# divisor); "ring-24" keeps its 50-column window in shared memory (a ring
+# of 64 slots), "ring-300" its 602 columns in 128 KB of dynamic shared
+# memory, "ring-520" its 1042 columns in the scratch
+LONG_PATTERNS = [
+    (f"ring-{shift}", shift, ((0, 0, 0, 3, 1), (1, 2, 3, 2, 1),
+                              (0, 1, 1, 1, 1)), 17)
+    for shift in (24, 300, 520)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LONG_PATTERNS + ["renamed-fs"],
+                         ids=lambda c: c if isinstance(c, str) else c[0])
+def test_k2_long_window_and_renamed_pattern_on_card(cuda_device, case):
+    """Patterns with windows beyond the registers (a ring in shared
+    memory, then in the scratch) and a renamed copy of Floyd-Steinberg
+    (the built-in library's instance): exact against the plain version
+    over two bands of three channels."""
+    k = _renamed_fs(tdither) if case == "renamed-fs" else \
+        _custom(tdither, case)
+    C, H, W = 3, 35, 30
+    x = torch.rand((C, H, W), device=cuda_device,
+                   generator=torch.Generator(device=cuda_device).manual_seed(
+                       k.shift))
+    cm = k3.shear_chw_plain(x, k.shift)
+    lib, index = k2.prepare(k)
+    if case == "renamed-fs":
+        assert (lib, index) == k2.prepare(tdither.ED_FLOYD_STEINBERG)
+    out = k2.wavefront(cm, k, 8, W, H)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k2.wavefront_plain(cm, k, 8, W, H))
 
 
 def _measure(n_frames=8):

@@ -272,7 +272,8 @@ def test_kernel_work_failures_never_degrade(error, monkeypatch, logs):
     Renderer.render with nothing recorded; every launch lies inside such
     a block (K1: the flagship, the generic instance, the static curve,
     the square-root check), and so does the build of a generic tail's
-    instance when the renderer plans it (K1's `prepare`)."""
+    instance, or of an error-diffusion pattern's, when the renderer plans
+    it (K1's and K2's `prepare`)."""
     import inspect
     from libplacebo_tpu_torch.ops.cuda import shear as k3
     exc = error()
@@ -292,7 +293,7 @@ def test_kernel_work_failures_never_degrade(error, monkeypatch, logs):
                                          error_diffusion="floyd-steinberg"))
     assert len(tried) == 1
     assert r.get_errors() == (frozenset(), frozenset()) and not logs["t"]
-    for mod, n in ((k1, 5), (k2, 1), (k3, 1)):
+    for mod, n in ((k1, 5), (k2, 2), (k3, 1)):
         src = inspect.getsource(mod)
         assert src.count("with kernel_work(") == n, mod.__name__
         assert src.count("_launch(") == src.count(

@@ -79,7 +79,8 @@ def test_bench_micro_bounds_from_the_kernels_arguments(micro):
     assert b["k2"]["ms"] == pytest.approx(n_px * (4 + 2) / 3.35e9)
     assert b["k3_forward"]["ms"] == pytest.approx(
         (n_px + (128 + 95 * 2) * 3 * 96) * 4 / 3.35e9)
-    assert b["k3_inverse"]["ms"] == pytest.approx(2 * n_px * 2 / 3.35e9)
+    # the inverse reads the int16 codes and writes them scaled, float32
+    assert b["k3_inverse"]["ms"] == pytest.approx(n_px * (2 + 4) / 3.35e9)
 
 
 def test_profile_violations():
@@ -95,6 +96,74 @@ def test_profile_violations():
         "cpu": {"ms": 1.0, "launches": None, "device_ms": None}}
     assert [n for n, _ in bench_micro.profile_violations(passes)] == \
         ["nothing", "over", "cpu"]
+
+
+def _timeline(calls):
+    """A profiler's device timeline: a marker kernel, then each call's
+    operations [(name, duration us)] back to back from 10 us after it,
+    the next marker 10 us after the call's last operation ends.  An
+    operation named with a leading "!" is a misplaced record: it starts
+    where it stands but takes no time on this call's timeline."""
+    mark, t, ops = bench_micro.MARK_KERNEL, 0.0, []
+    for call in calls:
+        ops.append((mark, t, 5.0))
+        t += 15.0
+        for name, dur in call:
+            ops.append((name.lstrip("!"), t, dur))
+            t += 0.0 if name.startswith("!") else dur
+        t += 10.0
+    ops.append((mark, t, 5.0))
+    return ops
+
+
+@pytest.mark.parametrize("misplaced", ["one round", "every round"])
+def test_profile_split_catches_a_misplaced_activity(misplaced):
+    """bench_micro's split of a profiled session at its marker kernels:
+    each call's operations, their sum and the device span between its
+    markers (here 10 us either side).  An activity placed in the wrong
+    pass (a 4 ms copy recorded as starting inside `bilinear`'s window,
+    its duration reaching past the next marker) makes that call's
+    operations sum above its span, which one stream cannot do: the
+    round is left out and the pass read from the slowest of its other
+    rounds; with every round wrong the pass has no reading and the gate
+    flags it."""
+    bad = [1] if misplaced == "one round" else [0, 1, 2]
+    sample = [110.0, 100.0, 100.0]
+    calls = [[("sample", sample[r])] + ([("!Memcpy HtoD", 4000.0)]
+                                        if r in bad else [])
+             for r in range(3)]
+    calls += [[("roll", 900.0), ("Memcpy HtoD", 1200.0)]] * 3
+    rounds = bench_micro.split_rounds(_timeline(calls),
+                                      ["bilinear", "deband"], 3)
+    for r in range(3):
+        n, busy, span = rounds["bilinear"][r]
+        assert span == pytest.approx((sample[r] + 20.0) / 1e3)
+        assert n == (2 if r in bad else 1)
+        assert (busy > span) == (r in bad)
+    assert rounds["deband"] == [(2, pytest.approx(2.1),
+                                 pytest.approx(2.12))] * 3
+    reading = bench_micro.pass_reading(rounds["bilinear"])
+    passes = {"deband": {"ms": 2.2, "launches": 2, "device_ms": 2.1}}
+    if misplaced == "one round":
+        # the slowest round that fits its span, not the median
+        assert reading == (1, pytest.approx(0.11), pytest.approx(0.13))
+        passes["bilinear"] = {"ms": 0.12, "launches": 1, "device_ms": 0.11}
+        assert bench_micro.profile_violations(passes) == []
+        # a round that fits but is slow is not outvoted by the others
+        slow = [(1, 0.1, 0.12), (1, 0.2, 0.22), (1, 0.1, 0.12)]
+        assert bench_micro.pass_reading(slow) == (1, 0.2, 0.22)
+        passes["bilinear"] = {"ms": 0.12, "launches": 1, "device_ms": 0.2}
+        assert [n for n, _ in bench_micro.profile_violations(passes)] == \
+            ["bilinear"]
+    else:
+        assert reading is None
+        passes["bilinear"] = {"ms": 0.12, "launches": None,
+                              "device_ms": None}
+        assert bench_micro.profile_violations(passes) == \
+            [("bilinear", "not profiled")]
+    with pytest.raises(RuntimeError, match="markers"):
+        bench_micro.split_rounds(_timeline(calls)[1:],
+                                 ["bilinear", "deband"], 3)
 
 
 def test_bench_micro_failing_pass_exits_1(monkeypatch, capsys, tmp_path):
