@@ -17,6 +17,7 @@ from ..core.colorspace import (BitEncoding, ColorLevels, ColorRepr,
 from ..core.common import RectF, Rotation
 from ..core.film_grain import FilmGrainData
 from ..utils.device import raw_to_device, resolve_device
+from . import profiler
 
 __all__ = ["Plane", "Frame", "Overlay", "OverlayPart", "frame_from_yuv420p",
            "frame_from_rgb", "icc_key"]
@@ -144,6 +145,9 @@ class Frame:
     # presentation time and identity, for frame mixing
     pts: float = 0.0
     signature: int = 0
+    # sequence number the upload gave the frame, carried by its spans
+    # (render/profiler.py); 0 = none, the renderer then takes a new one
+    seq: int = 0
 
     @property
     def ref_plane(self) -> Plane:
@@ -270,13 +274,15 @@ def frame_from_yuv420p(y: np.ndarray, u: np.ndarray, v: np.ndarray,
         levels=ColorLevels.LIMITED,
         bits=BitEncoding(bit_depth, bit_depth, 0))
     color = color or ColorSpace()
-    # MPEG-2 ("left") chroma siting: -0.5 ref-pixel shift
-    planes = [
-        Plane(norm(y)[None], (0,)),
-        Plane(norm(u)[None], (1,), shift_x=-0.5),
-        Plane(norm(v)[None], (2,), shift_x=-0.5),
-    ]
-    return Frame(planes=planes, repr=repr, color=color)
+    seq = profiler.next_seq()
+    with profiler.span("upload", seq):
+        # MPEG-2 ("left") chroma siting: -0.5 ref-pixel shift
+        planes = [
+            Plane(norm(y)[None], (0,)),
+            Plane(norm(u)[None], (1,), shift_x=-0.5),
+            Plane(norm(v)[None], (2,), shift_x=-0.5),
+        ]
+    return Frame(planes=planes, repr=repr, color=color, seq=seq)
 
 
 def frame_from_rgb(rgb: np.ndarray, color: Optional[ColorSpace] = None,

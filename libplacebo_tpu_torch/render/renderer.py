@@ -35,8 +35,11 @@ sixteen sites; a hooked frame's tail is plain, as in the reference.  A
 render that fails on a plain stage goes down the reference's degradation
 ladder (`errors`, `get_errors`); a kernel's failure to build or launch
 and CUDA errors never degrade: they propagate.  `telemetry` times each
-frame, one frame late.  `render_image_mix` blends a FrameMix window of
-rendered frames (frame interpolation).
+frame, one frame late; inside a torch.profiler session each stage runs
+in a span (`render.merge`, `render.scale`, `render.tail`, ...:
+render/profiler.py) and a plan-cache miss counts `render.plan_misses`.
+`render_image_mix` blends a FrameMix window of rendered frames (frame
+interpolation).
 """
 from __future__ import annotations
 
@@ -89,6 +92,7 @@ from ..ops.dithering import DitherParams
 from ..ops.peak_detect import PeakDetectParams
 from ..runtime import GpuContext
 from ..utils.device import resolve_device
+from . import profiler
 from .frame import Frame, icc_key
 from .hooks import HookRect, HookStage, run_hooks
 from .queue import frame_mix_nearest
@@ -995,9 +999,10 @@ class Renderer:
                 return run_hooks(hooks, stage, x, self._disabled_hooks,
                                  states=hstates, rect=rect, dst_w=dst_w,
                                  dst_h=dst_h)
-            img, (h_act, w_act), ref_off = self._merge_planes(
-                planes, plane_metas, params, deband, grain, fields, h274,
-                hook, frame_repr.sys)
+            with profiler.span("render.merge"):
+                img, (h_act, w_act), ref_off = self._merge_planes(
+                    planes, plane_metas, params, deband, grain, fields,
+                    h274, hook, frame_repr.sys)
             alpha = None
             if has_alpha:
                 # the alpha plane runs beside the color, un-premultiplied
@@ -1023,17 +1028,18 @@ class Renderer:
             sy_n = img.shape[-2] / h_pre
             if rotation % 2:
                 sx_n, sy_n = sy_n, sx_n
-            img = ops_color.decode_color(img, frame_repr,
-                                         src_color.primaries,
-                                         dovi_packed=inputs.dovi_packed,
-                                         adjustment=params.color_adjustment)
-            if rotation:
-                # the decoded image turns before scaling; the crop lies
-                # in the turned image
-                img = torch.rot90(img, rotation, dims=(-2, -1))
-                if alpha is not None:
-                    alpha = torch.rot90(alpha, rotation, dims=(-2, -1))
-                hr_main.rotate(rotation)
+            with profiler.span("render.decode"):
+                img = ops_color.decode_color(
+                    img, frame_repr, src_color.primaries,
+                    dovi_packed=inputs.dovi_packed,
+                    adjustment=params.color_adjustment)
+                if rotation:
+                    # the decoded image turns before scaling; the crop
+                    # lies in the turned image
+                    img = torch.rot90(img, rotation, dims=(-2, -1))
+                    if alpha is not None:
+                        alpha = torch.rot90(alpha, rotation, dims=(-2, -1))
+                    hr_main.rotate(rotation)
             h_rot, w_rot = img.shape[-2], img.shape[-1]
             img = hook(HookStage.RGB, img, rect=hr_main)
 
@@ -1048,15 +1054,18 @@ class Renderer:
                 return RectF(c.x0 * fx + hr_main.ox, c.y0 * fy + hr_main.oy,
                              c.x1 * fx + hr_main.ox, c.y1 * fy + hr_main.oy)
             if params.lut is not None and params.lut_type == "native":
-                img = ops_lut.apply_lut(img, params.lut)
+                with profiler.span("render.decode"):
+                    img = ops_lut.apply_lut(img, params.lut)
             crop_probe = crop_with_hooks(crop_eff, img)
             needs_scale, use_linear, sig, scaler, cfg_down, antiring = \
                 scale_plan(crop_probe)
             if use_linear:
-                img = linearize_src(img)
+                with profiler.span("render.linearize"):
+                    img = linearize_src(img)
                 img = hook(HookStage.LINEAR, img, rect=hr_main)
                 if sig is not None:
-                    img = ops_color.sigmoidize(img, sig)
+                    with profiler.span("render.linearize"):
+                        img = ops_color.sigmoidize(img, sig)
                     img = hook(HookStage.SIGMOID, img, rect=hr_main)
             img = hook(HookStage.PRE_KERNEL, img, rect=hr_main)
             # the final sampling crop: every main-stage resize and offset
@@ -1070,23 +1079,26 @@ class Renderer:
                 _, _, _, scaler, cfg_down, antiring = scale_plan(
                     crop_probe, needs=True)
             if needs_scale:
-                if scaler.polar:
-                    img = ops_polar.sample_polar(img, scaler, dst_h, dst_w,
-                                                 crop_eff, antiring=antiring)
-                    if alpha is not None:
-                        alpha = ops_polar.sample_polar(alpha, scaler, dst_h,
-                                                       dst_w, crop_eff)
-                else:
-                    img = ops_sampling.resize_separable(
-                        img, dst_h, dst_w, scaler, crop_eff,
-                        cfg_down=cfg_down, antiring=antiring)
-                    if alpha is not None:
-                        alpha = ops_sampling.resize_separable(
-                            alpha, dst_h, dst_w, scaler, crop_eff,
-                            cfg_down=cfg_down)
+                with profiler.span("render.scale"):
+                    if scaler.polar:
+                        img = ops_polar.sample_polar(
+                            img, scaler, dst_h, dst_w, crop_eff,
+                            antiring=antiring)
+                        if alpha is not None:
+                            alpha = ops_polar.sample_polar(
+                                alpha, scaler, dst_h, dst_w, crop_eff)
+                    else:
+                        img = ops_sampling.resize_separable(
+                            img, dst_h, dst_w, scaler, crop_eff,
+                            cfg_down=cfg_down, antiring=antiring)
+                        if alpha is not None:
+                            alpha = ops_sampling.resize_separable(
+                                alpha, dst_h, dst_w, scaler, crop_eff,
+                                cfg_down=cfg_down)
             img = hook(HookStage.POST_KERNEL, img)
             if sig is not None:
-                img = ops_color.desigmoidize(img, sig)
+                with profiler.span("render.linearize"):
+                    img = ops_color.desigmoidize(img, sig)
             img = hook(HookStage.SCALED, img)
             if params.cone is not None:
                 img = ops_color.cone_distort(img, src_color, params.cone,
@@ -1094,108 +1106,126 @@ class Renderer:
             new_state = peak_state
             if need_color_map:
                 if not use_linear:
-                    img = linearize_src(img)
-                if fused_tail is not None:
-                    # with allow_delayed, K1 measures this frame's peak
-                    # partials while it tone-maps with the previous
-                    # frames' stats; else the stats are this frame's
-                    stats = None
-                    if use_peak and fused_tail.fused_peak:
-                        stats = ops_peak.delayed_stats(peak_state,
-                                                       src_max_pq)
-                    elif use_peak:
-                        avg_pq, max_pq, new_state = ops_peak.applied_stats(
-                            img, peak_state, params.peak_detect, src_max_pq)
-                        stats = (avg_pq, max_pq)
-                    img, packed = fused_tail(img, stats)
-                    if packed is not None:
-                        _, _, new_state = ops_peak.finish_from_packed(
-                            packed, peak_state, params.peak_detect)
-                    k1_tails += 1
-                else:
-                    stats = None
-                    if use_peak:
-                        avg_pq, max_pq, new_state = ops_peak.applied_stats(
-                            img, peak_state, params.peak_detect, src_max_pq)
-                        stats = (avg_pq, max_pq)
-                    img = color_map_stage(img, src_color, dst_color, params,
-                                          stats)
-                    img = delinearize_to(img, dst_color)
-                    if tail_eligible:
-                        plain_tails += 1
+                    with profiler.span("render.linearize"):
+                        img = linearize_src(img)
+                with profiler.span("render.tail"):
+                    if fused_tail is not None:
+                        # with allow_delayed, K1 measures this frame's
+                        # peak partials while it tone-maps with the
+                        # previous frames' stats; else the stats are this
+                        # frame's
+                        stats = None
+                        if use_peak and fused_tail.fused_peak:
+                            stats = ops_peak.delayed_stats(peak_state,
+                                                           src_max_pq)
+                        elif use_peak:
+                            avg_pq, max_pq, new_state = \
+                                ops_peak.applied_stats(
+                                    img, peak_state, params.peak_detect,
+                                    src_max_pq)
+                            stats = (avg_pq, max_pq)
+                        img, packed = fused_tail(img, stats)
+                        if packed is not None:
+                            _, _, new_state = ops_peak.finish_from_packed(
+                                packed, peak_state, params.peak_detect)
+                        k1_tails += 1
                     else:
-                        ineligible_tails += 1
+                        stats = None
+                        if use_peak:
+                            avg_pq, max_pq, new_state = \
+                                ops_peak.applied_stats(
+                                    img, peak_state, params.peak_detect,
+                                    src_max_pq)
+                            stats = (avg_pq, max_pq)
+                        img = color_map_stage(img, src_color, dst_color,
+                                              params, stats)
+                        img = delinearize_to(img, dst_color)
+                        if tail_eligible:
+                            plain_tails += 1
+                        else:
+                            ineligible_tails += 1
             elif use_linear:
-                img = delinearize_to(img, src_color)
+                with profiler.span("render.linearize"):
+                    img = delinearize_to(img, src_color)
             img = hook(HookStage.PRE_OUTPUT, img)
             if fused_tail is None:
-                if params.lut is not None and \
-                        params.lut_type == "conversion":
-                    img = ops_lut.apply_lut(img, params.lut)
-                img = ops_color.encode_color(img, target.repr,
-                                             dst_color.primaries)
+                with profiler.span("render.encode"):
+                    if params.lut is not None and \
+                            params.lut_type == "conversion":
+                        img = ops_lut.apply_lut(img, params.lut)
+                    img = ops_color.encode_color(img, target.repr,
+                                                 dst_color.primaries)
             img = hook(HookStage.OUTPUT, img)
-            if alpha is not None:
-                if target.repr.alpha == AlphaMode.PREMULTIPLIED:
-                    img = img * alpha
-                img = torch.cat([img, alpha], dim=-3)
-            if distort_plan is not None:
-                img = ops_distort.distort_image(img, dst_w, dst_h,
-                                                params.distort, distort_plan)
-            comps = img.shape[-3]
-            if border is not None:
-                # composite into the whole target (reference
-                # clear_target, renderer.c:2491)
-                if border == "blur":
-                    canvas = self._blur_border(params, img, target.h,
-                                               target.w)
-                else:
-                    canvas = plan_image(("canvas", comps), lambda: (
-                        torch.zeros((comps, target.h, target.w),
-                                    device=self.device)
-                        if border == "skip" else self._background(
-                            params, comps, target.h, target.w, self.device,
-                            mode=border))).clone()
-                img = _paste(canvas, img, y0, x0)
-            if params.corner_rounding > 0:
-                mask = plan_image(("corners",), lambda: _corner_mask(
-                    params.corner_rounding, target.h, target.w,
-                    self.device))
-                bg = plan_image(("background", comps), lambda:
-                                self._background(params, comps, target.h,
-                                                 target.w, self.device))
-                img = fma(img - bg, mask, bg)
-            # error diffusion needs the whole encoded frame, so it runs
-            # after the tail, which then leaves out the ordered dither
-            if quantize and (fused_tail is None or params.error_diffusion):
-                if params.error_diffusion:
-                    img = ops_dither.error_diffusion(img, target.bit_depth,
-                                                     ed_kernel)
-                elif dp is not None:
-                    h, w = img.shape[-2], img.shape[-1]
-                    bias = plan_image(("bias", h, w), lambda: torch.from_numpy(
-                        ops_dither.bias_matrix(dp, h, w, dither_phase)).to(
-                            self.device))
-                    img = ops_dither.dither(img, target.bit_depth, dp,
-                                            frame_index=dither_phase,
-                                            bias=bias)
-            if params.blend is not None and inputs.target_data is not None:
-                img = self._blend_target(img, inputs.target_data,
-                                         params.blend)
-            # overlays (subtitles, OSD) blend after the dither, like the
-            # reference's final vertex pass
-            for (ov, is_tgt), ov_data in zip(overlays,
-                                             inputs.overlay_datas):
-                img = self._blend_overlay(img, ov_data, ov, is_tgt, target,
-                                          dst_color, params, crop, dst_crop,
-                                          rotation, frame_hw)
+            with profiler.span("render.output"):
+                if alpha is not None:
+                    if target.repr.alpha == AlphaMode.PREMULTIPLIED:
+                        img = img * alpha
+                    img = torch.cat([img, alpha], dim=-3)
+                if distort_plan is not None:
+                    img = ops_distort.distort_image(
+                        img, dst_w, dst_h, params.distort, distort_plan)
+                comps = img.shape[-3]
+                if border is not None:
+                    # composite into the whole target (reference
+                    # clear_target, renderer.c:2491)
+                    if border == "blur":
+                        canvas = self._blur_border(params, img, target.h,
+                                                   target.w)
+                    else:
+                        canvas = plan_image(("canvas", comps), lambda: (
+                            torch.zeros((comps, target.h, target.w),
+                                        device=self.device)
+                            if border == "skip" else self._background(
+                                params, comps, target.h, target.w,
+                                self.device, mode=border))).clone()
+                    img = _paste(canvas, img, y0, x0)
+                if params.corner_rounding > 0:
+                    mask = plan_image(("corners",), lambda: _corner_mask(
+                        params.corner_rounding, target.h, target.w,
+                        self.device))
+                    bg = plan_image(("background", comps), lambda:
+                                    self._background(params, comps,
+                                                     target.h, target.w,
+                                                     self.device))
+                    img = fma(img - bg, mask, bg)
+                # error diffusion needs the whole encoded frame, so it
+                # runs after the tail, which then leaves out the ordered
+                # dither
+                if quantize and (fused_tail is None or
+                                 params.error_diffusion):
+                    if params.error_diffusion:
+                        img = ops_dither.error_diffusion(
+                            img, target.bit_depth, ed_kernel)
+                    elif dp is not None:
+                        h, w = img.shape[-2], img.shape[-1]
+                        bias = plan_image(("bias", h, w), lambda:
+                                          torch.from_numpy(
+                                              ops_dither.bias_matrix(
+                                                  dp, h, w, dither_phase)
+                                          ).to(self.device))
+                        img = ops_dither.dither(img, target.bit_depth, dp,
+                                                frame_index=dither_phase,
+                                                bias=bias)
+                if params.blend is not None and \
+                        inputs.target_data is not None:
+                    img = self._blend_target(img, inputs.target_data,
+                                             params.blend)
+                # overlays (subtitles, OSD) blend after the dither, like
+                # the reference's final vertex pass
+                for (ov, is_tgt), ov_data in zip(overlays,
+                                                 inputs.overlay_datas):
+                    img = self._blend_overlay(img, ov_data, ov, is_tgt,
+                                              target, dst_color, params,
+                                              crop, dst_crop, rotation,
+                                              frame_hw)
+                img = torch.clamp(img, 0.0, 1.0)
             hs_out = ()
             if hook_state_specs:
                 # a disabled or skipped hook carries its state through
                 hs_out = tuple(
                     hstates[h.signature][1].get(n, hstates[h.signature][0][n])
                     for h, names in hook_state_specs for n in names)
-            return torch.clamp(img, 0.0, 1.0), new_state, hs_out
+            return img, new_state, hs_out
 
         return pipeline
 
@@ -1549,15 +1579,17 @@ class Renderer:
         params = params or DEFAULT_PARAMS
         acq = [f for f in (frame, frame.prev, frame.next)
                if f is not None and f.acquire is not None]
-        try:
-            for f in acq:
-                if not f.acquire(f):
-                    raise RenderError("frame acquire() refused the frame")
-            return self._render_acquired(frame, target, params)
-        finally:
-            for f in (frame, frame.prev, frame.next):
-                if f is not None and f.release is not None:
-                    f.release(f)
+        with profiler.span("render", frame.seq or profiler.next_seq()):
+            try:
+                for f in acq:
+                    if not f.acquire(f):
+                        raise RenderError(
+                            "frame acquire() refused the frame")
+                return self._render_acquired(frame, target, params)
+            finally:
+                for f in (frame, frame.prev, frame.next):
+                    if f is not None and f.release is not None:
+                        f.release(f)
 
     def _render_acquired(self, frame: Frame, target: Target,
                          params: RenderParams) -> torch.Tensor:
@@ -1631,18 +1663,21 @@ class Renderer:
                dither_phase)
         fn = self._cache.pop(key, None)
         if fn is None:
-            fn = self._trace_pipeline(
-                frame.meta_key(), target, params, frame.repr, frame.color,
-                frame.get_crop(), frame.film_grain,
-                dither_phase=dither_phase, frame_icc=frame.icc,
-                field=frame.field, first_field=frame.first_field,
-                rotation=int(frame.rotation),
-                overlays=tuple((ov, False) for ov in frame.overlays)
-                + tuple((ov, True) for ov in target.overlays))
+            profiler.count("render.plan_misses")
+            with profiler.span("render.plan"):
+                fn = self._trace_pipeline(
+                    frame.meta_key(), target, params, frame.repr,
+                    frame.color, frame.get_crop(), frame.film_grain,
+                    dither_phase=dither_phase, frame_icc=frame.icc,
+                    field=frame.field, first_field=frame.first_field,
+                    rotation=int(frame.rotation),
+                    overlays=tuple((ov, False) for ov in frame.overlays)
+                    + tuple((ov, True) for ov in target.overlays))
         self._cache[key] = fn
         while len(self._cache) > _MAX_CACHED_PIPELINES:
             self._cache.pop(next(iter(self._cache)))
-        inputs = self._frame_inputs(frame, params, target)
+        with profiler.span("render.inputs"):
+            inputs = self._frame_inputs(frame, params, target)
         timed = self.telemetry is not None
         if timed:
             if self.device.type == "cuda":

@@ -8,6 +8,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..render import profiler
+
 __all__ = ["resolve_device", "raw_to_device", "arrays_to_device",
            "device_constant"]
 
@@ -36,7 +38,8 @@ def raw_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     the bytes are staged in pinned memory and copied without waiting: a
     copy from pageable memory would hold the host until the card had
     finished the work queued before it.  Read-only arrays (a decoder's
-    np.frombuffer) are accepted."""
+    np.frombuffer) are accepted.  The staging is the span `upload.stage`,
+    its pinned allocation `upload.pin` (render/profiler.py)."""
     arr = np.asarray(arr)
     widen = _UNSIGNED.get(arr.dtype)
     if widen is not None:
@@ -44,13 +47,16 @@ def raw_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     elif arr.dtype.type not in _TORCH_INTS:
         arr = arr.astype(np.int64)
     if dev.type == "cuda":
-        host = torch.empty(arr.shape, dtype=torch.from_numpy(
-            np.empty(0, arr.dtype)).dtype, pin_memory=True)
-        host.numpy()[...] = arr
+        with profiler.span("upload.stage"):
+            with profiler.span("upload.pin"):
+                host = torch.empty(arr.shape, dtype=torch.from_numpy(
+                    np.empty(0, arr.dtype)).dtype, pin_memory=True)
+            host.numpy()[...] = arr
         t = host.to(dev, non_blocking=True)
     else:
-        t = torch.from_numpy(np.array(arr) if not arr.flags.writeable
-                             else np.ascontiguousarray(arr)).to(dev)
+        with profiler.span("upload.stage"):
+            t = torch.from_numpy(np.array(arr) if not arr.flags.writeable
+                                 else np.ascontiguousarray(arr)).to(dev)
     if widen is not None:
         t = t.to(widen[1]) & widen[2]
     return t
@@ -63,12 +69,14 @@ def arrays_to_device(arrays, dev: torch.device) -> list:
     the work queued before it."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     assert all(a.dtype.itemsize == 4 for a in arrays)
-    host = torch.from_numpy(np.concatenate(
-        [a.reshape(-1).view(np.uint8) for a in arrays]))
-    if dev.type == "cuda":
-        flat = host.pin_memory().to(dev, non_blocking=True)
-    else:
-        flat = host.to(dev)
+    with profiler.span("upload.stage"):
+        host = torch.from_numpy(np.concatenate(
+            [a.reshape(-1).view(np.uint8) for a in arrays]))
+        if dev.type == "cuda":
+            with profiler.span("upload.pin"):
+                pinned = torch.empty_like(host, pin_memory=True)
+            host = pinned.copy_(host)
+    flat = host.to(dev, non_blocking=dev.type == "cuda")
     out, at = [], 0
     for a in arrays:
         part = flat[at:at + a.nbytes]

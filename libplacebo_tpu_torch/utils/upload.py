@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.colorspace import BitEncoding, ColorRepr, ColorSpace
+from ..render import profiler
 from ..render.frame import Frame, Plane
 from .device import raw_to_device, resolve_device
 
@@ -186,11 +187,13 @@ def frame_from_planes(planes: Sequence[PlaneData],
     ref_h = max(np.asarray(p.data).shape[0] for p in planes)
     cx, cy = chroma_location_offset(chroma_location)
     out = []
-    for p in planes:
-        h, w = np.asarray(p.data).shape[:2]
-        if (w < ref_w or h < ref_h) and not (p.shift_x or p.shift_y):
-            p = replace(p, shift_x=cx if w < ref_w else 0.0,
-                        shift_y=cy if h < ref_h else 0.0)
-        out.append(upload_plane(p, device))
+    seq = profiler.next_seq()
+    with profiler.span("upload", seq):
+        for p in planes:
+            h, w = np.asarray(p.data).shape[:2]
+            if (w < ref_w or h < ref_h) and not (p.shift_x or p.shift_y):
+                p = replace(p, shift_x=cx if w < ref_w else 0.0,
+                            shift_y=cy if h < ref_h else 0.0)
+            out.append(upload_plane(p, device))
     return Frame(planes=out, repr=repr or ColorRepr(),
-                 color=color or ColorSpace())
+                 color=color or ColorSpace(), seq=seq)

@@ -52,13 +52,14 @@ frames, twice over:
  - unprofiled, `frames` renders back to back with no synchronisation
    between them, timed by CUDA events around the window;
  - the same renders under torch.profiler, for the device time by kernel
-   name.
+   name and the port's own spans: each "lt.*" range
+   (libplacebo_tpu_torch/render/profiler.py) with its calls, host ms and
+   the device ms of the kernels PyTorch launched inside it, a frame
+   (K1-K3 launch through cuLaunchKernel and are attributed to no range).
 With --telemetry the renderer carries a `Telemetry` (its cost: compare
 runs with and without it in one call; the output file name gains
-`_telemetry`).  The device busy share is the profiled kernel time over
-the unprofiled window (the profiler's own host cost lengthens its wall time, so that
-wall time is not the denominator).  Prints both, the table by kernel and
-the card's name and power limit; the lot is also written to
+`_telemetry`).  Prints the unprofiled time, the spans, the table by
+kernel and the card's name and power limit; the lot is also written to
 chiprun_out/port_profile.txt (port_profile_<config>.txt with a config
 flag).
 """
@@ -247,13 +248,19 @@ def main() -> int:
     dev_ms = sum(e.self_device_time_total for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     table = events.table(sort_by="self_cuda_time_total", row_limit=30)
+    spans = [f"{'span':24s} {'calls':>6s} {'host ms':>9s} {'device ms':>9s}"
+             "  (a frame)"]
+    spans += [f"{e.key:24s} {e.count / n:6.2f} "
+              f"{e.cpu_time_total / 1e3 / n:9.3f} "
+              f"{e.device_time_total / 1e3 / n:9.3f}"
+              for e in sorted(events, key=lambda e: e.key)
+              if e.key.startswith("lt.")]
     lines = [card, config,
              f"frames {n} back to back, unprofiled: {window_ms:.3f} ms "
              f"({window_ms / n:.3f} ms/frame)",
              f"device time under the profiler: {dev_ms:.3f} ms "
-             f"({dev_ms / n:.3f} ms/frame); device busy "
-             f"{dev_ms / window_ms:.1%} of the unprofiled window",
-             table]
+             f"({dev_ms / n:.3f} ms/frame)",
+             "\n".join(spans), table]
     if telemetry:
         r.flush_telemetry()
         lines.insert(3, f"telemetry: {r.telemetry.summary()}")
