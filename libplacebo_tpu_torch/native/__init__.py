@@ -5,10 +5,12 @@ that the port's tables are bit-identical to it:
 - `grain.cc`: AV1 film-grain table generation (the grain LUTs' LFSR and
   auto-regressive filter, and the per-block offsets);
 - `gamut.cc`: the gamut-mapping 3D LUT (core/gamut_mapping.generate),
-  each entry scalar with the reference's one-item per-hue peak cache.
+  each entry scalar with the reference's one-item per-hue peak cache;
+- `copy.cc`: the upload's host copy of a plane into pinned memory on
+  several threads (utils/device.copy_in_bands), the port's own.
 
 Each is built with g++ into `build/` at first use; a build that fails
-raises (there is no equivalent fallback).
+raises (for the tables there is no equivalent fallback).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import numpy as np
 from .._build import load_shared
 
 __all__ = ["build_specs", "blue_noise_native", "grain_y_native", "grain_uv_native",
-           "grain_offsets_native", "gamut_lut_native", "GAMUT_OP_IDS"]
+           "grain_offsets_native", "gamut_lut_native", "GAMUT_OP_IDS",
+           "copy_rows_native"]
 
 _CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
 
@@ -35,7 +38,8 @@ def build_specs():
     """The host libraries' build specs (_build.build_all)."""
     return [_host_spec("plnative_dither", "dither.cc"),
             _host_spec("plnative_grain", "grain.cc"),
-            _host_spec("plnative_gamut", "gamut.cc")]
+            _host_spec("plnative_gamut", "gamut.cc"),
+            _host_spec("plnative_copy", "copy.cc")]
 
 
 def _host_lib(name: str, source: str) -> ctypes.CDLL:
@@ -157,3 +161,30 @@ def gamut_lut_native(op_name: str, src_rgb2lms, src_lms2rgb,
     if rc != 0:
         raise RuntimeError(f"plg_gamut_generate returned {rc}")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_lib() -> ctypes.CDLL:
+    lib = _host_lib("plnative_copy", "copy.cc")
+    c = ctypes
+    lib.pl_copy_rows.argtypes = [c.c_void_p, c.c_void_p, c.c_int64,
+                                 c.c_int64, c.c_int64, c.c_int64, c.c_int,
+                                 c.c_int64]
+    lib.pl_copy_rows.restype = None
+    return lib
+
+
+def copy_rows_native(dst: np.ndarray, src: np.ndarray, threads: int,
+                     bands: int) -> None:
+    """dst[...] = src, for arrays of one shape and dtype whose rows (first
+    axis) are each contiguous, in `bands` bands of whole rows that the
+    calling thread and up to `threads` - 1 helper threads claim in turn
+    (copy.cc); the interpreter's lock is released meanwhile."""
+    if dst.shape != src.shape or dst.dtype != src.dtype or src.ndim < 2 \
+            or not (dst[0].flags.c_contiguous and src[0].flags.c_contiguous
+                    and dst.flags.writeable) or threads < 1 or bands < 1:
+        raise ValueError("copy_rows_native needs two arrays of one shape "
+                         "and dtype with contiguous rows, a writable dst")
+    _copy_lib().pl_copy_rows(
+        dst.ctypes.data, src.ctypes.data, src.shape[0], src[0].nbytes,
+        dst.strides[0], src.strides[0], threads, bands)

@@ -28,9 +28,10 @@ which a trace reader that cannot tell an event's kind (torch before
 `_KinetoEvent.activity_type`) takes for a kernel.  The spans of one
 frame carry its sequence number: the upload stamps it on the `Frame`
 (`Frame.seq`) and the renderer's spans carry it.  `count(name)` adds to
-a counter (`render.plan_misses`: the renderer planned a signature anew)
-and, inside a session, puts a `Record` of it in the ring too, so a
-reader can count the events inside a window.  An operator reads them
+a counter (`render.plan_misses`: the renderer planned a signature anew;
+`upload.parallel`: the upload copied a plane into pinned memory on
+several host threads) and, inside a session, puts a `Record` of it in
+the ring too, so a reader can count the events inside a window.  An operator reads them
 in two ways: the "lt.*" ranges of a torch.profiler trace (its own
 export or `key_averages()`), and `records()` / `counters()` here.
 """

@@ -8,10 +8,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..native import copy_rows_native
 from ..render import profiler
 
-__all__ = ["resolve_device", "raw_to_device", "arrays_to_device",
-           "device_constant"]
+__all__ = ["resolve_device", "raw_to_device", "copy_in_bands",
+           "arrays_to_device", "device_constant"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -32,14 +33,53 @@ _UNSIGNED = {np.dtype(np.uint16): (np.int16, torch.int32, 0xFFFF),
              np.dtype(np.uint32): (np.int32, torch.int64, 0xFFFFFFFF)}
 
 
+# a plane of at least this many bytes is copied on several host threads.
+# Below it the helpers' wake-up and hand-back cost about what they save
+# (a 4 MB plane on 4 threads of an H100 host: 0.15 ms less at the median,
+# milliseconds more at the 99th percentile; PERF.md)
+BAND_MIN_BYTES = 8 << 20
+# bands a thread: a helper that wakes late finds bands left to take
+BANDS_PER_THREAD = 4
+
+
+def copy_in_bands(dst: torch.Tensor, arr: np.ndarray) -> None:
+    """Copy `arr` into the CPU tensor `dst` of its shape and dtype.  A
+    plane of at least BAND_MIN_BYTES, where PyTorch grants more than one
+    host thread (`torch.get_num_threads()`, read and never set), is cut
+    into BANDS_PER_THREAD bands of whole rows a thread, which the
+    calling thread and up to that many - 1 helper threads claim in turn
+    (native/copy.cc): the call returns once every band is in place, and
+    never waits for a helper that has not woken.  The counter
+    `upload.parallel` counts such planes.  A smaller plane, a single
+    row, or a layout whose rows are not each contiguous or whose byte
+    order is not the destination's, takes numpy's single copy on the
+    calling thread."""
+    out = dst.numpy()
+    threads = torch.get_num_threads()
+    if arr.nbytes < BAND_MIN_BYTES or threads < 2 or arr.ndim < 2 \
+            or arr.shape[0] < 2 or arr.shape != out.shape \
+            or arr.dtype != out.dtype or not arr[0].flags.c_contiguous:
+        out[...] = arr
+        return
+    copy_rows_native(out, arr, threads,
+                     min(arr.shape[0], BANDS_PER_THREAD * threads))
+    profiler.count("upload.parallel")
+
+
 def raw_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Upload integer texels as they are: 16- and 32-bit unsigned ones
     as their signed bits, widened on the device (int32, int64).  On a GPU
     the bytes are staged in pinned memory and copied without waiting: a
     copy from pageable memory would hold the host until the card had
-    finished the work queued before it.  Read-only arrays (a decoder's
-    np.frombuffer) are accepted.  The staging is the span `upload.stage`,
-    its pinned allocation `upload.pin` (render/profiler.py)."""
+    finished the work queued before it.  The host copy into pinned
+    memory is `copy_in_bands`: a plane of 8 MiB or more is copied in
+    bands of whole rows on the host threads PyTorch grants (read from
+    `torch.get_num_threads()`, never set); a smaller plane, or a layout
+    it cannot cut into rows, in one copy on the calling thread.
+    Read-only arrays (a decoder's np.frombuffer), row-strided and
+    negative-stride planes are accepted.  The staging is the span
+    `upload.stage`, its pinned allocation `upload.pin`
+    (render/profiler.py)."""
     arr = np.asarray(arr)
     widen = _UNSIGNED.get(arr.dtype)
     if widen is not None:
@@ -51,7 +91,7 @@ def raw_to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
             with profiler.span("upload.pin"):
                 host = torch.empty(arr.shape, dtype=torch.from_numpy(
                     np.empty(0, arr.dtype)).dtype, pin_memory=True)
-            host.numpy()[...] = arr
+            copy_in_bands(host, arr)
         t = host.to(dev, non_blocking=True)
     else:
         with profiler.span("upload.stage"):

@@ -140,7 +140,7 @@ def test_build_all_starts_every_build_and_raises_on_failure():
     built); a spec that does not compile raises, naming its library."""
     from libplacebo_tpu_torch import _build, native
     paths = _build.build_all(native.build_specs())
-    assert len(paths) == len(native.build_specs()) == 3 and \
+    assert len(paths) == len(native.build_specs()) == 4 and \
         all(os.path.exists(p) for p in paths)
     bad = ("no_such_flag", ["native/dither.cc"], "g++",
            ["-fPIC", "--no-such-flag"])

@@ -217,3 +217,25 @@ def test_pinned_staging_spans_on_the_card(ring):
     on_device = [e.name() for e in prof.profiler.kineto_results.events()
                  if str(e.device_type()).endswith("CUDA")]
     assert on_device and not [n for n in on_device if n.startswith("lt.")]
+    # a 4K plane: copied into its pinned block on the granted threads,
+    # one `upload.parallel` event beside the same spans
+    big = np.random.default_rng(0).integers(
+        0, 1 << 16, (2160, 3840), dtype=np.uint16)
+    ring.items.clear()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            with profiler.span("upload"):
+                t = raw_to_device(big, torch.device("cuda"))
+            torch.cuda.synchronize()
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(t.cpu(), torch.from_numpy(big.astype(np.int32)))
+    recs = profiler.records()
+    spans = [(x.name, x.parent) for x in recs if not x.n]
+    assert spans == [("upload.pin", "upload.stage"),
+                     ("upload.stage", "upload"), ("upload", None)]
+    assert [(x.name, x.parent, x.n) for x in recs if x.n] == \
+        [("upload.parallel", "upload.stage", 1)]
