@@ -7,8 +7,10 @@ Phases (each runs uncaught: any failure exits non-zero):
  1. build the hand-written kernels from csrc/ (one nvcc a library — K1
     is one library a tone curve, and one a generic tail: those of paths
     A and I and of `GENERIC_CASES`, planned on the CPU first; K2 one for
-    the built-in patterns and one for each of phase 9's — all at once) and the native host code (blue noise, film grain), keeping
-    ptxas's register and spill report, and read K1's pixel loop out of
+    the built-in patterns and one for each of phase 9's; one for the
+    tail's scalars, csrc/peak_tone.cu — all at once) and the native host
+    code (blue noise, film grain), keeping ptxas's register and spill
+    report, and read K1's pixel loop out of
     its SASS (libplacebo_tpu_torch/_sass.py: instructions an iteration
     by class, calls, ptxas's stack frame), for the flagship instance and
     the two of phase 7;
@@ -16,7 +18,8 @@ Phases (each runs uncaught: any failure exits non-zero):
     BT.2020-NC yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak
     state carried — through libplacebo_tpu_torch.Renderer on "cuda",
     every kernel's launch count set to 0 just before and read just after
-    (K1 3 times, K2 and K3 never);
+    (K1 3 times; the tail's scalars 6, a tone vector and a finish a
+    frame, `render.tail_scalars` 3; K2 and K3 never);
  3. hold K1 against its plain PyTorch version on frame 2's linear-light
     input at 4K, and the GPU render against the CPU render (plain
     versions) on a small input;
@@ -236,7 +239,16 @@ Phases (each runs uncaught: any failure exits non-zero):
     bench_playback and profile_stages 8; K1 on plplay's first new frame,
     K2 and K3 on bench_micro's first Floyd-Steinberg call against their
     plain versions;
-25. the degradation ladder, last: deband made to raise RuntimeError
+25. the colour tail's per-frame scalars (`peak_tone_phase`,
+    ops/cuda/peak_tone.py): the spline's tone vector from the peak state
+    and the state's finish from K1's partials at 3840x2160 and
+    1920x1080 against the plain chain on the card (the tone vector bit
+    for bit, the state within 4 ulps) and timed beside it (device us and
+    launches a call from the profiler, host issue us a call), with its
+    bound; each entry's `launches` are the main path's (the flagship's
+    at 2160, path I's at 1080: prologues by `render.tail_scalars`, the
+    rest finishes);
+26. the degradation ladder, last: deband made to raise RuntimeError
     recovers (get_errors() shows it, the log records it); K1's launcher
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
@@ -330,6 +342,13 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _tail_scalars():
+    """The frames whose tail scalars the card's kernel computed so far
+    (the renderer's `render.tail_scalars` counter)."""
+    from libplacebo_tpu_torch.render import profiler
+    return profiler.counters().get("render.tail_scalars", 0)
 
 
 def _render_run(renderer, frames, target, params, counters):
@@ -1234,12 +1253,14 @@ def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
     runtime.create(), whose cache holds the transcoder's gamut LUT.  The
     launch counts are set to 0 just before the counted run (after a
     one-frame warm-up on another renderer) and read just after.  Checks:
-    K1 once a frame and no plain tail, acquire and release 8 times each,
+    K1 once a frame and no plain tail, the tail's scalars (ops/cuda/
+    peak_tone.py) twice a frame, acquire and release 8 times each,
     the written file read back (header, 8 frames, frame 0's codes),
     save() restored by a fresh renderer's load(), the context alive, the
     GPU transcode of a small clip (output 256 wide) against the CPU one
     at the small-input gate; K1's launch against its plain version.
-    Returns the figures, K1's captured input and its launches."""
+    Returns the figures, K1's captured input, the launch counts and the
+    frames whose tail scalars the kernel computed."""
     import shutil
     import tempfile
     from fractions import Fraction
@@ -1274,6 +1295,7 @@ def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
                 mod.launches = 0
             trender.k1_tails = trender.plain_tails = \
                 trender.ineligible_tails = 0
+            scalars0 = _tail_scalars()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             frames, counts = path_i_transcode(lt, src, dst, renderer,
@@ -1281,11 +1303,14 @@ def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
             loop_s = time.perf_counter() - t0
             counts = dict(counts)      # the window below acquires again
             launches = {n: m.launches for n, m in counters.items()}
+            scalars = _tail_scalars() - scalars0
             tails = (trender.k1_tails, trender.plain_tails,
                      trender.ineligible_tails)
         finally:
             k1.color_map_tail = real
-        assert launches == {"k1": 8, "k2": 0, "k3": 0}, launches
+        assert launches == {"k1": 8, "k2": 0, "k3": 0,
+                            "peak_tone": 16}, launches
+        assert scalars == 8, scalars
         assert tails == (8, 0, 0), tails
         assert counts == {"acquire": 8, "release": 8}, counts
         k1_args = captured[1]
@@ -1391,7 +1416,7 @@ def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
         "path_i_k1_instance": instance,
         "path_i_cache_objects_restored": restored,
         "path_i_small_render": small_gate}
-    return figures, k1_args, launches["k1"]
+    return figures, k1_args, launches, scalars
 
 
 # path J: an mpv user's shaders (glsl-shaders=) — a RAVU-lite-class
@@ -1626,7 +1651,8 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
     finally:
         k2.wavefront = real
         restore_k3()
-    assert launches == {"k1": 0, "k2": 8, "k3": 16}, launches
+    assert launches == {"k1": 0, "k2": 8, "k3": 16, "peak_tone": 0}, \
+        launches
     assert tails == (0, 0, 8), tails
     assert not errors and renderer.get_errors() == \
         (frozenset(), frozenset()), (errors, renderer.get_errors())
@@ -1913,7 +1939,10 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
         outs, halo_ms, launches, tails = counted(run_halo, calls)
     finally:
         k1.color_map_tail = real_k1
-    assert launches == {"k1": PATH_K_FRAMES, "k2": 0, "k3": 0}, launches
+    # the halo step's tail takes the sharded detection's stats: one
+    # prologue a frame, no finish
+    assert launches == {"k1": PATH_K_FRAMES, "k2": 0, "k3": 0,
+                        "peak_tone": PATH_K_FRAMES}, launches
     assert tails == (PATH_K_FRAMES, 0, 0), tails
     lanes = [lt.Renderer(device=dev) for _ in range(2)]
     plain_lanes = [lt.Renderer(device=dev) for _ in range(2)]
@@ -2017,7 +2046,8 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
         k1.color_map_tail, k2.wavefront = real
         restore_k3()
     n5 = PATH_K_CONFIG5_FRAMES
-    assert launches5 == {"k1": n5, "k2": n5, "k3": 2 * n5}, launches5
+    assert launches5 == {"k1": n5, "k2": n5, "k3": 2 * n5,
+                         "peak_tone": 2 * n5}, launches5
     assert tails5 == (n5, 0, 0), tails5
     lanes5 = [lt.Renderer(device=dev) for _ in range(2)]
     rep_gate = []
@@ -2182,10 +2212,12 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
         finally:
             k1.color_map_tail = real[0]
         assert st["rendered"] == 60, st
-        assert launches["plplay"] == st["launches"], (launches, st)
+        assert {n: launches["plplay"][n] for n in st["launches"]} == \
+            st["launches"], (launches, st)
         assert launches["plplay"]["k1"] >= 24 and \
-            launches["plplay"]["k2"] == launches["plplay"]["k3"] == 0, \
-            launches["plplay"]
+            launches["plplay"]["k2"] == launches["plplay"]["k3"] == 0 and \
+            launches["plplay"]["peak_tone"] == \
+            2 * launches["plplay"]["k1"], launches["plplay"]
         figures["path_l_plplay"] = st
         # the same argv small, on the card and on the CPU
         for d in ("cuda", "cpu"):
@@ -2539,6 +2571,114 @@ def _take_shear(forward, args):
     return lambda: torch.take(src, idx)
 
 
+def _kernel_us(prof):
+    """[(name, device us)] of every kernel a finished torch.profiler
+    session saw (framebench/harness/trace.py's reading of its events)."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        act = getattr(e, "activity_type", None)
+        kernel = act() in ("kernel", "concurrent_kernel") if act else (
+            str(e.device_type()).endswith("CUDA") and
+            not e.name().startswith(("Memcpy", "Memset")))
+        if kernel:
+            out.append((e.name(), e.duration_ns() * 1e-3))
+    return out
+
+
+def peak_tone_phase(dev, main, reps=200):
+    """The tail's per-frame scalars (ops/cuda/peak_tone.py) at the cells'
+    shapes: the spline's prologue from a set state, and the finish from
+    K1's partials of a typical frame at 3840x2160 (270 stripes, the
+    players) and 1920x1080 (135, the transcoder), percentile 100.  For
+    the kernel and the plain chain it replaces: device us a call (the
+    profiler's kernel durations), launches a call, and host us a call
+    (issue only, host clock over `reps` calls before one synchronize).
+    The kernel against the plain chain on the same inputs: the tone
+    vector bit for bit, the state within 4 ulps (the stripe means are
+    added in another order), each entry's largest difference its
+    `max_abs_err` and `max_ulps`.  `main` maps each height to the
+    (prologue, finish) launches of the main path's run at that output
+    size (the flagship's 3 frames at 2160, path I's 8 at 1080).  Returns
+    `kernels` entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from libplacebo_tpu_torch.ops import peak_detect as ops_peak
+    from libplacebo_tpu_torch.ops import tone_dynamic as ops_tone
+    from libplacebo_tpu_torch.ops.cuda import color_map as k1
+    from libplacebo_tpu_torch.ops.cuda import peak_tone
+    hbm = 3.35e12
+    params = ops_peak.PeakDetectParams()
+    plan = peak_tone.plan_tone("spline", 0.0625, 0.5081, None, 0.7518)
+
+    def plain_tone(state):
+        a, m = ops_peak.delayed_stats(state, plan.src_max_pq)
+        return ops_tone.tone_vector("spline", m, a, plan.dst_min,
+                                    plan.dst_max)
+
+    def measure(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ks = _kernel_us(prof)
+        return {"device_us": sum(d for _, d in ks) / reps,
+                "launches": len(ks) / reps, "host_us": host_us}
+
+    def ulps(a, b):
+        return int((a.cpu().view(torch.int32).long() -
+                    b.cpu().view(torch.int32).long()).abs().max())
+
+    entries = []
+    g = torch.Generator(device=dev).manual_seed(5)
+    for H, W in ((2160, 3840), (1080, 1920)):
+        img = torch.rand((3, H, W), generator=g, device=dev) ** 2 * 5.0
+        pq, active, bins = ops_peak._pixel_pq(img, params)
+        packed = ops_peak.stripe_partials(pq, active, bins,
+                                          k1.pick_block_rows(H))
+        state = ops_peak.finish_from_packed_plain(
+            packed, torch.zeros(2, device=dev), params)[2] * 0.97
+        G = packed.shape[0]
+        got = peak_tone.peak_finish(packed, state, params)
+        want = ops_peak.finish_from_packed_plain(packed, state, params)[2]
+        finish_ulps = ulps(got, want)
+        assert finish_ulps <= 4, (H, got, want)
+        finish_err = float((got - want).abs().max())
+        tone = peak_tone.delayed_tone_vector(plan, state)
+        assert torch.equal(tone, plain_tone(state)), (H, tone)
+        tone_err = float((tone - plain_tone(state)).abs().max())
+        cases = (
+            ("peak_tone_prologue", 8 + 64, tone_err, 0, main[H][0],
+             lambda: peak_tone.delayed_tone_vector(plan, state),
+             lambda: plain_tone(state)),
+            ("peak_tone_epilogue", G * 67 * 4 + 8 + 8, finish_err,
+             finish_ulps, main[H][1],
+             lambda: peak_tone.peak_finish(packed, state, params),
+             lambda: ops_peak.finish_from_packed_plain(packed, state,
+                                                       params)))
+        for name, nbytes, err, err_ulps, launched, kernel, plain in cases:
+            k, p = measure(kernel), measure(plain)
+            entries.append({
+                "name": f"{name}_{H}p", "route": "cuda",
+                "source": "libplacebo_tpu_torch/csrc/peak_tone.cu",
+                "replaces": None, "stripes": G,
+                "launches": launched, "max_abs_err": err,
+                "max_ulps": err_ulps, "ms": k["device_us"] * 1e-3,
+                "host_ms": k["host_us"] * 1e-3,
+                "plain_ms": p["device_us"] * 1e-3,
+                "plain_host_ms": p["host_us"] * 1e-3,
+                "plain_launches": p["launches"],
+                "bound_ms": nbytes / hbm * 1e3, "bound_by": "bytes",
+                "library_ms": None})
+    return entries
+
+
 def _take_colmaj(forward, args):
     """The reference layout's entries (shear_to_colmaj's or
     unshear_from_colmaj's (x, w_out, s, W, H)) as one torch.take over
@@ -2579,6 +2719,7 @@ def main() -> int:
     from libplacebo_tpu_torch.ops import polar
     from libplacebo_tpu_torch.ops.cuda import color_map as k1
     from libplacebo_tpu_torch.ops.cuda import error_diffusion as k2
+    from libplacebo_tpu_torch.ops.cuda import peak_tone
     from libplacebo_tpu_torch.ops.cuda import shear as k3
     from libplacebo_tpu_torch.render import renderer as trender
     from libplacebo_tpu_torch.tools.bench_micro import bound_ms
@@ -2591,7 +2732,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    counters = {"k1": k1, "k2": k2, "k3": k3}
+    counters = {"k1": k1, "k2": k2, "k3": k3, "peak_tone": peak_tone}
 
     # 1. build: one compiler process per library, all started together
     # (the generic tails' plans made on the CPU first: a library a tail)
@@ -2601,7 +2742,8 @@ def main() -> int:
     t0 = time.perf_counter()
     k2_custom = [cdither.ErrorDiffusionKernel(*case) for case in K2_CUSTOM]
     build_all([*k1.build_specs(generic=generic_plans.values()),
-               k2.build_spec(), k3.build_spec(), *native.build_specs(),
+               k2.build_spec(), k3.build_spec(), peak_tone.build_spec(),
+               *native.build_specs(),
                *[k2.build_spec(k2.tap_table_header([k]))
                  for k in k2_custom]])
     cdither.blue_noise(6)
@@ -2705,8 +2847,10 @@ def main() -> int:
     frames4 = [_frame(lt, f, dev, config="config4") for f in yuvs4]
     frames2 = [_frame(lt, f, dev, config="config2") for f in yuvs]
     try:
+        scalars0 = _tail_scalars()
         outs, flag_launches, flag_tails = _render_run(
             renderer, frames, target, params, counters)
+        flag_scalars = _tail_scalars() - scalars0
         flag_k1 = captured["k1"][1]
         captured["k1"].clear()
         # 4. the config-5 path: the same frames with film grain
@@ -2717,16 +2861,20 @@ def main() -> int:
         frames5 = [_frame(lt, f, dev, cfg.sample_grain(GRAIN_SEED + i))
                    for i, f in enumerate(yuvs)]
         renderer5 = lt.Renderer(device=dev)
+        scalars0 = _tail_scalars()
         t = time.perf_counter()
         outs5, c5_launches, c5_tails = _render_run(
             renderer5, frames5, target, params5, counters)
         c5_first_s = time.perf_counter() - t
+        c5_scalars = _tail_scalars() - scalars0
         captured["c5_k1"] = captured["k1"][1]
         captured["k1"].clear()
         # 7. config 4 and config 2's color path
         renderer4, renderer2 = lt.Renderer(device=dev), lt.Renderer(device=dev)
+        scalars0 = _tail_scalars()
         outs4, c4_launches, c4_tails = _render_run(
             renderer4, frames4, target, params4, counters)
+        c4_scalars = _tail_scalars() - scalars0
         c4_k1 = captured["k1"][1]
         captured["k1"].clear()
         outs2, c2_launches, c2_tails = _render_run(
@@ -2872,25 +3020,44 @@ def main() -> int:
         k1.color_map_tail = real["k1"]
         k2.wavefront = real["k2"]
         restore_k3()
-    assert flag_launches == {"k1": 3, "k2": 0, "k3": 0}, flag_launches
-    assert c5_launches == {"k1": 3, "k2": 3, "k3": 6}, c5_launches
-    assert c4_launches == {"k1": 3, "k2": 0, "k3": 0}, c4_launches
-    assert c2_launches == {"k1": 3, "k2": 0, "k3": 0}, c2_launches
-    assert c3_launches == {"k1": 3, "k2": 0, "k3": 0}, c3_launches
-    assert pa_launches == {"k1": 3, "k2": 0, "k3": 0}, pa_launches
-    assert pb_launches == {"k1": 0, "k2": 0, "k3": 0}, pb_launches
-    assert pc_launches == {"k1": 3, "k2": 0, "k3": 0}, pc_launches
-    assert pd_launches == {"k1": 4, "k2": 0, "k3": 0}, pd_launches
-    assert px_launches == {"k1": 0, "k2": 0, "k3": 0}, px_launches
+    # a dynamic curve's tail (the flagship's and config 5's spline,
+    # config 4's bt2390, path C's spline) computes its scalars in two
+    # launches a frame, the tone vector and the peak's finish, each
+    # frame's counted once in `render.tail_scalars`; SDR, pass-through
+    # and HLG (bt2446a, a static curve) tails in none
+    assert flag_launches == {"k1": 3, "k2": 0, "k3": 0,
+                             "peak_tone": 6}, flag_launches
+    assert c5_launches == {"k1": 3, "k2": 3, "k3": 6,
+                           "peak_tone": 6}, c5_launches
+    assert c4_launches == {"k1": 3, "k2": 0, "k3": 0,
+                           "peak_tone": 6}, c4_launches
+    assert (flag_scalars, c5_scalars, c4_scalars) == (3, 3, 3), \
+        (flag_scalars, c5_scalars, c4_scalars)
+    assert c2_launches == {"k1": 3, "k2": 0, "k3": 0,
+                           "peak_tone": 0}, c2_launches
+    assert c3_launches == {"k1": 3, "k2": 0, "k3": 0,
+                           "peak_tone": 0}, c3_launches
+    assert pa_launches == {"k1": 3, "k2": 0, "k3": 0,
+                           "peak_tone": 0}, pa_launches
+    assert pb_launches == {"k1": 0, "k2": 0, "k3": 0,
+                           "peak_tone": 0}, pb_launches
+    assert pc_launches == {"k1": 3, "k2": 0, "k3": 0,
+                           "peak_tone": 6}, pc_launches
+    assert pd_launches == {"k1": 4, "k2": 0, "k3": 0,
+                           "peak_tone": 0}, pd_launches
+    assert px_launches == {"k1": 0, "k2": 0, "k3": 0,
+                           "peak_tone": 0}, px_launches
     # path E: one K1 launch a new source frame (frames 0-4 over vsyncs
     # 0-9), the rest mix-cache hits; path F: the tail plain, as in the
     # reference (a target crop, contrast recovery): counted ineligible
-    assert pe_launches == {"k1": 5, "k2": 0, "k3": 0}, pe_launches
+    assert pe_launches == {"k1": 5, "k2": 0, "k3": 0,
+                           "peak_tone": 10}, pe_launches
     assert pe_tails == (5, 0, 0) and pe_hits == 15, (pe_tails, pe_hits)
     assert len(rendererE._cache) == 1
     assert (pe_k1[1].tone, pe_k1[1].gamut) == (1, 2) and \
         pe_k1[2] is not None and pe_k1[3] is None
-    assert pf_launches == {"k1": 0, "k2": 0, "k3": 0}, pf_launches
+    assert pf_launches == {"k1": 0, "k2": 0, "k3": 0,
+                           "peak_tone": 0}, pf_launches
     assert pf_tails == (0, 0, 3), pf_tails
     # path G: every vsync emitted a mix; each source frame shown was
     # mapped once and rendered once on K1 (<spline, perceptual> without
@@ -2901,6 +3068,7 @@ def main() -> int:
     assert pg_status_count == {"ok": 60}, pg_status_count
     pg_hits = pg["refs"] - pg_tails[0]
     assert pg_launches["k2"] == pg_launches["k3"] == 0, pg_launches
+    assert pg_launches["peak_tone"] == 2 * pg_launches["k1"], pg_launches
     assert pg_launches["k1"] == pg_tails[0] == pg_frames["map"] \
         and pg_tails[1:] == (0, 0), (pg_launches, pg_tails, pg_frames)
     assert 20 <= pg_tails[0] <= 24 and pg_hits > 0, (pg_tails, pg_hits)
@@ -2914,7 +3082,8 @@ def main() -> int:
     # path H: the hooked tail plain, as in the reference (counted
     # ineligible), then K2 and K3 a frame; one plan for the 8 frames
     # (the auto-exposure's state is frame data)
-    assert ph_launches == {"k1": 0, "k2": 8, "k3": 16}, ph_launches
+    assert ph_launches == {"k1": 0, "k2": 8, "k3": 16,
+                           "peak_tone": 0}, ph_launches
     assert ph_tails == (0, 0, 8), ph_tails
     assert len(rendererH._cache) == 1
     for out in list(pg["outs"].values()) + outsH:
@@ -3579,7 +3748,8 @@ def main() -> int:
     custom_counts = {n: m.launches for n, m in counters.items()}
     custom_by_lib = dict(k2.launches_by)
     assert custom_counts == {"k1": 0, "k2": len(k2_custom),
-                             "k3": 2 * len(k2_custom)}, custom_counts
+                             "k3": 2 * len(k2_custom),
+                             "peak_tone": 0}, custom_counts
     inv_scale = rcp(float((1 << depth) - 1))      # error_diffusion's
     for k, out in zip(k2_custom, custom_out):
         lib, index = k2.prepare(k)
@@ -3681,7 +3851,8 @@ def main() -> int:
     # own), K1's launch against its plain version, timed
     # (the tail into a BT.1886 target runs K1's generic instance: bit for
     # bit against its plain version, as path A's)
-    path_i, pi_k1, pi_launches = path_i_phase(lt, dev, counters, k1)
+    path_i, pi_k1, pi_launches, pi_scalars = path_i_phase(lt, dev,
+                                                          counters, k1)
     if pi_k1[1].tone == k1.GENERIC:
         pi_err, pi_part = _check_generic(k1, pi_k1)
         pi_frac = 0.0
@@ -3742,7 +3913,13 @@ def main() -> int:
     # plain versions
     path_l, pl_entries = path_l_phase(lt, dev, counters, k1, k2, k3)
 
-    # 25. the degradation ladder, last, everything restored after it:
+    # 25. the tail's per-frame scalars at the cells' shapes: kernel and
+    # plain chain, device and host time, exact against each other
+    pt_entries = peak_tone_phase(dev, {
+        2160: (flag_scalars, flag_launches["peak_tone"] - flag_scalars),
+        1080: (pi_scalars, pi_launches["peak_tone"] - pi_scalars)})
+
+    # 26. the degradation ladder, last, everything restored after it:
     # (a) a plain stage made to fail (deband raising RuntimeError)
     # recovers, get_errors() shows `deband` and the log records it;
     # (b) K1's launcher raising KernelError and (c) raising the
@@ -3874,9 +4051,9 @@ def main() -> int:
                   pe_launches["k1"], pe_err, k1_pe_ms, k1_pe_plain_ms),
         _k1_entry(k1, "k1_color_map_no_dither_path_g", pg_k1, pg_part,
                   pg_launches["k1"], pg_err, k1_pg_ms, k1_pg_plain_ms),
-        _k1_entry(k1, "k1_color_map_path_i", pi_k1, pi_part, pi_launches,
-                  pi_err, k1_pi_ms, k1_pi_plain_ms),
-        *ph_entries, *pj_entries, *pk_entries, *pl_entries,
+        _k1_entry(k1, "k1_color_map_path_i", pi_k1, pi_part,
+                  pi_launches["k1"], pi_err, k1_pi_ms, k1_pi_plain_ms),
+        *ph_entries, *pj_entries, *pk_entries, *pl_entries, *pt_entries,
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",
@@ -4057,7 +4234,7 @@ def main() -> int:
           f"events {[round(t, 4) for t in path_i['path_i_event_ms']]}; K1 "
           f"{path_i['path_i_k1_instance']} {pi_entry['ms']:.4f} ms (bound "
           f"{pi_entry['bound_ms']:.4f} ms on {pi_entry['bound_by']}), "
-          f"{pi_launches} launches; tails {path_i['path_i_tails']}")
+          f"{pi_launches['k1']} launches; tails {path_i['path_i_tails']}")
     print(f"path J ({card}): a frame {path_j['path_j_frame_ms']:.3f} ms "
           f"synchronized (first {path_j['path_j_first_frame_ms']:.1f} ms), "
           f"{path_j['path_j_window_ms']:.3f} ms back to back, busy "

@@ -8,7 +8,7 @@ Counterpart of libplacebo_tpu/ops/peak_detect.py.  Two ways in:
 - with `allow_delayed` the color-map kernel (K1) emits one (8, 128)
   partials record per row stripe — the 64-bin PQ histogram and
   [pq_sum_active, active_count, pq_max] — and `finish_from_packed`
-  reduces them.
+  reduces them (on the card in one kernel, ops/cuda/peak_tone.py).
 Both end in the reference's percentile interpolation and IIR smoothing
 (colorspace.c:1020-1146).  The histogram layout is the reference's:
 14-bit PQ, 7-bit bins biased by half the range, 64 bins.
@@ -26,7 +26,8 @@ from ..core.transfer import pq_oetf_fast
 
 __all__ = ["PeakDetectParams", "peak_detect_state_init", "delayed_stats",
            "detect_peak", "applied_stats", "block_partials",
-           "stripe_partials", "finish_from_packed", "finish_from_partials",
+           "stripe_partials", "finish_from_packed",
+           "finish_from_packed_plain", "finish_from_partials",
            "PARTIAL_SHAPE"]
 
 PQ_BITS = 14
@@ -223,7 +224,19 @@ def applied_stats(img_linear, state, params: PeakDetectParams,
 
 
 def finish_from_packed(packed, state, params: PeakDetectParams):
-    """finish_from_partials on (G, 8, 128) packed records."""
+    """finish_from_partials on (G, 8, 128) packed records: (avg_pq,
+    max_pq, new_state).  On the card one kernel computes the new state
+    (ops/cuda/peak_tone.py::peak_finish) and the stats are its elements;
+    elsewhere the plain version, `finish_from_packed_plain`, runs."""
+    if packed.device.type == "cuda":
+        from .cuda import peak_tone
+        new_state = peak_tone.peak_finish(packed, state, params)
+        return new_state[0], new_state[1], new_state
+    return finish_from_packed_plain(packed, state, params)
+
+
+def finish_from_packed_plain(packed, state, params: PeakDetectParams):
+    """finish_from_packed in plain PyTorch, on any device."""
     g = packed.shape[0]
     stats = torch.cat([packed[:, 1, :3],
                        torch.ones((g, 1), dtype=torch.float32,

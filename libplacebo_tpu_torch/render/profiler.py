@@ -30,8 +30,10 @@ frame carry its sequence number: the upload stamps it on the `Frame`
 (`Frame.seq`) and the renderer's spans carry it.  `count(name)` adds to
 a counter (`render.plan_misses`: the renderer planned a signature anew;
 `upload.parallel`: the upload copied a plane into pinned memory on
-several host threads) and, inside a session, puts a `Record` of it in
-the ring too, so a reader can count the events inside a window.  An operator reads them
+several host threads; `render.tail_scalars`: a frame's tone-curve
+scalars came from the card's kernel, ops/cuda/peak_tone.py) and, inside
+a session, puts a `Record` of it in the ring too, so a reader can count
+the events inside a window.  An operator reads them
 in two ways: the "lt.*" ranges of a torch.profiler trace (its own
 export or `key_averages()`), and `records()` / `counters()` here.
 """
@@ -242,15 +244,16 @@ def dropped() -> Tuple[int, int]:
 def counters() -> Dict[str, int]:
     """The counters of `count`, and the launch and tail counters where
     they live: kernels K1-K3 (`k1.launches`, `k2.launches` and by
-    library `k2.launches.<library>`, `k3.launches`) and the color-map
-    tails (`render.k1_tails`, `render.plain_tails`,
-    `render.ineligible_tails`)."""
-    from ..ops.cuda import color_map, error_diffusion, shear
+    library `k2.launches.<library>`, `k3.launches`), the tail's scalars
+    (`peak_tone.launches`) and the color-map tails (`render.k1_tails`,
+    `render.plain_tails`, `render.ineligible_tails`)."""
+    from ..ops.cuda import color_map, error_diffusion, peak_tone, shear
     from . import renderer
     out = dict(_COUNTS)
     out.update({"k1.launches": color_map.launches,
                 "k2.launches": error_diffusion.launches,
                 "k3.launches": shear.launches,
+                "peak_tone.launches": peak_tone.launches,
                 "render.k1_tails": renderer.k1_tails,
                 "render.plain_tails": renderer.plain_tails,
                 "render.ineligible_tails": renderer.ineligible_tails})

@@ -87,6 +87,7 @@ from ..ops import sampling as ops_sampling
 from ..ops import tone_dynamic as ops_tone
 from ..ops.cuda import color_map as k1
 from ..ops.cuda import error_diffusion as k2
+from ..ops.cuda import peak_tone
 from ..ops.deband import DebandParams
 from ..ops.dithering import DitherParams
 from ..ops.peak_detect import PeakDetectParams
@@ -1112,19 +1113,18 @@ class Renderer:
                     if fused_tail is not None:
                         # with allow_delayed, K1 measures this frame's
                         # peak partials while it tone-maps with the
-                        # previous frames' stats; else the stats are this
-                        # frame's
-                        stats = None
+                        # previous frames' stats, which the tail reads
+                        # from the state; else the stats are this frame's
+                        stats = delayed = None
                         if use_peak and fused_tail.fused_peak:
-                            stats = ops_peak.delayed_stats(peak_state,
-                                                           src_max_pq)
+                            delayed = peak_state
                         elif use_peak:
                             avg_pq, max_pq, new_state = \
                                 ops_peak.applied_stats(
                                     img, peak_state, params.peak_detect,
                                     src_max_pq)
                             stats = (avg_pq, max_pq)
-                        img, packed = fused_tail(img, stats)
+                        img, packed = fused_tail(img, stats, state=delayed)
                         if packed is not None:
                             _, _, new_state = ops_peak.finish_from_packed(
                                 packed, peak_state, params.peak_detect)
@@ -1538,22 +1538,32 @@ class Renderer:
             return None
         lut_t = torch.from_numpy(plan.lut).to(self.device) \
             if plan.lut is not None else None
-        dyn = chain.tone == "dynamic"
+        # the curve's per-frame scalars: on the card one launch a frame
+        # (ops/cuda/peak_tone.py), however many 0-dim operations they are
+        tone_plan = peak_tone.plan_tone(
+            fn, chain.dst_min_pq, chain.dst_max_pq, params.tone_constants,
+            hdr_rescale(HdrScaling.NITS, HdrScaling.PQ,
+                        src_color.hdr.max_luma)) \
+            if chain.tone == "dynamic" else None
         # a white-noise bias is the whole (dst_h, dst_w) frame; any other
         # dither is a square LUT tiled from the frame's origin
         bias_frame = plan.generic is not None and \
             plan.generic.mode.dither == 2
 
-        def run(img, peak_stats, row0: int = 0):
-            """K1 on `img`; `row0` is the frame row of img's first row
-            when img is one row block of the frame (a sharded render),
-            whose dither then reads its own rows of the frame's bias."""
+        def run(img, peak_stats, row0: int = 0, state=None):
+            """K1 on `img` with a dynamic curve's stats `peak_stats`
+            (avg_pq, max_pq), or those an allow_delayed frame takes from
+            the peak `state` (ops/peak_detect.py::delayed_stats); `row0`
+            is the frame row of img's first row when img is one row
+            block of the frame (a sharded render), whose dither then
+            reads its own rows of the frame's bias."""
             tone = None
-            if dyn:
-                avg_pq, max_pq = peak_stats
-                tone = ops_tone.tone_vector(
-                    fn, max_pq, avg_pq, chain.dst_min_pq, chain.dst_max_pq,
-                    params.tone_constants)
+            if tone_plan is not None:
+                tone = peak_tone.delayed_tone_vector(tone_plan, state) \
+                    if state is not None else \
+                    peak_tone.tone_vector(tone_plan, *peak_stats)
+                if tone.is_cuda:
+                    profiler.count("render.tail_scalars")
             lut_r = lut_t
             if row0 and lut_t is not None:
                 lut_r = lut_t[row0:row0 + img.shape[-2]] if bias_frame \
