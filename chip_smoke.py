@@ -5,15 +5,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each runs uncaught: any failure exits non-zero):
  1. build the hand-written kernels from csrc/ (one nvcc a library — K1
-    is one library a tone curve, and one a generic tail: those of paths
-    A and I and of `GENERIC_CASES`, planned on the CPU first; K2 one for
-    the built-in patterns and one for each of phase 9's; one for the
-    tail's scalars, csrc/peak_tone.cu — all at once) and the native host
-    code (blue noise, film grain), keeping ptxas's register and spill
-    report, and read K1's pixel loop out of
-    its SASS (libplacebo_tpu_torch/_sass.py: instructions an iteration
-    by class, calls, ptxas's stack frame), for the flagship instance and
-    the two of phase 7;
+    one a tail: those of paths A and I and of `K1_CASES`, planned on the
+    CPU first, which hold every other path's; K2 one for the built-in
+    patterns and one for each of phase 9's; one for the tail's scalars,
+    csrc/peak_tone.cu — all at once) and the native host code (blue
+    noise, film grain), keeping ptxas's register and spill report, and
+    read each K1 tail's pixel loop out of its SASS
+    (libplacebo_tpu_torch/_sass.py: instructions an iteration by class,
+    calls, ptxas's stack frame), the flagship's tail and the two of
+    phase 7 among them;
  2. the flagship path: render 3 chained frames — 1080p 8-bit limited
     BT.2020-NC yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak
     state carried — through libplacebo_tpu_torch.Renderer on "cuda",
@@ -45,18 +45,18 @@ Phases (each runs uncaught: any failure exits non-zero):
     K1's instruction floor from its SASS count and the SM clock read
     while it runs;
  7. config 4 (the flagship's content at 10 bits with 0.005-1000-nit
-    mastering metadata, bt2390 tone curve, softclip gamut map: K1's
-    <bt2390, softclip> instance with dither) and config 2's color path
-    (8-bit BT.709 BT.1886 with RenderParams(): sigmoidized separable
-    Lanczos, K1's pass-through instance), 3 chained frames each, counts
-    read as before (K1 3 times each); hold each instance against its
-    plain version on frame 2's input at 4K, and each GPU render against
-    the CPU render on a small input; time both renders and instances;
+    mastering metadata, bt2390 tone curve, softclip gamut map: K1 on
+    <bt2390, softclip> with dither) and config 2's color path (8-bit
+    BT.709 BT.1886 with RenderParams(): sigmoidized separable Lanczos,
+    K1 on the pass-through chain), 3 chained frames each, counts read as
+    before (K1 3 times each); hold each tail against its plain version
+    on frame 2's input at 4K, and each GPU render against the CPU render
+    on a small input; time both renders and tails;
  8. config 3, the scaling slice (config 2's frames, RenderParams(
     upscaler="ewa_lanczos4sharpest", antiringing_strength=0.8): the EWA
-    on its phased path with anti-ringing inside sigmoidized light, K1's
-    pass-through instance), 3 chained frames, counts read as before (K1
-    3 times); hold the instance against its plain version on frame 2's
+    on its phased path with anti-ringing inside sigmoidized light, K1 on
+    the pass-through chain), 3 chained frames, counts read as before (K1
+    3 times); hold the tail against its plain version on frame 2's
     input at 4K and the GPU render against the CPU render on a small
     input; time the render and the anti-ringing EWA alone on frame 2's
     1080p input (`ewa_ar_ms`, its launches a call and its bound);
@@ -74,7 +74,7 @@ Phases (each runs uncaught: any failure exits non-zero):
     4's 10-bit content as limited BT.2020-NC HLG -> 3840x2160 10-bit
     full-range BT.2020 PQ at 600 nits, RenderParams(upscaler=
     "ewa_lanczos", tone_mapping_function="bt2446a"): HLG's OOTF, the
-    EWA, and K1's generic instance (the reference adapts the HLG source
+    EWA, and K1 (the reference adapts the HLG source
     to the display's peak, so the tail is the pass-through chain into a
     PQ target with 10-bit dither), 3 chained frames, counts read as
     before (K1 3 times); the instance against its plain version on
@@ -87,13 +87,16 @@ Phases (each runs uncaught: any failure exits non-zero):
     tail is plain, as in the reference (an ICC target), so K1 never
     launches; the same checks and timings, and the LUT and the ICC
     encode alone;
-12. K1's generic instance on twelve more tails at 4K (`GENERIC_CASES`:
-    static curves, same-frame stats, the other gamut operators, HLG and
-    BT.1886 targets, YCbCr and ICtCp encodes, white noise,
-    show_clipping, 3-bit gamma dither), each on its own compiled
-    instance, bit for bit against its plain version, timed, with the
-    instance's SASS a pixel, ptxas's report and its instruction floor
-    (in `k1_instances`); the seconds one tail's library takes to be
+12. K1 at 4K on the chains of the players' paths with and without
+    dither (`K1_CHAINS`: the pass-through chain, no tone curve or each
+    dynamic curve under clip, perceptual and softclip) and twelve more
+    tails (`GENERIC_CASES`: static curves, same-frame stats, the other
+    gamut operators, HLG and BT.1886 targets, YCbCr and ICtCp encodes,
+    white noise, show_clipping, 3-bit gamma dither), each on its own
+    compiled instance, bit for bit against its plain version, timed,
+    with the instance's SASS a pixel, ptxas's report and its instruction
+    floor (in `k1_instances`, keyed by the tail); the seconds one tail's
+    library takes to be
     usable in a fresh process, cold (compiled) and warm (on disk)
     (`k1_generic_build_s`), and the host's draw of a 4K white-noise
     bias (`white_noise_host_ms`);
@@ -103,8 +106,8 @@ Phases (each runs uncaught: any failure exits non-zero):
     with profile81.bin's L1 block, its chroma MMR rewritten frame by
     frame with the port's write_rpu; `color.hdr` from the L1 block) ->
     3840x2160 8-bit sRGB, RenderParams(upscaler="ewa_lanczos"): the
-    chroma merge, the RPU reshape and decode, PQ, the EWA and K1's
-    <spline, perceptual> instance with dither, 3 chained frames through
+    chroma merge, the RPU reshape and decode, PQ, the EWA and K1 on
+    <spline, perceptual> with dither, 3 chained frames through
     one plan, counts read as before (K1 3 times);
 14. path D, "1080i broadcast deinterlaced to 4K": 1920x1080 8-bit
     limited BT.709 BT.1886 yuv420p with woven fields, top field first,
@@ -112,7 +115,7 @@ Phases (each runs uncaught: any failure exits non-zero):
     frame); source frames 1 and 2 each rendered as their top then
     bottom field with their neighbors, RenderParams(deinterlace=
     DeinterlaceParams(BWDIF)): bwdif and H.274 grain on every plane,
-    then config 2's path (K1's pass-through instance with dither),
+    then config 2's path (K1 on the pass-through chain with dither),
     counts read as before (K1 4 times);
 15. the distortion phase: config 2's frames -> 3840x2160 with
     distort=DistortParams.rotation(0.2), bicubic: the tail plain, as in
@@ -132,8 +135,8 @@ Phases (each runs uncaught: any failure exits non-zero):
     FrameMix through render_image_mix (oversample) -> 3840x2160 8-bit
     sRGB, RenderParams(upscaler="ewa_lanczos", color_adjustment=
     ColorAdjustment(brightness=0.02, contrast=1.05, saturation=1.1)):
-    10 vsyncs counted (K1's <spline, perceptual> instance without dither
-    once a new source frame, 5 times; the rest mix-cache hits; the final
+    10 vsyncs counted (K1 on <spline, perceptual> without dither once a
+    new source frame, 5 times; the rest mix-cache hits; the final
     dither plain), K1 bit for bit against its plain version, timed a
     vsync;
 17. path F, "a 2.39:1 HDR10 film letterboxed on a 4K SDR display":
@@ -155,8 +158,8 @@ Phases (each runs uncaught: any failure exits non-zero):
     decoder thread push_blocking lazy SourceFrames into a FrameQueue
     (`PathGDecoder`: planes "decoded" into pinned host memory, uploaded
     by `map`), 60 vsyncs each a queue update (INTERPOLATE) and
-    render_image_mix, telemetry installed; counted as one run (K1's
-    <spline, perceptual> instance without dither once a source frame,
+    render_image_mix, telemetry installed; counted as one run (K1 on
+    <spline, perceptual> without dither once a source frame,
     every other mix entry a mix-cache hit; each frame mapped once and
     unmapped, the rest discarded), vsyncs 1-29 timed synchronized and
     30-59 back to back; K1 bit for bit against its plain version;
@@ -180,8 +183,8 @@ Phases (each runs uncaught: any failure exits non-zero):
     frame_from_avframe_like, pinned staging), rendered with
     RenderParams() on Renderer(ctx=runtime.create()) to 1920x1080 8-bit
     BT.709 BT.1886 (hermite downscale in linear light, spline +
-    perceptual, peak detection, blue noise: K1's <spline, perceptual>
-    instance with dither), encoded to limited BT.709 YCbCr on the card,
+    perceptual, peak detection, blue noise: K1 on <spline, perceptual>
+    with dither), encoded to limited BT.709 YCbCr on the card,
     downloaded through a pinned buffer and written as a 420jpeg y4m
     (`PathITranscoder`), counted on its own (K1 8 times, no plain tail,
     acquire and release 8 times each); the file read back (header, 8
@@ -253,7 +256,7 @@ Phases (each runs uncaught: any failure exits non-zero):
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
     empty, and so does an out-of-memory error raised inside K1's wrapper
-    (as a KernelError), and a generic tail whose instance fails to build
+    (as a KernelError), and a tail whose instance fails to build
     (its generated header made to fail: a KernelError when the renderer
     plans the tail, nothing launched); everything restored, and no
     renderer of any path has a feature or a hook disabled.
@@ -389,26 +392,33 @@ def _mix_run(renderer, frames, target, params, counters, vsyncs, lt):
 
 
 def _check_k1(k1, args):
-    """K1 vs its plain version on the same inputs (comparison launches
-    are not counted by the caller)."""
+    """K1 vs its plain version (the port's stages) on the same inputs:
+    bit for bit, partials' histograms equal, sums rtol 1e-5 (comparison
+    launches are not counted by the caller)."""
     import torch
-    img, plan, tone, lut = args
-    out_k, part_k = k1.color_map_tail(img, plan, tone, lut)
-    out_p, part_p = k1.color_map_plain(img, plan.consts, tone, lut,
-                                       plan.instance)
+    out_k, part_k = k1.color_map_tail(*args)
+    out_p, part_p = k1.tail_plain(*args)
     torch.cuda.synchronize()
     diff = (out_k - out_p).abs()
     max_abs_err = float(diff.max())
-    frac = float((diff > 1e-6).float().mean())
-    assert max_abs_err <= LSB + 1e-6, max_abs_err
-    assert frac < 1e-3, frac
-    if plan.tone:
+    frac = float((diff > 0).float().mean())
+    assert torch.equal(out_k, out_p), (max_abs_err, frac)
+    assert (part_k is None) == (part_p is None)
+    if part_k is not None:
         assert torch.equal(part_k[:, 0, :64], part_p[:, 0, :64])
         torch.testing.assert_close(part_k[:, 1, :3], part_p[:, 1, :3],
                                    rtol=1e-5, atol=0.0)
-    else:
-        assert part_k is None and part_p is None
     return max_abs_err, frac, part_k
+
+
+def _tail(k1, plan):
+    """A K1 plan's chain: ("pass", its flags) for the pass-through chain,
+    else (dynamic curve or None, gamut operator)."""
+    m = plan.instance
+    if m.kind == 0:
+        return ("pass", m.flags)
+    return (k1.G_DYNAMIC[m.curve] if m.tone_kind == 1 else None,
+            k1.G_GAMUTS[m.gamut])
 
 
 def _k1_entry(k1, name, args, part, launches, max_abs_err, ms, plain_ms):
@@ -492,78 +502,6 @@ def _k3_capture(store, keep=None):
     def restore():
         k3.shear_chw, k3.unshear_chw = real
     return restore
-
-
-def _k1_instance_table(lt, k1, trender, ops_dither, sass_of, npix, lanes,
-                       mhz, W, H, dev):
-    """Every K1 instance, with and without dither, at W x H: its
-    operations a pixel (`ops_per_pixel` of the plan its chain gets), its
-    byte and operation bounds, its pixel loop's SASS instructions and
-    the instruction floor at the SM clock `mhz`, and the kernel against
-    its plain version (checked and timed) on seeded linear light (to 30
-    for an HDR source, 1.2 for SDR; fixed stats avg 0.3, max 0.72 PQ).
-    The chains: SDR BT.709 (pass-through), SDR BT.2020 (no tone curve)
-    and the flagship's PQ source (each dynamic curve), to sRGB, gamut
-    clip / perceptual / softclip."""
-    import torch
-    from libplacebo_tpu_torch.core import colorspace as tcs
-    from libplacebo_tpu_torch.ops import tone_dynamic as ops_tone
-    from libplacebo_tpu_torch.tools.bench_micro import (FP32_OPS_PER_S,
-                                                        HBM_BYTES_PER_S)
-    sdr = {p: tcs.ColorSpace(p, tcs.ColorTransfer.BT_1886)
-           for p in (tcs.ColorPrimaries.BT_709, tcs.ColorPrimaries.BT_2020)}
-    chains = {(0, 0): (sdr[tcs.ColorPrimaries.BT_709], {}),
-              (0, 2): (sdr[tcs.ColorPrimaries.BT_2020],
-                       dict(gamut_mapping="perceptual")),
-              (0, 3): (sdr[tcs.ColorPrimaries.BT_2020],
-                       dict(gamut_mapping="softclip"))}
-    for t, name in enumerate(k1.TONES[1:], 1):
-        for g, op in ((1, "clip"), (2, "perceptual"), (3, "softclip")):
-            chains[(t, g)] = (tcs.CSP_BT2100_PQ,
-                              dict(tone_mapping_function=name,
-                                   gamut_mapping=op))
-    target = lt.Target(w=W, h=H, color=lt.CSP_SRGB, bit_depth=8)
-    gen = torch.Generator(device=dev).manual_seed(23)
-    noise = torch.rand((3, H, W), device=dev, generator=gen)
-    stats = (torch.tensor(0.72, device=dev), torch.tensor(0.3, device=dev))
-    table = {}
-    for (tone, gamut), (src, kw) in sorted(chains.items()):
-        for dither in (True, False):
-            params = lt.RenderParams(**kw) if dither else \
-                lt.RenderParams(**kw, dither=None)
-            s, d = tcs.color_space_infer_map(src, tcs.CSP_SRGB)
-            lut = ops_dither.dither_lut(trender._dither_params(params, d),
-                                        0) if dither else None
-            chain = trender.color_chain(s, d, params, s.is_hdr())
-            plan = k1.plan_tail(chain, params, d, target, s.is_hdr(), lut)
-            assert (plan.tone, plan.gamut) == (tone, gamut), (tone, gamut)
-            args = (noise * (30.0 if s.is_hdr() else 1.2), plan,
-                    ops_tone.tone_vector(
-                        params.tone_mapping_function, *stats,
-                        chain.dst_min_pq, chain.dst_max_pq,
-                        params.tone_constants) if plan.tone else None,
-                    torch.from_numpy(lut).to(dev) if lut is not None
-                    else None)
-            err, frac, _ = _check_k1(k1, args)
-            ops = k1.ops_per_pixel(plan.consts, plan.instance)
-            nbytes = (2 * 3 * npix + plan.consts.size) * 4
-            if tone:
-                nbytes += (H // k1.pick_block_rows(H) * 8 * 128 + 16) * 4
-            if lut is not None:
-                nbytes += lut.size * 4
-            sass = sass_of(tone, k1.instance_name(tone, gamut, dither))
-            table[f"{tone},{gamut},{'dither' if dither else 'none'}"] = {
-                "ops_per_pixel": ops,
-                "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "ops_bound_ms": ops * npix / FP32_OPS_PER_S * 1e3,
-                "sass_per_pixel": sass,
-                "instruction_floor_ms": sass * npix / (lanes * mhz * 1e6)
-                * 1e3,
-                "max_abs_err": err, "differing_fraction": frac,
-                "ms": _cuda_ms(lambda: k1.color_map_tail(*args), 10),
-                "plain_ms": _cuda_ms(lambda: k1.color_map_plain(
-                    args[0], plan.consts, *args[2:], plan.instance), 2)}
-    return table
 
 
 def display_p3_profile():
@@ -1315,17 +1253,12 @@ def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
         assert counts == {"acquire": 8, "release": 8}, counts
         k1_args = captured[1]
         plan = k1_args[1]
-        if plan.tone == k1.GENERIC:
-            mode = plan.generic.mode
-            instance = (f"generic (kind {mode.kind}, gamut "
-                        f"{k1.G_GAMUTS[mode.gamut]}, tone kind "
-                        f"{mode.tone_kind} {plan.generic.dynamic}, trc "
-                        f"{k1.G_TRCS[mode.trc]}, encode "
-                        f"{k1.G_ENCODES[mode.encode]}, dither "
-                        f"{k1.G_DITHER[mode.dither]})")
-        else:
-            instance = k1.instance_name(plan.tone, plan.gamut,
-                                        k1_args[3] is not None)
+        mode = plan.generic.mode
+        instance = (f"kind {mode.kind}, gamut {k1.G_GAMUTS[mode.gamut]}, "
+                    f"tone kind {mode.tone_kind} {plan.generic.dynamic}, "
+                    f"trc {k1.G_TRCS[mode.trc]}, encode "
+                    f"{k1.G_ENCODES[mode.encode]}, dither "
+                    f"{k1.G_DITHER[mode.dither]}")
         # the written file, read back
         info, codes = _y4m_codes(y4m, dst)
         assert (info.width, info.height, info.csp, info.bit_depth) == \
@@ -1974,8 +1907,7 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
     k1_args = captured[1]
     k1_err, k1_frac, k1_part = _check_k1(k1, k1_args)
     k1_ms = _cuda_ms(lambda: k1.color_map_tail(*k1_args), 20)
-    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        k1_args[0], k1_args[1].consts, *k1_args[2:], k1_args[1].instance), 3)
+    k1_plain_ms = _cuda_ms(lambda: k1.tail_plain(*k1_args), 3)
     entries.append(_k1_entry(k1, "k1_color_map_path_k_halo", k1_args,
                              k1_part, launches["k1"], k1_err, k1_ms,
                              k1_plain_ms))
@@ -2067,8 +1999,7 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
     k1n = cap["k1"][1]
     k1n_err, _, k1n_part = _check_k1(k1, k1n)
     k1n_ms = _cuda_ms(lambda: k1.color_map_tail(*k1n), 20)
-    k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        k1n[0], k1n[1].consts, *k1n[2:], k1n[1].instance), 3)
+    k1n_plain_ms = _cuda_ms(lambda: k1.tail_plain(*k1n), 3)
     entries.append(_k1_entry(k1, "k1_color_map_no_dither_path_k_replicated",
                              k1n, k1n_part, launches5["k1"], k1n_err, k1n_ms,
                              k1n_plain_ms))
@@ -2333,8 +2264,7 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
     k1_args = cap["k1"]
     k1_err, k1_frac, k1_part = _check_k1(k1, k1_args)
     k1_ms = _cuda_ms(lambda: k1.color_map_tail(*k1_args), 20)
-    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        k1_args[0], k1_args[1].consts, *k1_args[2:], k1_args[1].instance), 2)
+    k1_plain_ms = _cuda_ms(lambda: k1.tail_plain(*k1_args), 2)
     assert len(cap["k3"]) == 2, len(cap["k3"])
     ed_entries = _k2_k3_entries(k2, k3, cap["k2"], cap["k3"], "path_l",
                                 launches["bench_micro"], 20)
@@ -2352,10 +2282,10 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
     return figures, entries
 
 
-# the K1 tails chip_smoke holds on the generic instance beside path A's:
-# name -> (source (primaries, transfer, max nits or 0), target (primaries,
-# transfer, max nits or 0), RenderParams fields, bit depth, target
-# (system, levels) or None)
+# the K1 tails chip_smoke holds beside the paths' own: name -> (source
+# (primaries, transfer, max nits or 0), target (primaries, transfer, max
+# nits or 0), RenderParams fields, bit depth, target (system, levels) or
+# None)
 GENERIC_CASES = {
     "static_st2094_40": (("bt.2020", "pq", 1000.0), ("bt.709", "srgb", 0),
                          dict(tone_mapping_function="st2094-40",
@@ -2388,6 +2318,26 @@ GENERIC_CASES = {
     "low_depth_gamma": (("bt.709", "bt.1886", 0), ("bt.709", "srgb", 0),
                         {}, 3, None),
 }
+# the chains of color_map_stage on the players' paths, name -> (source,
+# RenderParams fields): the pass-through chain, and the IPT round trip
+# with no tone curve or each dynamic curve (delayed stats) under clip,
+# perceptual and softclip; the flagship's tail is spline_perceptual
+K1_CHAINS = {"pass": (("bt.709", "bt.1886", 0), {}),
+             "sdr_perceptual": (("bt.2020", "bt.1886", 0),
+                                dict(gamut_mapping="perceptual")),
+             "sdr_softclip": (("bt.2020", "bt.1886", 0),
+                              dict(gamut_mapping="softclip"))}
+for _tm in ("spline", "bt2390", "st2094-40", "st2094-10"):
+    for _g in ("clip", "perceptual", "softclip"):
+        K1_CHAINS[f"{_tm}_{_g}"] = (("bt.2020", "pq", 0),
+                                    dict(tone_mapping_function=_tm,
+                                         gamut_mapping=_g))
+# every tail of K1_CHAINS into 8-bit sRGB with dither ("<chain>,dither")
+# and without ("<chain>,none"), and GENERIC_CASES', in its form
+K1_CASES = {f"{name},{'dither' if d else 'none'}": (
+    src, ("bt.709", "srgb", 0), kw if d else dict(kw, dither=None), 8, None)
+    for name, (src, kw) in K1_CHAINS.items() for d in (True, False)}
+K1_CASES.update(GENERIC_CASES)
 
 
 def _csp(lt, prim, trc, nits):
@@ -2397,13 +2347,13 @@ def _csp(lt, prim, trc, nits):
 
 
 def _generic_args(lt, k1, trender, case, W, H, dev, noise):
-    """(img, plan, tone, bias) of a generic case's K1 tail at W x H on
-    seeded linear light (to 30 for an HDR source, 1.2 for SDR)."""
+    """(img, plan, tone, bias) of a K1_CASES tail at W x H on seeded
+    linear light (to 30 for an HDR source, 1.2 for SDR)."""
     import torch
     from libplacebo_tpu_torch.core import colorspace as tcs
     from libplacebo_tpu_torch.core.common import RectF
     from libplacebo_tpu_torch.ops import tone_dynamic as ops_tone
-    src, dst, kw, bits, rep = GENERIC_CASES[case]
+    src, dst, kw, bits, rep = K1_CASES[case]
     kw = dict(kw)
     if kw.get("dither") == "white":
         kw["dither"] = lt.DitherParams(method=lt.DitherMethod.WHITE_NOISE)
@@ -2421,7 +2371,7 @@ def _generic_args(lt, k1, trender, case, W, H, dev, noise):
                 ("spline", "bt2390", "st2094-40", "st2094-10"))
     run = lt.Renderer(device=dev)._fused_tail(params, s, d, target, use_peak,
                                               W, H, RectF(0, 0, W, H))
-    assert run is not None and run.plan.tone == k1.GENERIC, case
+    assert run is not None, case
     chain = trender.color_chain(s, d, params, use_peak)
     tone = ops_tone.tone_vector(
         params.tone_mapping_function, torch.tensor(0.72, device=dev),
@@ -2430,25 +2380,8 @@ def _generic_args(lt, k1, trender, case, W, H, dev, noise):
     return (noise * (30.0 if s.is_hdr() else 1.2), run.plan, tone, run.lut)
 
 
-def _check_generic(k1, args):
-    """The generic instance vs its plain version (the port's stages):
-    bit for bit, partials' histograms equal, sums rtol 1e-5."""
-    import torch
-    out_k, part_k = k1.color_map_tail(*args)
-    out_p, part_p = k1.tail_plain(*args)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    assert torch.equal(out_k, out_p), err
-    assert (part_k is None) == (part_p is None)
-    if part_k is not None:
-        assert torch.equal(part_k[:, 0, :64], part_p[:, 0, :64])
-        torch.testing.assert_close(part_k[:, 1, :3], part_p[:, 1, :3],
-                                   rtol=1e-5, atol=0.0)
-    return err, part_k
-
-
-def _k1_generic_table(lt, k1, trender, W, H, dev, shape_of):
-    """Every generic case at W x H: held against its plain version (bit
+def _k1_case_table(lt, k1, trender, W, H, dev, shape_of):
+    """Every K1_CASES tail at W x H: held against its plain version (bit
     for bit), timed with it, its operations a pixel and its bounds, and
     its instance's shape (`shape_of(plan, npix)`)."""
     import torch
@@ -2456,9 +2389,9 @@ def _k1_generic_table(lt, k1, trender, W, H, dev, shape_of):
     gen = torch.Generator(device=dev).manual_seed(29)
     noise = torch.rand((3, H, W), device=dev, generator=gen)
     table = {}
-    for case in GENERIC_CASES:
+    for case in K1_CASES:
         args = _generic_args(lt, k1, trender, case, W, H, dev, noise)
-        err, part = _check_generic(k1, args)
+        err, _, part = _check_k1(k1, args)
         ops = k1.ops_per_pixel(args[1].consts, args[1].instance)
         bound, by = k1_bound(*args, part, ops)
         table[case] = {
@@ -2471,13 +2404,12 @@ def _k1_generic_table(lt, k1, trender, W, H, dev, shape_of):
     return table
 
 
-def _planned_generic(lt, k1, trender):
-    """The generic plans of path A, path I and every GENERIC_CASES tail,
-    made on the CPU at a small size (a plan is host data, and the key its
+def _planned_tails(lt, k1, trender):
+    """The K1 plans of path A, path I and every K1_CASES tail, made on
+    the CPU at a small size (a plan is host data, and the key its
     instance is compiled with does not depend on the frame size), so
-    phase 1 builds their libraries beside the templated ones: path A
-    from one small render, path I from one small transcode, each K1 plan
-    captured."""
+    phase 1 builds their libraries side by side: path A from one small
+    render, path I from one small transcode, each K1 plan captured."""
     import shutil
     import tempfile
     import torch
@@ -2505,10 +2437,9 @@ def _planned_generic(lt, k1, trender):
         shutil.rmtree(tmp, ignore_errors=True)
     noise = torch.rand((3, 64, 256),
                        generator=torch.Generator().manual_seed(1))
-    for case in GENERIC_CASES:
+    for case in K1_CASES:
         plans[case] = _generic_args(lt, k1, trender, case, 256, 64,
                                     torch.device("cpu"), noise)[1]
-    assert all(p.tone == k1.GENERIC for p in plans.values()), plans
     return plans
 
 
@@ -2735,13 +2666,13 @@ def main() -> int:
     counters = {"k1": k1, "k2": k2, "k3": k3, "peak_tone": peak_tone}
 
     # 1. build: one compiler process per library, all started together
-    # (the generic tails' plans made on the CPU first: a library a tail)
+    # (K1's tails planned on the CPU first: a library a tail)
     t0 = time.perf_counter()
-    generic_plans = _planned_generic(lt, k1, trender)
+    generic_plans = _planned_tails(lt, k1, trender)
     generic_plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     k2_custom = [cdither.ErrorDiffusionKernel(*case) for case in K2_CUSTOM]
-    build_all([*k1.build_specs(generic=generic_plans.values()),
+    build_all([*k1.build_specs(generic_plans.values()),
                k2.build_spec(), k3.build_spec(), peak_tone.build_spec(),
                *native.build_specs(),
                *[k2.build_spec(k2.tap_table_header([k]))
@@ -2749,15 +2680,17 @@ def main() -> int:
     cdither.blue_noise(6)
     cfg.generate_offsets(GRAIN_SEED, 1, 1)
     build_s = time.perf_counter() - t0
-    ptxas = {n: build_log(m.build()) for n, m in counters.items()}
-    # every K1 library of the run loaded here, the generic tails' too: a
-    # CUDA library loaded after a profiler session has started costs each
-    # later session device activities (path J counts a pass's launches)
-    k1_libs = k1.libraries(generic=generic_plans.values())
-    ptxas.update({f"k1_tone{t}": build_log(k1_libs[t]) for t in k1.TONE_LIBS
-                  if t != 1})
-    # each generic tail's own instance: its pixel loop's SASS (one pixel
-    # an iteration) and ptxas's report; and one tail's library made
+    ptxas = {n: build_log(m.build()) for n, m in counters.items()
+             if n != "k1"}
+    # every K1 library of the run loaded here (K1_CASES holds every
+    # other path's tail): a CUDA library loaded after a profiler session
+    # has started costs each later session device activities (path J
+    # counts a pass's launches)
+    k1_libs = k1.libraries(generic_plans.values())
+    flagship_plan = generic_plans["spline_perceptual,dither"]
+    ptxas["k1"] = build_log(k1_libs[flagship_plan.header])
+    # each tail's own instance: its pixel loop's SASS (one pixel an
+    # iteration) and ptxas's report; and one tail's library made
     # usable in a fresh process, cold and warm.  Both run the toolkit's
     # programs, so they run here, before any profiler session (after
     # one, they cost later sessions device activities)
@@ -2778,30 +2711,24 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln]
                    for n, log in ptxas.items()}
     # K1's shape: the pixel loop's instruction mix, read from the SASS
-    # (cuobjdump from the toolkit or from Triton's package; none = fail)
-    k1_sass_text = _sass.disassemble(k1.build()._name)
-    k1_report = _sass.ptxas_report(ptxas["k1"])
+    # (cuobjdump from the toolkit or from Triton's package; none = fail),
+    # of the flagship's tail with and without dither, and config 4's and
+    # config 2's (softclip's sincos keeps a range-reduction loop on its
+    # slow path, which |delta| < pi never takes; the count is of the
+    # fast path)
+    k1_sass_text = _sass.disassemble(k1_libs[flagship_plan.header]._name)
     k1_sass, k1_ptxas = {}, {}
-    for variant, inst in (("dither", k1.instance_name(1, 2, True)),
-                          ("no_dither", k1.instance_name(1, 2, False))):
-        k1_sass[variant] = _sass.loop_mix(k1_sass_text, inst)
+    k1_variants = {"dither": "spline_perceptual,dither",
+                   "no_dither": "spline_perceptual,none",
+                   "config4": "bt2390_softclip,dither",
+                   "config2": "pass,dither"}
+    for variant, case in k1_variants.items():
+        _, k1_ptxas[variant], k1_sass[variant] = \
+            generic_sass[generic_plans[case].header]
         # one pixel an iteration: the count is a pixel's only without a
         # loop inside the pixel loop
-        assert not k1_sass[variant]["inner_loops"], k1_sass[variant]
-        report = [v for n, v in k1_report.items() if inst in n]
-        assert len(report) == 1, k1_report
-        k1_ptxas[variant] = report[0]
-    # the instances of config 4 and config 2 (softclip's sincos keeps a
-    # range-reduction loop on its slow path, which |delta| < pi never
-    # takes; the count is of the fast path)
-    for variant, (tone, gamut) in (("config4", (2, 3)), ("config2", (0, 0))):
-        inst = k1.instance_name(tone, gamut, True)
-        k1_sass[variant] = _sass.loop_mix(
-            _sass.disassemble(k1_libs[tone]._name), inst)
-        report = [v for n, v in _sass.ptxas_report(
-            build_log(k1_libs[tone])).items() if inst in n]
-        assert len(report) == 1
-        k1_ptxas[variant] = report[0]
+        assert variant == "config4" or not k1_sass[variant]["inner_loops"], \
+            k1_sass[variant]
 
     # 2. the flagship path: 3 chained frames on the card
     H, W = 1080, 1920
@@ -3054,7 +2981,7 @@ def main() -> int:
                            "peak_tone": 10}, pe_launches
     assert pe_tails == (5, 0, 0) and pe_hits == 15, (pe_tails, pe_hits)
     assert len(rendererE._cache) == 1
-    assert (pe_k1[1].tone, pe_k1[1].gamut) == (1, 2) and \
+    assert _tail(k1, pe_k1[1]) == ("spline", "perceptual") and \
         pe_k1[2] is not None and pe_k1[3] is None
     assert pf_launches == {"k1": 0, "k2": 0, "k3": 0,
                            "peak_tone": 0}, pf_launches
@@ -3075,7 +3002,7 @@ def main() -> int:
     assert pg_frames["unmap"] == pg_frames["map"] and \
         pg_frames["map"] + pg_frames["discard"] == 24, pg_frames
     assert len(rendererG._cache) == 1
-    assert (pg_k1[1].tone, pg_k1[1].gamut) == (1, 2) and \
+    assert _tail(k1, pg_k1[1]) == ("spline", "perceptual") and \
         pg_k1[2] is not None and pg_k1[3] is None
     assert paramsG.frame_mixer == "mitchell_clamp" and \
         paramsG.upscaler == "ewa_lanczos"
@@ -3102,26 +3029,32 @@ def main() -> int:
     assert pb_tails == (0, 0, 3) and px_tails == (0, 0, 3), \
         (pb_tails, px_tails)
     # path C: one plan for every RPU (the coefficients are frame data),
-    # the flagship's <spline, perceptual> instance with dither; path D:
-    # one plan a field, the pass-through instance with dither
+    # the flagship's <spline, perceptual> tail with dither; path D: one
+    # plan a field, the pass-through chain with dither
     assert len(rendererC._cache) == 1 and len(rendererD._cache) == 2
-    assert (pc_k1[1].tone, pc_k1[1].gamut) == (1, 2) and \
+    assert _tail(k1, pc_k1[1]) == ("spline", "perceptual") and \
         pc_k1[2] is not None and pc_k1[3] is not None
-    assert (pd_k1[1].tone, pd_k1[1].gamut, pd_k1[1].flags) == (0, 0, 0) \
+    assert _tail(k1, pd_k1[1]) == ("pass", 0) \
         and pd_k1[2] is None and pd_k1[3] is not None
     # path A as the reference plans it: the HLG source adapts to the
     # display's peak (color_space_infer_map), so no tone curve runs and
     # the tail is the pass-through chain into a PQ target
     pa_mode = pa_k1[1].generic.mode
-    assert pa_k1[1].tone == k1.GENERIC and pa_mode.kind == 0 and \
+    assert pa_mode.kind == 0 and \
         pa_mode.tone_kind == 0 and k1.G_TRCS[pa_mode.trc] == "pq" and \
         k1.G_DITHER[pa_mode.dither] == "lut" and pa_k1[2] is None
-    assert (c4_k1[1].tone, c4_k1[1].gamut) == (2, 3) and \
-        c4_k1[1].flags == k1.FLAG_HUESHIFT and c4_k1[3] is not None
-    assert (c2_k1[1].tone, c2_k1[1].gamut, c2_k1[1].flags) == (0, 0, 0) \
+    assert _tail(k1, c4_k1[1]) == ("bt2390", "softclip") and \
+        c4_k1[1].instance.flags & k1.FLAG_HUESHIFT and c4_k1[3] is not None
+    assert _tail(k1, c2_k1[1]) == ("pass", 0) \
         and c2_k1[2] is None and c2_k1[3] is not None
-    assert (c3_k1[1].tone, c3_k1[1].gamut, c3_k1[1].flags) == (0, 0, 0) \
+    assert _tail(k1, c3_k1[1]) == ("pass", 0) \
         and c3_k1[2] is None and c3_k1[3] is not None
+    # the tails whose SASS phase 1 read are these paths' own
+    for variant, args in (("dither", flag_k1),
+                          ("no_dither", captured["c5_k1"]),
+                          ("config4", c4_k1), ("config2", c2_k1)):
+        assert args[1].header == \
+            generic_plans[k1_variants[variant]].header, variant
     # the main scaler ran the phased path with the strength asked for
     ewa_key = (c3_ewa[1], H, W, 2 * H, 2 * W, RectF(0, 0, W, H), 0.8)
     assert c3_ewa[1].name == "ewa_lanczos4sharpest" and c3_ewa[5] == 0.8
@@ -3159,7 +3092,7 @@ def main() -> int:
     k1_err, k1_frac, k1_part = _check_k1(k1, flag_k1)
     # K1's check-free square root vs sqrtf on every float of the range
     # its PQ curves clamp into
-    assert k1.sqrt_check(dev) == 0
+    assert k1.sqrt_check(flag_k1[1], dev) == 0
 
     # 3b. GPU render vs the CPU (plain) render on a small input
     small = _flagship_yuv(2, 64, 128, seed=7)
@@ -3270,7 +3203,7 @@ def main() -> int:
     # 2's input at 4K (bit for bit), and both paths' GPU renders vs their
     # CPU renders on a small input (the gate of configs 2-4, in LSB of
     # each target's depth)
-    pa_err, pa_part = _check_generic(k1, pa_k1)
+    pa_err, _, pa_part = _check_k1(k1, pa_k1)
     small_paths = {}
     for path, yuv_bits in (("A", 10), ("B", 8)):
         col, rep, bits, tgt, p = path_cell(lt, path, 256, 128)
@@ -3501,8 +3434,7 @@ def main() -> int:
         pg_map_host_ms.append((time.perf_counter() - t) * 1e3)
     del fG, planesG
     k1_pg_ms = _cuda_ms(lambda: k1.color_map_tail(*pg_k1), 20)
-    k1_pg_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        pg_k1[0], pg_k1[1].consts, *pg_k1[2:], pg_k1[1].instance), 3)
+    k1_pg_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pg_k1), 3)
     # path H: 12 frames, a new grain seed each (stream traffic)
     ph_ms, ph_window_ms = frame_times(
         rendererH, [_frame(lt, yuvsH[k % 8], dev,
@@ -3573,14 +3505,11 @@ def main() -> int:
         enc4k, 2 * W, 2 * H, paramsX.distort, plan_x), 5)
     del sig1080, enc4k, plan_x
     k1_pc_ms = _cuda_ms(lambda: k1.color_map_tail(*pc_k1), 20)
-    k1_pc_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        pc_k1[0], pc_k1[1].consts, *pc_k1[2:], pc_k1[1].instance), 3)
+    k1_pc_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pc_k1), 3)
     k1_pd_ms = _cuda_ms(lambda: k1.color_map_tail(*pd_k1), 20)
-    k1_pd_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        pd_k1[0], pd_k1[1].consts, *pd_k1[2:], pd_k1[1].instance), 3)
+    k1_pd_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pd_k1), 3)
     k1_pe_ms = _cuda_ms(lambda: k1.color_map_tail(*pe_k1), 20)
-    k1_pe_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        pe_k1[0], pe_k1[1].consts, *pe_k1[2:], pe_k1[1].instance), 3)
+    k1_pe_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pe_k1), 3)
     k1_pa_ms = _cuda_ms(lambda: k1.color_map_tail(*pa_k1), 20)
     k1_pa_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pa_k1), 3)
     # path B's stages alone: the native LUT on a 1080p frame (the
@@ -3608,20 +3537,15 @@ def main() -> int:
         torch.cuda.synchronize()
         white_noise_host_ms.append((time.perf_counter() - t) * 1e3)
     k1_ms = _cuda_ms(lambda: k1.color_map_tail(*flag_k1), 20)
-    k1_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        flag_k1[0], flag_k1[1].consts, *flag_k1[2:]), 3)
+    k1_plain_ms = _cuda_ms(lambda: k1.tail_plain(*flag_k1), 3)
     k1n_ms = _cuda_ms(lambda: k1.color_map_tail(*c5_k1), 20)
     k1_4_ms = _cuda_ms(lambda: k1.color_map_tail(*c4_k1), 20)
-    k1_4_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        c4_k1[0], c4_k1[1].consts, *c4_k1[2:], c4_k1[1].instance), 3)
+    k1_4_plain_ms = _cuda_ms(lambda: k1.tail_plain(*c4_k1), 3)
     k1_2_ms = _cuda_ms(lambda: k1.color_map_tail(*c2_k1), 20)
-    k1_2_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        c2_k1[0], c2_k1[1].consts, *c2_k1[2:], c2_k1[1].instance), 3)
+    k1_2_plain_ms = _cuda_ms(lambda: k1.tail_plain(*c2_k1), 3)
     k1_3_ms = _cuda_ms(lambda: k1.color_map_tail(*c3_k1), 20)
-    k1_3_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        c3_k1[0], c3_k1[1].consts, *c3_k1[2:], c3_k1[1].instance), 3)
-    k1n_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-        c5_k1[0], c5_k1[1].consts, *c5_k1[2:]), 3)
+    k1_3_plain_ms = _cuda_ms(lambda: k1.tail_plain(*c3_k1), 3)
+    k1n_plain_ms = _cuda_ms(lambda: k1.tail_plain(*c5_k1), 3)
     # the SM clock while K1 runs: ~0.5-1 s of launches queued, read
     # before they finish; the instruction floor is the pixel loop's
     # instructions (one pixel an iteration) over every scheduler's lanes
@@ -3636,20 +3560,10 @@ def main() -> int:
     lanes = torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32
     k1_floor_ms = {v: m["per_iteration"] * npix / (lanes * k1_mhz * 1e6) * 1e3
                    for v, m in k1_sass.items() if "dither" in v}
-    # every instance's bounds and instruction floor at 4K
-    disasm = {}
-
-    def sass_of(tone, inst):
-        if tone not in disasm:
-            disasm[tone] = _sass.disassemble(k1_libs[tone]._name)
-        return _sass.loop_mix(disasm[tone], inst)["per_iteration"]
-    k1_instances = _k1_instance_table(lt, k1, trender, ops_dither, sass_of,
-                                      npix, lanes, k1_mhz, 2 * W, 2 * H, dev)
-
     def generic_shape(plan, n_px):
-        """A generic plan's own instance (phase 1 built and read it):
-        its pixel loop's SASS, ptxas's report and its instruction floor
-        for n_px pixels at the SM clock above."""
+        """A plan's own instance (phase 1 built and read it): its pixel
+        loop's SASS, ptxas's report and its instruction floor for n_px
+        pixels at the SM clock above."""
         assert plan.header in generic_sass, "a tail phase 1 did not build"
         name, report, mix = generic_sass[plan.header]
         return {"library": name, "sass_per_pixel": mix["per_iteration"],
@@ -3658,10 +3572,9 @@ def main() -> int:
                 "inner_loops": mix["inner_loops"], "ptxas": report,
                 "instruction_floor_ms": mix["per_iteration"] * n_px /
                 (lanes * k1_mhz * 1e6) * 1e3}
-    k1_instances.update({
-        f"generic,{case}": v for case, v in
-        _k1_generic_table(lt, k1, trender, 2 * W, 2 * H, dev,
-                          generic_shape).items()})
+    # every K1_CASES tail's bounds and instruction floor at 4K
+    k1_instances = _k1_case_table(lt, k1, trender, 2 * W, 2 * H, dev,
+                                  generic_shape)
     k1_path_a_shape = generic_shape(pa_k1[1], npix)
     assert k1_path_a_shape["ptxas"]["spill_stores"] == 0, k1_path_a_shape
     ed_args = (colmaj, ed_kernel, depth, ed_w, ed_h)
@@ -3849,18 +3762,11 @@ def main() -> int:
 
     # 20. path I: a 4K HDR10 clip transcoded to 1080p SDR (counted on its
     # own), K1's launch against its plain version, timed
-    # (the tail into a BT.1886 target runs K1's generic instance: bit for
-    # bit against its plain version, as path A's)
+    # (bit for bit against its plain version)
     path_i, pi_k1, pi_launches, pi_scalars = path_i_phase(lt, dev,
                                                           counters, k1)
-    if pi_k1[1].tone == k1.GENERIC:
-        pi_err, pi_part = _check_generic(k1, pi_k1)
-        pi_frac = 0.0
-        k1_pi_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pi_k1), 3)
-    else:
-        pi_err, pi_frac, pi_part = _check_k1(k1, pi_k1)
-        k1_pi_plain_ms = _cuda_ms(lambda: k1.color_map_plain(
-            pi_k1[0], pi_k1[1].consts, *pi_k1[2:], pi_k1[1].instance), 3)
+    pi_err, pi_frac, pi_part = _check_k1(k1, pi_k1)
+    k1_pi_plain_ms = _cuda_ms(lambda: k1.tail_plain(*pi_k1), 3)
     k1_pi_ms = _cuda_ms(lambda: k1.color_map_tail(*pi_k1), 20)
     # path I's own instance: within 10% of the flagship's pixel loop
     k1_path_i_shape = generic_shape(pi_k1[1], pi_k1[0].shape[-2] *
@@ -3973,15 +3879,21 @@ def main() -> int:
         assert rl.get_errors() == (frozenset(), frozenset()), case
         ladder[f"{case}_raised"] = f"{type(raised).__name__}: {raised}"
     # (d) an out-of-memory error inside K1's own wrapper (its library
-    # lookup made to raise one, after the wrapper's allocations) leaves
-    # it as a KernelError and propagates; nothing degrades
-    real_lib = k1._kernel_lib
+    # lookup made to raise one at the launch, after the wrapper's
+    # allocations; the first lookup, the renderer's prepare when it plans
+    # the tail, is the real one) leaves it as a KernelError and
+    # propagates; nothing degrades
+    real_lib = k1._generic_lib
     oom = torch.OutOfMemoryError("CUDA out of memory. Tried to allocate "
                                  "95.00 MiB (synthetic)")
+    lookups = []
 
-    def oom_lib(*a, **k):
+    def oom_lib(header):
+        lookups.append(header)
+        if len(lookups) == 1:
+            return real_lib(header)
         raise oom
-    k1._kernel_lib = oom_lib
+    k1._generic_lib = oom_lib
     rl = lt.Renderer(device=dev)
     try:
         rl.render(_frame(lt, small_f, dev), st, params)
@@ -3989,9 +3901,9 @@ def main() -> int:
     except Exception as e:      # noqa: BLE001 - checked below
         raised = e
     finally:
-        k1._kernel_lib = real_lib
+        k1._generic_lib = real_lib
     assert isinstance(raised, lt.KernelError) and \
-        raised.__cause__ is oom, raised
+        raised.__cause__ is oom and len(lookups) == 2, (raised, lookups)
     assert rl.get_errors() == (frozenset(), frozenset())
     ladder["d_raised"] = f"{type(raised).__name__}: {raised}"
     # restored: the same renderer renders on K1 again
@@ -3999,7 +3911,7 @@ def main() -> int:
     rl.render(_frame(lt, small_f, dev), st, params)
     torch.cuda.synchronize()
     assert k1.launches == 1 and rl.get_errors() == (frozenset(), frozenset())
-    # (e) a generic tail whose instance cannot be built (its generated
+    # (e) a tail whose instance cannot be built (its generated
     # header made to fail) raises KernelError when the renderer plans it:
     # nothing launches, nothing degrades, no other instance runs it
     real_header = k1.generic_header
@@ -4085,8 +3997,10 @@ def main() -> int:
         "k1_no_dither_ms": k1n_ms, "k1_no_dither_plain_ms": k1n_plain_ms,
         "k1_differing_fraction": k1_frac,
         "k1_no_dither_differing_fraction": k1n_frac,
-        "k1_ops_per_pixel": k1.ops_per_pixel(flag_k1[1].consts),
-        "k1_no_dither_ops_per_pixel": k1.ops_per_pixel(c5_k1[1].consts),
+        "k1_ops_per_pixel": k1.ops_per_pixel(flag_k1[1].consts,
+                                             flag_k1[1].instance),
+        "k1_no_dither_ops_per_pixel": k1.ops_per_pixel(c5_k1[1].consts,
+                                                       c5_k1[1].instance),
         "config4_frame_ms_median": statistics.median(c4_ms),
         "config4_frame_ms": c4_ms, "config4_window_ms": c4_window_ms,
         "config2_frame_ms_median": statistics.median(c2_ms),

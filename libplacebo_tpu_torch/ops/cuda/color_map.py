@@ -1,43 +1,32 @@
-"""K1 — the fused color-map tail — as a hand-written Hopper kernel, with
-its plain PyTorch version beside it.
+"""K1 — the fused color-map tail — as one hand-written Hopper kernel,
+compiled once for each tail it runs.
 
 Replaces libplacebo_tpu/ops/pallas/color_map.py::fused_pointwise for
 every tail `Renderer._fused_tail` admits.  The Pallas kernel traces
-whatever tail it is given; a hand-written kernel cannot, so K1 comes in
-two kinds:
-- templated instances, a template over (tone, gamut operator, dither),
-  for the chains of the main paths: `color_map_stage` (a dynamic tone
-  curve — spline, bt2390, st2094-40, st2094-10 — measured in the same
-  pass, or none, and the gamut operator clip, perceptual or softclip
-  through one IPT round trip, or the pass-through fast path), sRGB
-  delinearize, identity RGB encode, ordered dither, and with a tone
-  curve the per-stripe peak partials (`plan_tail`, `INSTANCES`);
-- the generic instance for every other tail (`plan_generic`): a static
-  curve or a dynamic one with same-frame stats, all nine gamut
-  operators, every target transfer, non-identity encodes, show_clipping
-  and white-noise or low-depth gamma dither.  It is compiled once a
-  tail, at first use: the tail's ids (`GenericMode`), matrix-row mix
-  codes, fit-row masks and switches become a generated header
-  (`generic_header`), so the instance a launch runs has every
-  launch-uniform choice made at compile time (`prepare`, called by the
-  renderer when it plans the tail).  Its plain version is the port's
-  own stages (`GenericSpec.plain`, built by the renderer).
+whatever tail it is given; the hand-written one is compiled for it
+instead: `plan_generic` plans the tail on the host, and the tail's ids
+(`GenericMode`), matrix-row mix codes, fit-row masks and switches become
+a generated header (`generic_header`), so the instance a launch runs has
+every launch-uniform choice made at compile time (`prepare`, called by
+the renderer when it plans the tail; equal tails share a library).  A
+tail is the pass-through chain or the IPT round trip of
+`color_map_stage` — a dynamic tone curve (its stats measured in the
+same pass, the peak partials, or the frame before), a static one or
+none, and any gamut operator — then any target transfer, any encode,
+show_clipping, and an ordered, white-noise or low-depth gamma dither.
 
 Everything static is planned on the host in float64 and packed once
 into one float32 vector (`LAYOUT`), kept in host memory: each launch
 copies it into the kernel's parameters, where the kernel reads every
-coefficient at a compile-time offset, with no staging in shared memory.  The per-frame tone-curve
-scalars form a second, 16-long vector on the device
-(ops/tone_dynamic.py::tone_vector).  The templated instances
-(csrc/color_map.cu) and their plain version (`color_map_plain`) both
-read those two vectors, so they cannot compute their constants apart;
-that plain version repeats the kernel's arithmetic operation for
-operation.
+coefficient at a compile-time offset, with no staging in shared memory.
+The per-frame tone-curve scalars form a second, 16-long vector on the
+device (ops/cuda/peak_tone.py).  The plain version is the port's own
+stages (`GenericSpec.plain`, built by the renderer): the kernel repeats
+their arithmetic as PyTorch runs it on the card, bit for bit.
 
 `color_map_tail` is the entry: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel (and counts the launch in `launches`)
-or raises.  The kernels are built with nvcc at first use; see
-csrc/color_map.cu for what bounds them on the card.
+or raises.  See csrc/color_map.cu for what bounds it on the card.
 """
 from __future__ import annotations
 
@@ -51,7 +40,7 @@ import torch
 
 from ..._build import KernelError, kernel_work
 from ...core import transfer as tf
-from ...core.fastmath import f32_mul, fma, mix, rcp, sqrt
+from ...core.fastmath import f32_mul, rcp
 from ...core.colorspace import (COLOR_SDR_WHITE, ColorTransfer,
                                 color_repr_decode)
 from ...core.dither import DitherMethod
@@ -62,31 +51,14 @@ from ..gamut import (GamutBoundary, boundary_rows, hueshift_fourier,
                      HARMONICS, POLY_DEG)
 from ..peak_detect import stripe_partials
 
-__all__ = ["LAYOUT", "TailPlan", "RowMasks", "plan_tail", "pack_constants",
-           "row_masks", "color_map_tail", "color_map_plain",
-           "pick_block_rows", "launches", "ops_per_pixel", "sqrt_check",
-           "build", "build_specs", "libraries", "INSTANCES", "TONES",
-           "GAMUTS", "TONE_LIBS", "instance_name", "GenericKey",
+__all__ = ["LAYOUT", "TailPlan", "RowMasks", "pack_constants", "row_masks",
+           "plan_generic", "color_map_tail", "tail_plain", "pick_block_rows",
+           "launches", "ops_per_pixel", "sqrt_check", "build_specs",
+           "libraries", "GenericMode", "GenericSpec", "GenericKey",
            "generic_key", "generic_header", "generic_spec", "prepare"]
 
 _NCOEF = (2 * HARMONICS + 1) * (POLY_DEG + 1)
 _NFOURIER = 2 * HARMONICS + 1
-
-# the kernel's template parameters: tone curve (0 none) and gamut
-# operator (0 the pass-through fast path, 1 clamp in IPT, 2 perceptual,
-# 3 softclip); a dynamic tone curve always comes with the peak partials
-TONES = (None,) + ops_tone.DYNAMIC_TONE_FUNCTIONS
-GAMUTS = ("pass", "clamp", "perceptual", "softclip")
-# the (tone, gamut) instances built, each with and without dither: the
-# chains color_map_stage can run with detected stats or none
-INSTANCES = tuple([(0, 0), (0, 2), (0, 3)] +
-                  [(t, g) for t in range(1, len(TONES)) for g in (1, 2, 3)])
-# a chain's runtime flags, which travel in bits 16.. of the kernel's
-# matrix-swap word
-FLAG_PASS_MATRIX, FLAG_PASS_CLAMP, FLAG_HUESHIFT = 1, 2, 4
-FLAG_SHIFT = 16
-# (tone, gamut, flags) of the flagship chain: spline + perceptual
-FLAGSHIP = (1, 2, 0)
 
 # name -> length of every constant the chain reads, in packing order
 LAYOUT = (
@@ -102,15 +74,12 @@ LAYOUT = (
     ("dst_max_rgb", 1), ("dst_min_rgb", 1), ("rgb_safe", 1), ("rgb_rcp", 1),
     ("knee", 1), ("knee_jj", 1), ("knee_neg_jj", 1), ("knee_jj_m_2j", 1),
     ("knee_2j", 1), ("knee_2j_rcp", 1), ("rcp_blend", 1), ("strength", 1),
-    ("lin_lo", 1), ("lin_rcp", 1), ("srgb", 5),
     ("dither_scale", 1), ("dither_rcp", 1),
     ("peak_norm", 1), ("black_cutoff", 1),
-    # appended for the chains beyond the flagship's (its offsets stay)
     ("desat", 1), ("one_m_desat", 1), ("hue_coefs", _NFOURIER),
     ("src_peak_c", _NFOURIER), ("dst_peak_c", _NFOURIER),
     ("pass_mat", 9), ("pass_lo", 1), ("pass_hi", 1),
     ("pq_inv_m2", 1), ("pq_inv_m1", 1), ("pq_m1", 1), ("pq_m2", 1),
-    # appended for the generic instance (`plan_generic`)
     ("g_tone", 56), ("g_trc", 16), ("g_enc", 12), ("g_enc_pre", 9),
     ("g_clip", 4), ("dst_peak_i", 2 * HARMONICS + 1), ("g_gam", 4),
     ("g_abs", 9), ("g_dith", 1), ("dst_rgb2lms", 9), ("g_mix", 27),
@@ -123,37 +92,11 @@ for _name, _len in LAYOUT:
 NCONST = _n
 
 # The kernel takes the packed vector by value among its parameters,
-# which may hold 4096 bytes; the rest of its list is 5 pointers and 9
+# which may hold 4096 bytes; the rest of its list is 5 pointers and 4
 # ints (csrc/color_map.cu checks the same with a static_assert).
 PARAM_LIMIT = 4096
-PARAM_BYTES = 4 * NCONST + 5 * 8 + 9 * 4
+PARAM_BYTES = 4 * NCONST + 5 * 8 + 4 * 4
 assert PARAM_BYTES <= PARAM_LIMIT, (PARAM_BYTES, PARAM_LIMIT)
-
-# FP32 operations per pixel of each part of a chain, counted from
-# csrc/color_map.cu (each add, multiply, divide, sqrt, exp, log, min,
-# max, compare, select or floor counts 1, a fused multiply-add 2): the
-# peak partials 61; RGB->ICh 190 (three pow-free PQ curves at 49 each);
-# the tone curve (spline 12, bt2390 41, st2094-40 89 and st2094-10 44,
-# the last two with two exact PQ curves at 16 and 15) and the cubic-hull
-# chroma adjustment 14; the Fourier basis and intensity powers 55; the
-# chroma soft-clip (perceptual 44 with its strength blend, softclip 46
-# with its desaturated target, or 217 with the hue shift: the shift's
-# series 33, its weight 13, cos and sin, the turned basis 48, margin 3,
-# both peak series 68, the chroma target 4 and the soft-clip 42, plus
-# each kept fit row and floor a second time); ICh->RGB 179; the RGB
-# soft-clip 69 (its per-pixel terms from the largest channel 27 and 3,
-# then 13 a channel) or the clamp 9; and the output, 12 a channel
-# (delinearize, sRGB).  The pass-through chain mixes 15 and clamps 6.
-_OPS_PEAK, _OPS_TO_ICH, _OPS_HULL, _OPS_BASIS = 61, 190, 14, 55
-_OPS_TONE = {"spline": 12, "bt2390": 41, "st2094-40": 89, "st2094-10": 44}
-_OPS_CHROMA = {"perceptual": 44, "softclip": 46}
-_OPS_HUE = 217
-_OPS_TO_RGB, _OPS_RGB_CLIP, _OPS_CLAMP, _OPS_OUT = 179, 69, 9, 36
-_OPS_PASS_MIX, _OPS_PASS_CLAMP = 15, 6
-_OPS_ROW0 = 13          # a fit's constant row: 1 multiply + 6 FMAs
-_OPS_ROW = 15           # any other kept row, then times its basis term
-_OPS_FLOOR = 1          # a fit's floor at 1e-5
-_OPS_DITHER = 3 * 4     # per channel an FMA, a floor and a multiply
 
 launches = 0
 _SUB = 64 + 3          # a kernel block's partials record (csrc: kSub)
@@ -173,33 +116,21 @@ def pick_block_rows(h: int, budget_rows: int = 8) -> int:
     return best or budget_rows
 
 
-_MATRICES = ("src_rgb2lms", "lms2ipt", "ipt2lms", "dst_lms2rgb")
-
-
 class RowMasks(NamedTuple):
     """Bit r of `*_kept`: row r of that boundary fit has a nonzero
     coefficient (the kernel skips the others); bit r of `*_swap`: its
-    first two products fuse in the other order (c[0] < 0 < c[1]);
-    bit 3 m + i of `mat_swap`: row i of matrix m of `_MATRICES` (and,
-    m = 4, of the pass-through chain's matrix) fuses its second product
-    first (w0 == 1, or w0 < 0 < w1 != 1) — the rounding of
-    core/fastmath.py::mix."""
+    first two products fuse in the other order (c[0] < 0 < c[1]), the
+    rounding of core/fastmath.py::mix."""
     src_kept: int
     dst_kept: int
     src_swap: int
     dst_swap: int
-    mat_swap: int
 
 
 def _fit_rows(consts, name):
     c = np.asarray(consts, np.float32)
     return c[_OFF[name]:_OFF[name] + _NCOEF].reshape(
         2 * HARMONICS + 1, POLY_DEG + 1)
-
-
-def _matrix(consts, name):
-    c = np.asarray(consts, np.float32)
-    return c[_OFF[name]:_OFF[name] + 9].reshape(3, 3)
 
 
 def _bits(flags) -> int:
@@ -209,56 +140,39 @@ def _bits(flags) -> int:
 def row_masks(consts) -> RowMasks:
     """The kernel's RowMasks of the packed constants (host memory)."""
     src, dst = _fit_rows(consts, "src_coefs"), _fit_rows(consts, "dst_coefs")
-    m = np.concatenate([_matrix(consts, name)
-                        for name in _MATRICES + ("pass_mat",)])
     return RowMasks(_bits((src != 0).any(axis=1)),
                     _bits((dst != 0).any(axis=1)),
                     _bits((src[:, 0] < 0) & (src[:, 1] > 0)),
-                    _bits((dst[:, 0] < 0) & (dst[:, 1] > 0)),
-                    _bits((m[:, 0] == 1) | ((m[:, 0] < 0) & (m[:, 1] > 0)
-                                            & (m[:, 1] != 1))))
+                    _bits((dst[:, 0] < 0) & (dst[:, 1] > 0)))
 
 
 @dataclass(frozen=True)
 class TailPlan:
-    """Host plan of one K1 chain: the packed constants (kept as a
-    read-only copy), the dither LUT (None = no dither), the kernel
-    instance (`tone` index into TONES, `gamut` into GAMUTS), its runtime
-    `flags` (FLAG_*), and the row masks, always derived from those
-    constants; a generic plan also carries the header its instance is
-    compiled with (`generic_header`)."""
+    """Host plan of one K1 tail: the packed constants (kept as a
+    read-only copy), its GenericSpec, the dither bias (the square LUT or
+    the white-noise frame; None = no dither), and what is derived from
+    them: the row masks and the header its instance is compiled with
+    (`generic_header`)."""
     consts: np.ndarray
+    generic: GenericSpec
     lut: Optional[np.ndarray] = None
-    tone: int = 1
-    gamut: int = 2
-    flags: int = 0
-    generic: Optional[GenericSpec] = None
     rows: RowMasks = field(init=False)
-    header: Optional[str] = field(init=False, compare=False)
+    header: str = field(init=False, compare=False)
 
     def __post_init__(self):
-        if self.tone == GENERIC:
-            if self.generic is None or self.gamut != GENERIC:
-                raise ValueError("K1's generic instance needs its "
-                                 "GenericSpec")
-        elif (self.tone, self.gamut) not in INSTANCES:
-            raise ValueError(f"K1 has no instance for tone {self.tone}, "
-                             f"gamut {self.gamut}")
+        if not isinstance(self.generic, GenericSpec):
+            raise ValueError("K1: a plan needs its GenericSpec")
         consts = np.array(self.consts, np.float32)
         consts.setflags(write=False)
         object.__setattr__(self, "consts", consts)
         object.__setattr__(self, "rows", row_masks(consts))
-        object.__setattr__(self, "header", generic_header(generic_key(self))
-                           if self.tone == GENERIC else None)
+        object.__setattr__(self, "header", generic_header(generic_key(self)))
 
     @property
-    def instance(self):
-        """(tone, gamut, flags): what the plain version and the
-        operation count need beside the constants (the generic
-        instance's flags are its GenericMode)."""
-        if self.tone == GENERIC:
-            return (GENERIC, GENERIC, self.generic.mode)
-        return (self.tone, self.gamut, self.flags)
+    def instance(self) -> GenericMode:
+        """What the operation count needs beside the constants: the
+        tail's ids."""
+        return self.generic.mode
 
 
 def _fit_or_zeros(b: GamutBoundary) -> np.ndarray:
@@ -268,8 +182,8 @@ def _fit_or_zeros(b: GamutBoundary) -> np.ndarray:
 
 def pack_constants(b_src: GamutBoundary, b_dst: GamutBoundary,
                    dst_min_pq: float, dst_max_pq: float, gamut_constants,
-                   dst_color, bit_depth: int, black_cutoff: float,
-                   hue_coefs=None, pass_matrix=None, pass_clamp=None,
+                   bit_depth: int, black_cutoff: float, hue_coefs=None,
+                   pass_matrix=None, pass_clamp=None,
                    extra=None) -> np.ndarray:
     """Every static constant of the chain, derived in float64 exactly as
     the reference's stage functions derive them, then rounded once to
@@ -278,8 +192,6 @@ def pack_constants(b_src: GamutBoundary, b_dst: GamutBoundary,
     c = gamut_constants.fixed()
     j = c.softclip_knee
     to_norm = COLOR_SDR_WHITE / 10000.0
-    lo, hi = nominal_luma_norm(dst_color)
-    scaled = hi != 1.0 or lo != 0.0
     scale = float((1 << bit_depth) - 1) if bit_depth else 0.0
     rgb_safe = max(b_dst.max_rgb, 1e-9)
     zeros = np.zeros(_NFOURIER)
@@ -302,9 +214,6 @@ def pack_constants(b_src: GamutBoundary, b_dst: GamutBoundary,
         knee_jj_m_2j=j * j - 2.0 * j, knee_2j=2.0 * j,
         knee_2j_rcp=f32_mul(2.0 * j, rcp(rgb_safe)),
         rcp_blend=rcp(0.02), strength=c.perceptual_strength,
-        lin_lo=lo if scaled else 0.0,
-        lin_rcp=rcp(hi - lo) if scaled else 1.0,
-        srgb=(0.0031308, 12.92, 1.055, 1.0 / 2.4, 0.055),
         dither_scale=scale, dither_rcp=rcp(scale) if scale else 0.0,
         peak_norm=COLOR_SDR_WHITE / 10000.0,
         black_cutoff=black_cutoff / 100.0,
@@ -322,111 +231,25 @@ def pack_constants(b_src: GamutBoundary, b_dst: GamutBoundary,
     out = np.zeros(NCONST, np.float32)
     for name, n in LAYOUT:
         if name not in vals:
-            continue        # a generic constant this chain does not read
+            continue        # a constant this chain does not read
         v = np.asarray(vals[name], np.float64).ravel()
         assert v.size == n, (name, v.size, n)
         out[_OFF[name]:_OFF[name] + n] = v.astype(np.float32)
     return out
 
 
-def _mix_ok(m) -> bool:
-    """The kernel mixes a matrix row as three products (`mix` skips a
-    zero weight, which no pair of real primaries gives)."""
-    return not (np.asarray(m, np.float32) == 0).any()
-
-
-def plan_tail(chain, params, dst_color, target, fused_peak: bool,
-              dither_lut) -> Optional[TailPlan]:
-    """The K1 plan for this tail (`chain`: the renderer's ColorChain),
-    or None when no built instance implements it.  Admitted: the
-    pass-through chain, or the IPT round trip with no tone curve or a
-    dynamic one whose stats are measured in the same pass
-    (allow_delayed: the peak partials), and the gamut operator clip /
-    saturation / none (clamp), perceptual or softclip between two
-    boundaries fitted over one luma range; an sRGB target with an
-    identity encode; an ordered dither or none (`dither_lut`, the square
-    LUT, or None)."""
-    if dst_color.transfer != ColorTransfer.SRGB or params.show_clipping:
-        return None
-    enc, _ = color_repr_decode(target.repr)
-    if not (np.array_equal(enc.mat.m, np.eye(3)) and not enc.c.any()):
-        return None
-    bit_depth = target.bit_depth if dither_lut is not None else 0
-    black_cutoff = params.peak_detect.black_cutoff \
-        if params.peak_detect is not None else 0.0
-    if chain.kind == "pass":
-        flags = 0
-        matrix = chain.matrix
-        if matrix is not None and not np.array_equal(matrix, np.eye(3)):
-            if not _mix_ok(matrix):
-                return None
-            flags |= FLAG_PASS_MATRIX
-        if chain.clamp is not None:
-            flags |= FLAG_PASS_CLAMP
-        from ..gamut import ipt_space
-        from ...core.colorspace import primaries_get
-        b = ipt_space(primaries_get(dst_color.primaries), chain.dst_min_pq,
-                      chain.dst_max_pq)
-        consts = pack_constants(b, b, chain.dst_min_pq, chain.dst_max_pq,
-                                params.gamut_constants, dst_color,
-                                bit_depth, black_cutoff,
-                                pass_matrix=matrix, pass_clamp=chain.clamp)
-        return TailPlan(consts, dither_lut, tone=0, gamut=0, flags=flags)
-    if chain.tone == "static" or (chain.tone == "dynamic" and
-                                  not fused_peak):
-        return None
-    tone = TONES.index(params.tone_mapping_function) \
-        if chain.tone == "dynamic" else 0
-    gamut = {None: 1, "clip": 1, "saturation": 1, "perceptual": 2,
-             "softclip": 3}.get(chain.gamut)
-    if gamut is None or (tone, gamut) not in INSTANCES:
-        return None
-    b_src, b_dst = chain.b_src, chain.b_dst
-    flags, hue = 0, None
-    if gamut >= 2:
-        if b_src.coefs is None or b_dst.coefs is None or \
-                (b_src.min_luma, b_src.max_luma) != \
-                (b_dst.min_luma, b_dst.max_luma):
-            return None
-        for b in (b_src, b_dst):
-            # the kernel sums a kept row as a plain multiply-add chain,
-            # which is `mix` only when no coefficient of it is 0 or 1
-            rows = boundary_rows(b)
-            if not all((r == 0).all() or ((r != 0) & (r != 1)).all()
-                       for r in rows):
-                return None
-        if gamut == 3:
-            hue = hueshift_fourier(b_src, b_dst)
-            if hue is not None:
-                flags |= FLAG_HUESHIFT
-    consts = pack_constants(b_src, b_dst, chain.dst_min_pq,
-                            chain.dst_max_pq, params.gamut_constants,
-                            dst_color, bit_depth, black_cutoff,
-                            hue_coefs=hue)
-    if not all(_mix_ok(_matrix(consts, name)) for name in _MATRICES):
-        return None
-    return TailPlan(consts, dither_lut, tone=tone, gamut=gamut, flags=flags)
-
-
 # ---------------------------------------------------------------------------
-# The generic instance: every other tail the reference's kernel runs
+# The tail's ids
 # ---------------------------------------------------------------------------
 #
-# One more kernel (csrc/color_map.cu, built with -DK1_TONE=-1) runs the
-# chain's parts by ids: the static tone curve or a dynamic one (its stats
-# measured in the same pass or the frame before), every gamut operator,
-# every target transfer, the encode (a matrix, or the non-linear
-# systems), show_clipping, and an ordered, white-noise or low-depth gamma
-# dither.  The ids, the mix codes of the chain's matrix rows, the fit-row
-# masks and a few switches of the plan form its GenericKey; each key is
+# The ids, the mix codes of the chain's matrix rows, the fit-row masks
+# and a few switches of the plan form its GenericKey; each key is
 # compiled into a library of its own from a generated header
 # (`generic_header`), so none of them is a runtime value in the kernel.
-# Its plain version is the port's own stages (`GenericSpec.plain`, built
-# by the renderer); the kernel repeats their arithmetic as PyTorch runs
-# it on the card.
 
-GENERIC = -1
-# ids shared with csrc/color_map.cu (passed as -DK1G_* macros)
+# ids shared with csrc/color_map.cu (passed as -DK1G_* macros; the
+# dynamic curves' as the header's kG_curve, csrc: kToneLen)
+G_DYNAMIC = (None,) + ops_tone.DYNAMIC_TONE_FUNCTIONS
 G_GAMUTS = ("clamp", "perceptual", "softclip", "relative", "desaturate",
             "linear", "darken", "absolute", "highlight")
 G_STATIC = ("clip", "st2094-40", "st2094-10", "bt2390", "bt2446a",
@@ -440,28 +263,28 @@ G_DITHER = ("none", "lut", "table")
 
 
 class GenericMode(NamedTuple):
-    """The generic instance's part ids (csrc: the header's kG_*)."""
+    """The tail's part ids (csrc: the header's kG_*)."""
     kind: int = 1          # 0 the pass-through chain, 1 the IPT round trip
     gamut: int = 0         # G_GAMUTS
-    tone_kind: int = 0     # 0 none, 1 dynamic (TONES), 2 static (G_STATIC)
+    tone_kind: int = 0     # 0 none, 1 dynamic (G_DYNAMIC), 2 static
     curve: int = 0
     scaling: int = 1       # the static curve's native scaling (G_SCALINGS)
-    flags: int = 0         # FLAG_* (pass matrix / clamp, hue shift) and
-    #                        GFLAG_* below
+    flags: int = 0         # FLAG_* and GFLAG_* below
     trc: int = 0           # G_TRCS
     encode: int = 0        # G_ENCODES
     dither: int = 0        # G_DITHER
 
 
-# generic flags, beside FLAG_PASS_MATRIX / FLAG_PASS_CLAMP / FLAG_HUESHIFT
+# a tail's flags (csrc: kFlag*, K1G_FLAG_*)
+FLAG_PASS_MATRIX, FLAG_PASS_CLAMP, FLAG_HUESHIFT = 1, 2, 4
 GFLAG_SHOW_CLIP, GFLAG_PEAK, GFLAG_DITHER_GAMMA = 8, 16, 32
 
 
 @dataclass(frozen=True)
 class GenericSpec:
-    """The generic instance's plan beyond its constants: the ids, the
-    dynamic curve's name (the tone vector's), and the plain version
-    plain(img, tone, bias) -> (out, partials or None)."""
+    """A tail's plan beyond its constants: the ids, the dynamic curve's
+    name (the tone vector's), and the plain version
+    plain(img, tone, bias) -> out."""
     mode: GenericMode
     dynamic: Optional[str] = None
     plain: Optional[object] = field(default=None, compare=False)
@@ -653,7 +476,7 @@ def _g_static_tone(tp):
 def plan_generic(chain, params, src_color, dst_color, target,
                  fused_peak: bool, dither, plain, static_tone=None,
                  show_bounds=None) -> Optional[TailPlan]:
-    """The generic instance's plan for a tail no templated instance runs:
+    """K1's plan for this tail (`chain`: the renderer's ColorChain):
     `dither` is None or (DitherParams, bias, low-depth gamma path) with
     the bias a square LUT (ordered) or the (H, W) frame (white noise);
     `static_tone` the static curve's ToneMapParams; `show_bounds` the
@@ -662,8 +485,9 @@ def plan_generic(chain, params, src_color, dst_color, target,
     where a boundary fit has a row the kernel cannot sum like `mix` (a
     coefficient of exactly 0 or 1 in a kept row), or the luma ranges of
     the two fits differ."""
-    from ...core.colorspace import adapt_white_matrix
+    from ...core.colorspace import adapt_white_matrix, primaries_get
     from ..dithering import _APPROX_GAMMA
+    from ..gamut import ipt_space
     bit_depth = target.bit_depth if dither is not None else 0
     black_cutoff = params.peak_detect.black_cutoff \
         if params.peak_detect is not None else 0.0
@@ -680,14 +504,13 @@ def plan_generic(chain, params, src_color, dst_color, target,
             dgamma = _APPROX_GAMMA.get(dp.transfer, 1.0)
     extra = dict(g_trc=trc_c, g_enc=enc_m, g_enc_pre=enc_pre,
                  g_dith=dgamma)
-    from ...core.colorspace import primaries_get
+    bias = dither[1] if dither else None
     if chain.kind == "pass":
         matrix = chain.matrix
         if matrix is not None and not np.array_equal(matrix, np.eye(3)):
             flags |= FLAG_PASS_MATRIX
         if chain.clamp is not None:
             flags |= FLAG_PASS_CLAMP
-        from ..gamut import ipt_space
         b = ipt_space(primaries_get(dst_color.primaries), chain.dst_min_pq,
                       chain.dst_max_pq)
         extra["g_mix"] = _mix_codes(
@@ -695,13 +518,12 @@ def plan_generic(chain, params, src_color, dst_color, target,
             [0] * 15 + _mix_codes((enc_m[:9], enc_m[9:]), (enc_pre, None),
                                   (np.eye(3), None))
         consts = pack_constants(b, b, chain.dst_min_pq, chain.dst_max_pq,
-                                params.gamut_constants, dst_color,
-                                bit_depth, black_cutoff, pass_matrix=matrix,
+                                params.gamut_constants, bit_depth,
+                                black_cutoff, pass_matrix=matrix,
                                 pass_clamp=chain.clamp, extra=extra)
         mode = GenericMode(kind=0, flags=flags, trc=trc, encode=enc,
                            dither=dmode)
-        return TailPlan(consts, dither[1] if dither else None, tone=GENERIC,
-                        gamut=GENERIC, generic=GenericSpec(mode, None, plain))
+        return TailPlan(consts, GenericSpec(mode, None, plain), bias)
     b_src, b_dst = chain.b_src, chain.b_dst
     gamut = G_GAMUTS.index(chain.gamut if chain.gamut not in
                            (None, "clip", "saturation") else "clamp")
@@ -713,6 +535,8 @@ def plan_generic(chain, params, src_color, dst_color, target,
         for bb in (b_src, b_dst):
             if bb.coefs is None:
                 continue
+            # the kernel sums a kept row as a plain multiply-add chain,
+            # which is `mix` only when no coefficient of it is 0 or 1
             rows = boundary_rows(bb)
             if not all((r == 0).all() or ((r != 0) & (r != 1)).all()
                        for r in rows):
@@ -726,7 +550,7 @@ def plan_generic(chain, params, src_color, dst_color, target,
     dynamic = None
     if chain.tone == "dynamic":
         tone_kind, dynamic = 1, params.tone_mapping_function
-        curve = TONES.index(dynamic)
+        curve = G_DYNAMIC.index(dynamic)
         if fused_peak:
             flags |= GFLAG_PEAK
     elif chain.tone == "static":
@@ -757,19 +581,18 @@ def plan_generic(chain, params, src_color, dst_color, target,
         (IPT2LMS, None), (b_dst.lms2rgb, None), (b_dst.rgb2lms, None),
         (enc_m[:9], enc_m[9:]), (enc_pre, None), (extra["g_abs"], None))
     consts = pack_constants(b_src, b_dst, chain.dst_min_pq, chain.dst_max_pq,
-                            params.gamut_constants, dst_color, bit_depth,
-                            black_cutoff, hue_coefs=hue, extra=extra)
+                            params.gamut_constants, bit_depth, black_cutoff,
+                            hue_coefs=hue, extra=extra)
     mode = GenericMode(kind=1, gamut=gamut, tone_kind=tone_kind, curve=curve,
                        scaling=scaling, flags=flags, trc=trc, encode=enc,
                        dither=dmode)
-    return TailPlan(consts, dither[1] if dither else None, tone=GENERIC,
-                    gamut=GENERIC, generic=GenericSpec(mode, dynamic, plain))
+    return TailPlan(consts, GenericSpec(mode, dynamic, plain), bias)
 
 
 # the exponents torch.pow special-cases on the card (csrc: tpow_case), in
 # the order it tests them; any other takes powf
 _POW_CASES = (0.0, 1.0, 0.5, -1.0, 2.0, 3.0)
-# the plan's switches the generic instance is compiled with, beside its
+# the plan's switches a tail's instance is compiled with, beside its
 # ids, mix codes and fit-row masks (csrc: the header's kG_<name>)
 G_SWITCHES = ("bezier", "st40_linear", "bt2390_knee", "tone_pow",
               "trc_scaled", "dither_steps", "dither_pow")
@@ -783,7 +606,7 @@ def _pow_case(e) -> int:
 
 
 class GenericKey(NamedTuple):
-    """Everything the generic instance of one tail is compiled with: the
+    """Everything the instance of one tail is compiled with: the
     ids, the 27 matrix rows' mix codes (g_mix), the fit-row masks the
     gamut operator reads (`_G_ROWS`; 0 where it reads none) and the
     switches (`G_SWITCHES`; 0 where the chain has no such part)."""
@@ -825,13 +648,13 @@ def generic_key(plan: TailPlan) -> GenericKey:
 
 
 def generic_header(key: GenericKey) -> str:
-    """The C++ header `k1_generic.h` that compiles the generic instance
-    for one tail (csrc/color_map.cu includes it under K1_TONE = -1): each
-    id, fit-row mask and switch as `constexpr int kG_<name> = <value>;`
-    and the mix codes as the table of `gmix`.  A function of the key
-    alone, so equal tails share a library."""
+    """The C++ header `k1_generic.h` that compiles K1's instance for
+    one tail (csrc/color_map.cu includes it): each id, fit-row mask and
+    switch as `constexpr int kG_<name> = <value>;` and the mix codes as
+    the table of `gmix`.  A function of the key alone, so equal tails
+    share a library."""
     lines = ["// Generated by ops/cuda/color_map.py::generic_header: one",
-             "// tail of K1's generic instance, every launch-uniform choice",
+             "// tail of K1's instance, every launch-uniform choice",
              "// a constant.",
              "// ids (GenericMode)"]
     lines += [f"constexpr int kG_{n} = {v};"
@@ -850,12 +673,37 @@ def generic_header(key: GenericKey) -> str:
     return "\n".join(lines)
 
 
-# FP32 operations a pixel of the generic instance's parts, counted from
-# csrc/color_map.cu as above (a pow, exp, log or log1p counts 1): each
-# static curve (st2094-40 adds 6 a Bernstein term), its conversions into
-# and out of its scaling (an exact PQ curve 15), each gamut operator
-# beyond the RGB -> ICh -> RGB round trip, each target transfer's
-# delinearize (three channels), each encode, and the low-depth dither
+# FP32 operations a pixel of each part of a tail, counted from
+# csrc/color_map.cu (each add, multiply, divide, sqrt, exp, log, pow,
+# log1p, min, max, compare, select or floor counts 1, a fused
+# multiply-add 2): the peak partials 61; RGB->ICh 190 (the three
+# multiplies into 10000-nit scale, two matrices, three pow-free PQ
+# curves at 49 each); the dynamic tone curve (spline 12, bt2390 41,
+# st2094-40 89 and st2094-10 44, the last two with two exact PQ curves
+# at 16 and 15) or a static one (st2094-40 adds 6 a Bernstein term, and
+# each its conversions into and out of its scaling, an exact PQ curve
+# 15), then the cubic-hull chroma adjustment 14; the Fourier basis and
+# intensity powers 55; the chroma soft-clip (perceptual 44 with its
+# strength blend, softclip 46 with its desaturated target, or 217 with
+# the hue shift: the shift's series 33, its weight 13, cos and sin, the
+# turned basis 48, margin 3, both peak series 68, the chroma target 4
+# and the soft-clip 42, plus each kept fit row and floor a second time);
+# ICh->RGB 179; the RGB soft-clip 69 (its per-pixel terms from the
+# largest channel 27 and 3, then 13 a channel) or the clamp 9, each other
+# gamut operator beyond the round trip; each target transfer's
+# delinearize (three channels; sRGB with its black scaling 36), each
+# encode, show_clipping, and the dither.  The pass-through chain mixes
+# 15 and clamps 6.
+_OPS_PEAK, _OPS_TO_ICH, _OPS_HULL, _OPS_BASIS = 61, 190, 14, 55
+_OPS_TONE = {"spline": 12, "bt2390": 41, "st2094-40": 89, "st2094-10": 44}
+_OPS_CHROMA = {"perceptual": 44, "softclip": 46}
+_OPS_HUE = 217
+_OPS_TO_RGB, _OPS_RGB_CLIP, _OPS_CLAMP = 179, 69, 9
+_OPS_PASS_MIX, _OPS_PASS_CLAMP = 15, 6
+_OPS_ROW0 = 13          # a fit's constant row: 1 multiply + 6 FMAs
+_OPS_ROW = 15           # any other kept row, then times its basis term
+_OPS_FLOOR = 1          # a fit's floor at 1e-5
+_OPS_DITHER = 3 * 4     # per channel an FMA, a floor and a multiply
 _G_OPS_STATIC = {"clip": 0, "st2094-40": 26, "st2094-10": 5, "bt2390": 42,
                  "bt2446a": 25, "bt2446a_inv": 22, "spline": 12,
                  "reinhard": 7, "mobius": 10, "hable": 27, "gamma": 9,
@@ -872,20 +720,29 @@ _G_OPS_ENC = {"none": 0, "matrix": 18, "ictcp_pq": 144, "ictcp_hlg": 66,
 _G_OPS_SHOW_CLIP, _G_OPS_DITHER_GAMMA = 53, 3 * 14
 
 
-def _generic_ops(consts, mode: GenericMode) -> int:
-    """FP32 operations a pixel of the generic instance's chain (an
-    estimate from the source's parts, as ops_per_pixel's)."""
+def _fit_ops(kept: int, fits: int) -> int:
+    """The kept rows of one boundary fit, evaluated `fits` times."""
+    return fits * (_OPS_ROW0 * (kept & 1) + _OPS_FLOOR +
+                   _OPS_ROW * bin(kept >> 1).count("1"))
+
+
+def ops_per_pixel(consts, mode: GenericMode) -> int:
+    """FP32 operations the kernel runs a pixel for a tail's packed
+    constants and ids (TailPlan.instance): the parts of its chain, every
+    boundary-fit row that `boundary_rows` kept (the kernel skips an
+    all-zero, pruned row; softclip's hue shift evaluates both fits
+    twice), and the dither where the tail dithers."""
     c = np.asarray(consts)
     ops = _G_OPS_TRC[G_TRCS[mode.trc]] + _G_OPS_ENC[G_ENCODES[mode.encode]]
     if mode.kind == 0:
         ops += _OPS_PASS_MIX * bool(mode.flags & FLAG_PASS_MATRIX) + \
             _OPS_PASS_CLAMP * bool(mode.flags & FLAG_PASS_CLAMP)
     else:
-        ops += 3 + _OPS_TO_ICH + _OPS_TO_RGB
+        ops += _OPS_TO_ICH + _OPS_TO_RGB
         if mode.flags & GFLAG_PEAK:
             ops += _OPS_PEAK
         if mode.tone_kind == 1:
-            ops += _OPS_TONE[TONES[mode.curve]] + _OPS_HULL
+            ops += _OPS_TONE[G_DYNAMIC[mode.curve]] + _OPS_HULL
         elif mode.tone_kind == 2:
             name = G_STATIC[mode.curve]
             ops += _OPS_HULL + _G_OPS_STATIC[name] + \
@@ -893,19 +750,17 @@ def _generic_ops(consts, mode: GenericMode) -> int:
             if name == "st2094-40":
                 ops += 6 * (int(c[_OFF["g_tone"] + 16]) + 1)
         gamut = G_GAMUTS[mode.gamut]
+        rows = row_masks(c)
         if gamut in ("perceptual", "softclip"):
             fits = 2 if mode.flags & FLAG_HUESHIFT else 1
             ops += _OPS_BASIS + _OPS_RGB_CLIP
             ops += _OPS_HUE if fits == 2 else _OPS_CHROMA[gamut]
-            for kept in row_masks(c)[:2]:
-                ops += fits * (_OPS_ROW0 * (kept & 1) + _OPS_FLOOR +
-                               _OPS_ROW * bin(kept >> 1).count("1"))
+            ops += _fit_ops(rows.src_kept, fits) + \
+                _fit_ops(rows.dst_kept, fits)
         else:
             ops += _OPS_CLAMP + _G_OPS_GAMUT.get(gamut, 0)
             if gamut in ("relative", "desaturate", "absolute"):
-                kept = row_masks(c).dst_kept
-                ops += _OPS_ROW0 * (kept & 1) + _OPS_FLOOR + \
-                    _OPS_ROW * bin(kept >> 1).count("1")
+                ops += _fit_ops(rows.dst_kept, 1)
         if mode.flags & GFLAG_SHOW_CLIP:
             ops += _G_OPS_SHOW_CLIP
     if mode.dither:
@@ -914,308 +769,30 @@ def _generic_ops(consts, mode: GenericMode) -> int:
     return ops
 
 
-def ops_per_pixel(consts, instance=FLAGSHIP) -> int:
-    """FP32 operations the kernel runs per pixel for these packed
-    constants and instance (TailPlan.instance): the parts of its chain,
-    every boundary-fit row that `boundary_rows` kept (the kernel skips
-    an all-zero, pruned row; softclip's hue shift evaluates both fits
-    twice), and the dither where the plan dithers (a nonzero dither
-    scale)."""
-    c = np.asarray(consts)
-    tone, gamut, flags = instance
-    if tone == GENERIC:
-        return _generic_ops(c, flags)
-    ops = _OPS_OUT
-    if gamut == 0:
-        ops += _OPS_PASS_MIX * bool(flags & FLAG_PASS_MATRIX) + \
-            _OPS_PASS_CLAMP * bool(flags & FLAG_PASS_CLAMP)
-    else:
-        ops += _OPS_TO_ICH + _OPS_TO_RGB
-        if tone:
-            ops += _OPS_PEAK + _OPS_HULL + _OPS_TONE[TONES[tone]]
-        if gamut == 1:
-            ops += _OPS_CLAMP
-        else:
-            fits = 2 if flags & FLAG_HUESHIFT else 1
-            ops += _OPS_BASIS + _OPS_RGB_CLIP
-            ops += _OPS_HUE if fits == 2 else _OPS_CHROMA[GAMUTS[gamut]]
-            for kept in row_masks(c)[:2]:
-                ops += fits * (_OPS_ROW0 * (kept & 1) + _OPS_FLOOR +
-                               _OPS_ROW * bin(kept >> 1).count("1"))
-    if c[_OFF["dither_scale"]] != 0:
-        ops += _OPS_DITHER
-    return ops
-
-
 # ---------------------------------------------------------------------------
-# The plain version: the kernel's arithmetic in PyTorch
+# The plain version: the port's stages, and the peak partials
 # ---------------------------------------------------------------------------
 
-def _unpack(consts) -> Dict[str, object]:
-    vals = np.asarray(consts, np.float32).tolist()
-    return {name: (vals[_OFF[name]] if n == 1 else
-                   vals[_OFF[name]:_OFF[name] + n]) for name, n in LAYOUT}
-
-
-def _poly(c, x):
-    out = torch.full_like(x, c[0])
-    for ci in c[1:]:
-        out = fma(x, out, ci)
-    return out
-
-
-def _pq_oetf(k, y):
-    y = torch.clamp(y, 1e-7, 1.0)
-    u = sqrt(sqrt(sqrt(y)))
-    p = u * _poly(k["oetf_p"], u)
-    v = fma(p, k["pq_c2"], k["pq_c1"]) / fma(p, k["pq_c3"], 1.0)
-    v2 = v * v
-    v4 = v2 * v2
-    v8 = v4 * v4
-    v16 = v8 * v8
-    v32 = v16 * v16
-    v64 = v32 * v32
-    return v64 * v8 * v4 * v2 * _poly(k["oetf_t"], v)
-
-
-def _pq_eotf(k, x):
-    u = torch.clamp(x, 1e-8, 1.0)
-    for _ in range(6):
-        u = sqrt(u)
-    uq = u * _poly(k["eotf_p"][:-1], u)
-    p = uq + k["eotf_p"][-1]
-    r = torch.clamp_min(uq + k["eotf_p_m_c1"], 0.0) / \
-        fma(p, -k["pq_c3"], k["pq_c2"])
-    s = sqrt(sqrt(sqrt(torch.clamp_min(r, 0.0))))
-    r2 = r * r
-    return r2 * r2 * r2 * _poly(k["eotf_t"], s)
-
-
-def _mat3(m, xs):
-    """3x3 channel mix, zero weights skipped, rounded like mat_pointwise."""
-    out = []
-    for i in range(3):
-        row = [(x, w) for x, w in zip(xs, m[3 * i:3 * i + 3]) if w != 0.0]
-        out.append(mix([x for x, _ in row], [w for _, w in row])
-                   if row else torch.zeros_like(xs[0]))
-    return out
-
-
-def _softclip(k, value, source, target=None):
-    """Soft-clip against a tensor `target`, or (None) against the
-    constant dst_max_rgb, whose divisions are products with its
-    reciprocal (ops/gamut.py::_softclip_dev)."""
-    if target is not None:
-        safe_t = torch.clamp_min(target, 1e-9)
-        peak = source / safe_t
-        x = torch.minimum(value / safe_t, peak)
-        bb_num = fma(peak, -k["knee_2j"], k["knee_jj"]) + peak
-    else:
-        safe_t = k["rgb_safe"]
-        peak = source * k["rgb_rcp"]
-        x = torch.minimum(value * k["rgb_rcp"], peak)
-        bb_num = fma(source, -k["knee_2j_rcp"], k["knee_jj"]) + peak
-    denom_a = k["knee_jj_m_2j"] + peak
-    denom_a = torch.where(torch.abs(denom_a) < 1e-9,
-                          torch.full_like(denom_a, 1e-9), denom_a)
-    a = k["knee_neg_jj"] * (peak - 1.0) / denom_a
-    bb = bb_num / torch.clamp_min(peak - 1.0, 1e-2)
-    scale = (fma(bb, bb, 2.0 * bb * k["knee"]) + k["knee_jj"]) / (bb - a)
-    denom = x + bb
-    tiny = torch.where(denom < 0, torch.full_like(denom, -1e-6),
-                       torch.full_like(denom, 1e-6))
-    denom = torch.where(torch.abs(denom) < 1e-6, tiny, denom)
-    mapped_m_value = fma(scale * (x + a) / denom, safe_t, -value)
-    t = torch.clamp((peak - 1.0) * k["rcp_blend"], 0.0, 1.0)
-    w = t * t * fma(t, -2.0, 3.0)
-    return torch.where(x <= k["knee"], value, fma(mapped_m_value, w, value))
-
-
-def _boundary(coefs, cs, sn, pw):
-    """C_max(I, h); an all-zero (pruned) row is skipped."""
-    n = POLY_DEG + 1
-    out = None
-    for r in range(2 * HARMONICS + 1):
-        c = coefs[r * n:(r + 1) * n]
-        ds = [d for d in range(n) if c[d] != 0.0]
-        if r == 0:
-            out = mix([pw[d] for d in ds], [c[d] for d in ds]) if ds \
-                else torch.zeros_like(pw[0])
-        elif ds:
-            basis = cs[(r - 1) // 2] if r % 2 else sn[r // 2 - 1]
-            out = fma(mix([pw[d] for d in ds], [c[d] for d in ds]), basis,
-                      out)
-    return torch.clamp_min(out, 1e-5)
-
-
-def _fourier(coefs, cs, sn):
-    """A Fourier series on the basis: the constant, then one fused
-    multiply-add a term (ops/gamut.py::_fourier_eval)."""
-    out = torch.full_like(cs[0], coefs[0])
-    for k in range(1, HARMONICS + 1):
-        out = fma(cs[k - 1], coefs[2 * k - 1], out)
-        out = fma(sn[k - 1], coefs[2 * k], out)
-    return out
-
-
-def _basis(cos_h, sin_h):
-    cs, sn = [cos_h], [sin_h]
-    for _ in range(1, HARMONICS):
-        cs.append(fma(cs[-1], cos_h, -(sn[-1] * sin_h)))
-        sn.append(fma(sn[-1], cos_h, cs[-2] * sin_h))
-    return cs, sn
-
-
-def _softclip_chroma(k, C, cos_h, sin_h, pw, flags):
-    """softclip's chroma map (ops/gamut.py): toward the desaturated dst
-    boundary, or with the hue shift toward the turned hue's peaks.
-    Returns (C_new, cos h', sin h')."""
-    cs, sn = _basis(cos_h, sin_h)
-    c_src = _boundary(k["src_coefs"], cs, sn, pw)
-    c_dst = _boundary(k["dst_coefs"], cs, sn, pw)
-    if not flags & FLAG_HUESHIFT:
-        target = fma(c_dst, k["one_m_desat"],
-                     torch.minimum(c_dst, C) * k["desat"])
-        return (_softclip(k, C, torch.maximum(c_src, c_dst), target),
-                cos_h, sin_h)
-    delta = _fourier(k["hue_coefs"], cs, sn)
-    t = torch.clamp(fma(c_dst, -k["knee"], C) / torch.clamp_min(
-        fma(c_dst, -k["knee"], c_src), 1e-9), 0.0, 1.0)
-    delta = delta * (t * t * fma(t, -2.0, 3.0))
-    cosd, sind = torch.cos(delta), torch.sin(delta)
-    ch2 = fma(cos_h, cosd, -(sin_h * sind))
-    sh2 = fma(sin_h, cosd, cos_h * sind)
-    cs, sn = _basis(ch2, sh2)
-    c_src2 = _boundary(k["src_coefs"], cs, sn, pw)
-    margin = torch.clamp_min(c_src / torch.clamp_min(c_src2, 1e-9), 1.0)
-    c_dst2 = _boundary(k["dst_coefs"], cs, sn, pw)
-    source_c = torch.clamp_min(_fourier(k["src_peak_c"], cs, sn), 1e-5)
-    target_c = torch.clamp_min(_fourier(k["dst_peak_c"], cs, sn), 1e-5)
-    border_c = torch.minimum(c_dst2, target_c)
-    chroma = fma(border_c - target_c, k["desat"], target_c)
-    return (_softclip(k, C, torch.maximum(margin * source_c, chroma),
-                      chroma), ch2, sh2)
-
-
-def _partials(k, img):
-    """The per-stripe peak partials of the linear input."""
-    r, g, b = img[0], img[1], img[2]
-    maxrgb = torch.clamp_min(torch.maximum(torch.maximum(r, g), b), 0.0)
-    pq = torch.clamp(_pq_oetf(k, maxrgb * k["peak_norm"]), 0.0, 1.0)
+def _partials(consts, img):
+    """The per-stripe peak partials of the linear input, as the kernel
+    measures them (ops/peak_detect.py::_pixel_pq, with the plan's
+    constants)."""
+    maxrgb = torch.clamp_min(torch.amax(img, dim=-3), 0.0)
+    pq = torch.clamp(tf.pq_oetf_fast(maxrgb * float(consts[
+        _OFF["peak_norm"]])), 0.0, 1.0)
     pq14 = torch.round(pq * 16383.0).to(torch.int32)
-    active = pq > k["black_cutoff"]
+    active = pq > float(consts[_OFF["black_cutoff"]])
     bins = torch.clamp((pq14 >> 7) - 64, 0, 63)
     return stripe_partials(pq, active, bins, pick_block_rows(img.shape[-2]))
 
 
 def tail_plain(img, plan, tone, lut=None):
-    """K1's plain version for any plan: (out, partials or None)."""
-    if plan.tone == GENERIC:
-        out = plan.generic.plain(img, tone, lut)
-        partials = _partials(_unpack(plan.consts), img) \
-            if plan.generic.mode.flags & GFLAG_PEAK else None
-        return out, partials
-    return color_map_plain(img, plan.consts, tone, lut, plan.instance)
-
-
-def color_map_plain(img, consts, tone, lut=None, instance=FLAGSHIP):
-    """The kernel's function in plain PyTorch, on any device: (3, H, W)
-    linear light in -> ((3, H, W) dithered signal, (G, 8, 128) peak
-    partials, or None for a chain without a tone curve).  `tone` is the
-    per-frame tone vector (None without a tone curve), `instance` the
-    plan's (tone, gamut, flags)."""
-    k = _unpack(consts)
-    tone_i, gamut, flags = instance
-    H, W = img.shape[-2], img.shape[-1]
-    r, g, b = img[0], img[1], img[2]
-    partials = None
-
-    if gamut == 0:
-        # the pass-through fast path: a primaries matrix, a clamp
-        rgb = [r, g, b]
-        if flags & FLAG_PASS_MATRIX:
-            rgb = _mat3(k["pass_mat"], rgb)
-        if flags & FLAG_PASS_CLAMP:
-            rgb = [torch.clamp(v, k["pass_lo"], k["pass_hi"]) for v in rgb]
-        lin = rgb
-    else:
-        if tone_i:
-            partials = _partials(k, img)
-
-        lms = _mat3(k["src_rgb2lms"], [r * k["to_norm"], g * k["to_norm"],
-                                       b * k["to_norm"]])
-        lms = [_pq_oetf(k, torch.clamp_min(v, 0.0)) for v in lms]
-        I, P, T = _mat3(k["lms2ipt"], lms)
-        C = sqrt(fma(P, P, T * T) + 1e-18)
-        cos_h, sin_h = P / C, T / C
-
-        if tone_i:
-            i_orig = I
-            if TONES[tone_i] == "spline":
-                src_max, src_pivot, dst_pivot, Pa, Pb, Qa, Qb, Qc = \
-                    tone[:8].tolist()
-                xs = torch.clamp(torch.clamp_min(I, 0.0), max=src_max) - \
-                    src_pivot
-                yv = torch.where(
-                    xs > 0, fma(fma(fma(xs, Qa, Qb), xs, Qc), xs, dst_pivot),
-                    fma(fma(xs, Pa, Pb), xs, dst_pivot))
-                I = torch.clamp(yv, k["dst_min_pq"], k["dst_max_pq"])
-            else:
-                # the scalars as 0-dim tensors: PyTorch's CUDA divide by a
-                # host float multiplies by its reciprocal instead
-                name = TONES[tone_i]
-                I = ops_tone.tone_apply(
-                    name, I, list(tone[:len(ops_tone.TONE_KEYS[name])]),
-                    k["dst_min_pq"], k["dst_max_pq"])
-            hull_new = fma(I - 6.0, I, 9.0) * I
-            hull_old = fma(i_orig - 6.0, i_orig, 9.0) * i_orig
-            C = C * torch.minimum(i_orig / torch.clamp_min(I, 1e-6),
-                                  hull_new / torch.clamp_min(hull_old, 1e-6))
-
-        if gamut >= 2:
-            i_rel = torch.clamp((I - k["luma_min"]) * k["luma_rcp"], 0.0,
-                                1.0)
-            pw = [sqrt(i_rel) * (1.0 - i_rel)]
-            for _ in range(POLY_DEG):
-                pw.append(pw[-1] * i_rel)
-        if gamut == 2:
-            cs, sn = _basis(cos_h, sin_h)
-            c_src = _boundary(k["src_coefs"], cs, sn, pw)
-            c_dst = _boundary(k["dst_coefs"], cs, sn, pw)
-            c_new = _softclip(k, C, torch.maximum(c_src, c_dst), c_dst)
-            c_new = fma(c_new - C, k["strength"], C)
-        elif gamut == 3:
-            c_new, cos_h, sin_h = _softclip_chroma(k, C, cos_h, sin_h, pw,
-                                                   flags)
-        else:
-            c_new = C
-
-        lmsp = _mat3(k["ipt2lms"], [I, c_new * cos_h, c_new * sin_h])
-        rgb = _mat3(k["dst_lms2rgb"], [_pq_eotf(k, v) for v in lmsp])
-        if gamut == 1:
-            lin = [torch.clamp(v, k["dst_min_rgb"], k["dst_max_rgb"]) *
-                   k["rcp_to_norm"] for v in rgb]
-        else:
-            src_c = torch.clamp_min(torch.maximum(
-                torch.maximum(rgb[0], rgb[1]), rgb[2]), k["dst_max_rgb"])
-            lin = [torch.clamp_min(_softclip(k, v, src_c),
-                                   k["dst_min_rgb"]) * k["rcp_to_norm"]
-                   for v in rgb]
-    sg = k["srgb"]
-    outs = []
-    for v in lin:
-        v = torch.clamp_min((v - k["lin_lo"]) * k["lin_rcp"], 0.0)
-        v = torch.where(v < sg[0], v * sg[1],
-                        fma(tf.pow_pos(torch.clamp_min(v, sg[0]), sg[3]),
-                            sg[2], -sg[4]))
-        outs.append(v)
-    out = torch.stack(outs)
-    if lut is not None:
-        n = lut.shape[0]
-        reps = (-(-H // n), -(-W // n))
-        bias = lut.to(img.device).tile(reps)[:H, :W]
-        out = torch.floor(fma(out, k["dither_scale"], bias)) * \
-            k["dither_rcp"]
+    """K1's plain version, on any device: (3, H, W) linear light in ->
+    ((3, H, W) signal, (H / block_rows, 8, 128) peak partials, or None
+    where the tail measures no peak)."""
+    out = plan.generic.plain(img, tone, lut)
+    partials = _partials(plan.consts, img) \
+        if plan.generic.mode.flags & GFLAG_PEAK else None
     return out, partials
 
 
@@ -1227,7 +804,7 @@ def kernel_flags():
     """nvcc flags of K1: sm_90a, no fast-math, no FMA contraction beyond
     the source's explicit fmaf(), ptxas's register and spill report (kept
     beside the library, see _build.build_log), and the constant layout
-    as macros."""
+    and part ids as macros."""
     return ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
              f"-DK1_NCONST={NCONST}",
@@ -1246,70 +823,32 @@ def kernel_flags():
             ("DITHER_GAMMA", GFLAG_DITHER_GAMMA))]
 
 
-def instance_name(tone: int, gamut: int, dither: bool) -> str:
-    """The kernel instance's mangled-name stem (as cuobjdump prints
-    it)."""
-    return f"k1_color_mapILi{tone}ELi{gamut}ELb{int(dither)}EE"
-
-
-def build_specs(generic=()):
-    """The kernel libraries' build specs (_build.build_all): one library
-    a tone curve, holding that curve's (gamut, dither) instances, and one
-    for each generic tail of `generic` (TailPlans), so the compilers run
-    side by side."""
-    from ..._build import nvcc_path
-    generic = list(generic)
-    if any(p.tone != GENERIC for p in generic):
-        raise ValueError("K1: build_specs(generic=...) takes generic plans")
-    specs = [(f"k1_color_map_t{t}", ["csrc/color_map.cu"], nvcc_path(),
-              kernel_flags() + [f"-DK1_TONE={t}"]) for t in TONE_LIBS]
-    return specs + [generic_spec(h) for h in
-                    dict.fromkeys(p.header for p in generic)]
-
-
-# the tone curves of the templated libraries
-TONE_LIBS = tuple(sorted({t for t, _ in INSTANCES}))
 _GENERIC_H = "k1_generic.h"
 
 
 def generic_spec(header: str):
-    """The build spec of the generic instance compiled with `header`
+    """The build spec of the instance compiled with `header`
     (TailPlan.header): the header written as build/gen-<hash>/
     k1_generic.h, the library named by the same hash."""
     from ..._build import generated_include, include_digest, nvcc_path
     inc = generated_include(_GENERIC_H, header)
     return (f"k1_color_map_g{include_digest(_GENERIC_H, header)}",
             ["csrc/color_map.cu"], nvcc_path(),
-            kernel_flags() + ["-DK1_TONE=-1", "-I", inc])
+            kernel_flags() + ["-I", inc])
 
 
-def _typed(lib):
-    lib.k1_sqrt_check_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.k1_sqrt_check_launch.restype = ctypes.c_int
-    lib.k1_error_string.argtypes = [ctypes.c_int]
-    lib.k1_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_lib(tone: int = 1):
-    """The loaded, typed library of one tone curve's instances (built at
-    first use; looked up once, since finding the compiler costs more
-    than a launch)."""
-    from ..._build import load_shared
-    spec, = [sp for sp in build_specs() if sp[0] == f"k1_color_map_t{tone}"]
-    lib = load_shared(*spec)
-    fn = lib.k1_color_map_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return _typed(lib)
+def build_specs(plans):
+    """The build specs (_build.build_all) of the tails `plans`
+    (TailPlans): one library a distinct tail, so the compilers run side
+    by side."""
+    return [generic_spec(h) for h in dict.fromkeys(p.header for p in plans)]
 
 
 @functools.lru_cache(maxsize=None)
 def _generic_lib(header: str):
-    """The loaded, typed library of the generic instance compiled with
-    `header` (built at first use)."""
+    """The loaded, typed library of the instance compiled with `header`
+    (built at first use; looked up once, since finding the compiler
+    costs more than a launch)."""
     from ..._build import load_shared
     lib = load_shared(*generic_spec(header))
     fn = lib.k1_generic_launch
@@ -1320,45 +859,38 @@ def _generic_lib(header: str):
     st.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     st.restype = ctypes.c_int
-    return _typed(lib)
+    lib.k1_sqrt_check_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.k1_sqrt_check_launch.restype = ctypes.c_int
+    lib.k1_error_string.argtypes = [ctypes.c_int]
+    lib.k1_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def prepare(plan: TailPlan):
-    """Compile (once) and load the library a generic plan launches: the
-    renderer calls it when it plans the tail, so no launch waits for a
-    build.  A failure raises KernelError (no other instance, and no
-    plain tail, runs in its place).  Returns the library."""
-    if plan.tone != GENERIC:
-        raise ValueError("K1: only a generic plan has a library of its own")
+    """Compile (once) and load the library a plan launches: the renderer
+    calls it when it plans the tail, so no launch waits for a build.  A
+    failure raises KernelError (no other instance, and no plain tail,
+    runs in its place).  Returns the library."""
     with kernel_work("K1"):
         return _generic_lib(plan.header)
 
 
-def libraries(generic=()):
-    """Every templated K1 library and the libraries of the generic plans
-    `generic`, built side by side and loaded: {tone index or
-    TailPlan.header: library}."""
+def libraries(plans):
+    """The libraries of the tails `plans`, built side by side and loaded:
+    {TailPlan.header: library}."""
     from ..._build import build_all
-    generic = list(generic)
-    build_all(build_specs(generic))
-    libs = {t: _kernel_lib(t) for t in TONE_LIBS}
-    libs.update({p.header: _generic_lib(p.header) for p in generic})
-    return libs
+    plans = list(plans)
+    build_all(build_specs(plans))
+    return {p.header: _generic_lib(p.header) for p in plans}
 
 
-def build():
-    """Compile (once) and load every templated K1 library; returns the
-    flagship chain's (the spline's)."""
-    return libraries()[1]
-
-
-def sqrt_check(device) -> int:
+def sqrt_check(plan: TailPlan, device) -> int:
     """How many floats the kernel's check-free square root (csrc:
     sqrt_in_range) rounds otherwise than sqrtf over the range the PQ
-    curves clamp its operands into (csrc: kSqrtLo..kSqrtHi): 0 is
-    exact."""
+    curves clamp its operands into (csrc: kSqrtLo..kSqrtHi), in the
+    library of `plan`: 0 is exact."""
     with kernel_work("K1"):
-        lib = _kernel_lib()
+        lib = _generic_lib(plan.header)
         bad = torch.zeros(1, dtype=torch.int64, device=device)
         rc = lib.k1_sqrt_check_launch(
             bad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
@@ -1378,79 +910,29 @@ def _check(t, name, shape=None):
                          f"expected {tuple(shape)}")
 
 
-def color_map_tail(img, plan, tone, lut):
+def color_map_tail(img, plan, tone, bias):
     """Run K1 on a (3, H, W) float32 frame of linear light.  `plan` is
-    the chain's TailPlan (its packed constants in host memory, row masks
-    and kernel instance), `tone` the per-frame tone vector
-    (ops/tone_dynamic.py::tone_vector; None for a chain without a tone
-    curve), `lut` the (n, n) dither LUT tensor (plan.lut on the frame's
-    device) or None.  Returns (out, (H / block_rows, 8, 128) peak
-    partials), the partials None without a tone curve."""
+    the tail's TailPlan (its packed constants in host memory and the
+    header of its instance), `tone` the per-frame tone vector
+    (ops/cuda/peak_tone.py; None without a dynamic tone curve), `bias`
+    the tail's dither bias on the frame's device — the (n, n) LUT
+    (plan.lut) or the (H, W) white-noise frame — or None.  Returns (out,
+    (H / block_rows, 8, 128) peak partials), the partials None where the
+    tail measures no peak."""
     global launches
     if not isinstance(plan, TailPlan) or plan.consts.shape != (NCONST,):
         raise ValueError(f"K1: plan must be a TailPlan of {NCONST} "
                          f"constants")
-    wants_tone = plan.generic.mode.tone_kind == 1 if plan.generic \
-        else plan.tone != 0
-    if (tone is None) == wants_tone:
+    mode = plan.generic.mode
+    if (tone is None) == (mode.tone_kind == 1):
         raise ValueError("K1: a tone vector goes with a dynamic tone "
                          "curve, and only with one")
-    consts = plan.consts
     if img.device.type == "cpu":
-        return tail_plain(img, plan, tone, lut)
+        return tail_plain(img, plan, tone, bias)
     if img.device.type != "cuda":
         raise ValueError(f"K1: unsupported device {img.device}")
-    if plan.tone == GENERIC:
-        return _launch_generic(img, plan, tone, lut)
     C, H, W = img.shape
     _check(img, "img", (3, H, W))
-    if tone is not None:
-        _check(tone, "tone", (ops_tone.TONE_VECTOR_LEN,))
-    n = 0
-    if lut is not None:
-        n = lut.shape[0]
-        _check(lut, "lut", (n, n))
-        if n & (n - 1):
-            raise ValueError(f"K1: dither LUT size {n} is not a power of 2")
-    bh = pick_block_rows(H)
-    if H % bh or W % _COLS:
-        raise ValueError(f"K1: a {H}x{W} frame does not split into "
-                         f"{bh}-row stripes of {_COLS}-column blocks")
-    stripes = H // bh
-    with kernel_work("K1"):
-        out = torch.empty_like(img)
-        sub = partials = None
-        if plan.tone:
-            sub = torch.empty((stripes, W // _COLS, _SUB), dtype=torch.float32,
-                              device=img.device)
-            partials = torch.empty((stripes, 8, 128), dtype=torch.float32,
-                                   device=img.device)
-        lib = _kernel_lib(plan.tone)
-        rows = plan.rows
-        rc = lib.k1_color_map_launch(
-            img.data_ptr(), out.data_ptr(),
-            sub.data_ptr() if sub is not None else None,
-            partials.data_ptr() if partials is not None else None,
-            consts.ctypes.data, tone.data_ptr() if tone is not None else None,
-            lut.data_ptr() if lut is not None else None,
-            n, H, W, bh, rows.src_kept, rows.dst_kept, rows.src_swap,
-            rows.dst_swap, rows.mat_swap | (plan.flags << FLAG_SHIFT),
-            plan.gamut, torch.cuda.current_stream(img.device).cuda_stream)
-        if rc != 0:
-            raise KernelError("K1 launch failed: " +
-                               lib.k1_error_string(rc).decode())
-    launches += 1
-    return out, partials
-
-
-def _launch_generic(img, plan, tone, bias):
-    """Launch the plan's own generic instance (csrc: k1_generic_launch);
-    `bias` is the square dither LUT, the (H, W) white-noise frame or
-    None."""
-    global launches
-    C, H, W = img.shape
-    _check(img, "img", (3, H, W))
-    mode = plan.generic.mode
     if tone is not None:
         _check(tone, "tone", (ops_tone.TONE_VECTOR_LEN,))
     n = 0
@@ -1493,8 +975,8 @@ def _launch_generic(img, plan, tone, bias):
 
 
 def static_tone_on_card(x, plan):
-    """The static curve of a generic plan alone, on a 1D CUDA tensor of
-    PQ values, through the plan's own library (a test hook)."""
+    """The static curve of a plan alone, on a 1D CUDA tensor of PQ
+    values, through the plan's own library (a test hook)."""
     if plan.generic.mode.tone_kind != 2:
         raise ValueError("K1: the plan has no static tone curve")
     _check(x, "x")

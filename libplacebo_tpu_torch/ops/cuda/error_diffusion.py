@@ -180,7 +180,7 @@ def build_spec(header=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_lib(header=None):
+def _library(header=None):
     """The loaded, typed library compiled with `header` (built at first
     use; looked up once, since finding the compiler costs more than a
     launch)."""
@@ -201,7 +201,7 @@ def _kernel_lib(header=None):
 
 def build():
     """Compile (once) and load the built-in patterns' library."""
-    return _kernel_lib()
+    return _library()
 
 
 def prepare(kernel: ErrorDiffusionKernel):
@@ -212,7 +212,7 @@ def prepare(kernel: ErrorDiffusionKernel):
     frame on the card).  Returns (library, the pattern's index there)."""
     header, index = _header_of(kernel)
     with kernel_work("K2"):
-        return _kernel_lib(header), index
+        return _library(header), index
 
 
 def geometry(Wsp: int, C: int, Hp: int,

@@ -92,7 +92,7 @@ def build_spec():
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_lib():
+def _library():
     """The loaded, typed kernel library (built at first use; looked up
     once, since finding the compiler costs more than a launch)."""
     from ..._build import load_shared
@@ -114,7 +114,7 @@ def _kernel_lib():
 
 def build():
     """Compile (once) and load the kernel library."""
-    return _kernel_lib()
+    return _library()
 
 
 @dataclass(frozen=True)
@@ -222,7 +222,7 @@ def _launch_tone(plan: TonePlan, a, b, delayed: bool):
     with kernel_work("peak_tone"):
         out = torch.empty(ops_tone.TONE_VECTOR_LEN, dtype=torch.float32,
                           device=a.device)
-        lib = _kernel_lib()
+        lib = _library()
         rc = lib.pt_tone_launch(
             a.data_ptr(), b.data_ptr(), int(delayed), plan.curve,
             plan.consts.ctypes.data, out.data_ptr(),
@@ -277,7 +277,7 @@ def peak_finish(packed, state, params: ops_peak.PeakDetectParams):
     consts, use_pct, scene_cut = _peak_consts(params)
     with kernel_work("peak_tone"):
         out = torch.empty(2, dtype=torch.float32, device=state.device)
-        lib = _kernel_lib()
+        lib = _library()
         rc = lib.pt_finish_launch(
             packed.data_ptr(), packed.shape[0], state.data_ptr(),
             consts.ctypes.data, use_pct, scene_cut, out.data_ptr(),

@@ -98,7 +98,7 @@ def build_spec():
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_lib():
+def _library():
     """The loaded, typed kernel library (built at first use; looked up
     once, since finding the compiler costs more than a launch)."""
     from ..._build import load_shared
@@ -122,7 +122,7 @@ def _kernel_lib():
 
 def build():
     """Compile (once) and load the kernel library."""
-    return _kernel_lib()
+    return _library()
 
 
 def _check_card(t: torch.Tensor, what: str):
@@ -139,7 +139,7 @@ def _run(src: torch.Tensor, shape, dtype, call):
     global launches
     with kernel_work("K3"):
         dst = torch.empty(shape, dtype=dtype, device=src.device)
-        lib = _kernel_lib()
+        lib = _library()
         rc = call(lib, dst,
                   torch.cuda.current_stream(src.device).cuda_stream)
         if rc != 0:

@@ -16,7 +16,7 @@ decode and, with ICC profiles, the frame's decoding the source and the
 target's encoding the output.  The tail runs on kernel K1 (tone +
 gamut + delinearize + encode, with the peak partials, and the dither
 unless error diffusion quantizes) wherever the reference's kernel would
-run it (a templated instance or the generic one, `ops/cuda/color_map.py`),
+run it (the instance compiled for the tail, `ops/cuda/color_map.py`),
 and as plain stages where the reference runs it plain too (an ICC
 target, a conversion LUT, a distortion, a target crop, alpha, corner
 rounding, contrast recovery, the visualizer); `k1_tails`, `plain_tails`
@@ -1464,15 +1464,14 @@ class Renderer:
         """The fused color tail — kernel K1 — or None when the tail is
         not eligible, in which case the plain stages run.  The gates are
         the reference's (renderer.py:1565-1574); an eligible tail runs
-        a templated K1 instance where one exists (ops/cuda/color_map.py::
-        plan_tail), else the generic one (plan_generic; on the card the
-        tail's own instance is compiled here, k1.prepare), whose plain
-        version is the stages composed here as the reference's tail_fn
-        composes them."""
+        K1's instance compiled for it (ops/cuda/color_map.py::
+        plan_generic; on the card the instance is compiled here,
+        k1.prepare), whose plain version is the stages composed here as
+        the reference's tail_fn composes them."""
         if not _tail_eligible(params, target, dst_w, dst_h, dst_crop,
                               has_alpha):
             return None
-        lut = dither = None
+        dither = None
         bit_depth = target.bit_depth
         if bit_depth and params.dither is not None and \
                 params.error_diffusion is None and \
@@ -1484,58 +1483,49 @@ class Renderer:
                 bias = ops_dither.bias_matrix(dp, dst_h, dst_w, dither_phase)
             else:
                 bias = ops_dither.dither_lut(dp, dither_phase)
-                if not gamma_path:
-                    lut = bias
             dither = (dp, bias, gamma_path)
         fused_peak = bool(use_peak and params.peak_detect.allow_delayed)
         chain = color_chain(src_color, dst_color, params, use_peak)
         fn = params.tone_mapping_function
-        plan = None
-        if dither is None or lut is not None:
-            plan = k1.plan_tail(chain, params, dst_color, target, fused_peak,
-                                lut)
-        if plan is None:
-            static_tp = _static_tone_params(src_color, params, chain) \
-                if chain.tone == "static" else None
-            show = _show_bounds(src_color, params)
-            thresholds = None
-            if show is not None and chain.kind == "ipt":
-                lo_lin, hi_lin = (float(tf.pq_eotf_fast(torch.tensor(
-                    v, dtype=torch.float32))) for v in show)
-                thresholds = (hi_lin + 1e-6, show[1] + 1e-6,
-                              lo_lin - 1e-6, show[0] - 1e-6)
+        static_tp = _static_tone_params(src_color, params, chain) \
+            if chain.tone == "static" else None
+        show = _show_bounds(src_color, params)
+        thresholds = None
+        if show is not None and chain.kind == "ipt":
+            lo_lin, hi_lin = (float(tf.pq_eotf_fast(torch.tensor(
+                v, dtype=torch.float32))) for v in show)
+            thresholds = (hi_lin + 1e-6, show[1] + 1e-6,
+                          lo_lin - 1e-6, show[0] - 1e-6)
 
-            def plain(img, tone, bias_t):
-                tone_fn = None
-                if chain.tone == "dynamic":
-                    vals = list(tone[:len(ops_tone.TONE_KEYS[fn])])
-                    tone_fn = lambda x: ops_tone.tone_apply(  # noqa: E731
-                        fn, x, vals, chain.dst_min_pq, chain.dst_max_pq)
-                elif chain.tone == "static":
-                    tone_fn = lambda x: tm.apply_device(  # noqa: E731
-                        x, static_tp)
-                y = _map_chain(img, chain, tone_fn, params, show)
-                y = ops_color.delinearize(y, dst_color)
-                y = ops_color.encode_color(y, target.repr,
-                                           dst_color.primaries)
-                if dither is not None:
-                    h, w = y.shape[-2], y.shape[-1]
-                    n = bias_t.shape[0]
-                    full = bias_t if dither[0].method == \
-                        ops_dither.DitherMethod.WHITE_NOISE else \
-                        bias_t.tile((-(-h // n), -(-w // n)))[:h, :w]
-                    y = ops_dither.dither(y, bit_depth, dither[0], bias=full)
-                return y
-            plan = k1.plan_generic(chain, params, src_color, dst_color,
-                                   target, fused_peak, dither, plain,
-                                   static_tone=static_tp,
-                                   show_bounds=thresholds)
-            if plan is not None and self.device.type == "cuda":
-                # the tail's own instance, compiled now rather than at its
-                # first launch (KernelError if it cannot be)
-                k1.prepare(plan)
+        def plain(img, tone, bias_t):
+            tone_fn = None
+            if chain.tone == "dynamic":
+                vals = list(tone[:len(ops_tone.TONE_KEYS[fn])])
+                tone_fn = lambda x: ops_tone.tone_apply(  # noqa: E731
+                    fn, x, vals, chain.dst_min_pq, chain.dst_max_pq)
+            elif chain.tone == "static":
+                tone_fn = lambda x: tm.apply_device(  # noqa: E731
+                    x, static_tp)
+            y = _map_chain(img, chain, tone_fn, params, show)
+            y = ops_color.delinearize(y, dst_color)
+            y = ops_color.encode_color(y, target.repr, dst_color.primaries)
+            if dither is not None:
+                h, w = y.shape[-2], y.shape[-1]
+                n = bias_t.shape[0]
+                full = bias_t if dither[0].method == \
+                    ops_dither.DitherMethod.WHITE_NOISE else \
+                    bias_t.tile((-(-h // n), -(-w // n)))[:h, :w]
+                y = ops_dither.dither(y, bit_depth, dither[0], bias=full)
+            return y
+        plan = k1.plan_generic(chain, params, src_color, dst_color, target,
+                               fused_peak, dither, plain,
+                               static_tone=static_tp, show_bounds=thresholds)
         if plan is None:
             return None
+        if self.device.type == "cuda":
+            # the tail's own instance, compiled now rather than at its
+            # first launch (KernelError if it cannot be)
+            k1.prepare(plan)
         lut_t = torch.from_numpy(plan.lut).to(self.device) \
             if plan.lut is not None else None
         # the curve's per-frame scalars: on the card one launch a frame
@@ -1547,8 +1537,7 @@ class Renderer:
             if chain.tone == "dynamic" else None
         # a white-noise bias is the whole (dst_h, dst_w) frame; any other
         # dither is a square LUT tiled from the frame's origin
-        bias_frame = plan.generic is not None and \
-            plan.generic.mode.dither == 2
+        bias_frame = plan.generic.mode.dither == 2
 
         def run(img, peak_stats, row0: int = 0, state=None):
             """K1 on `img` with a dynamic curve's stats `peak_stats`

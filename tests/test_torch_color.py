@@ -1,7 +1,6 @@
 """PyTorch port vs the JAX package: the color modules of the HDR and SDR
 tails (tone curves, gamut operators, peak detection, sigmoidization)
-and kernel K1's plain version for every chain it is built for, on the
-CPU.
+and kernel K1's plans and operation counts, on the CPU.
 
 The same numpy inputs, made from a seed, go through the JAX function
 (jitted, as the renderer runs it; the Pallas tail in interpret mode,
@@ -16,31 +15,22 @@ the measured figure beside each (CPU, this file's inputs):
   (measured 0) but for `highlight`'s knife-edge test, atol 1e-5 on
   < 1e-3 of values; with the static curve atol 5e-4 (measured
   <= 3.3e-4, the exact PQ curves' exp/log);
-- K1's plain version vs the Pallas tail, dithered to 8 bits: within
-  1 LSB on < 1e-3 of values, histograms equal, stripe sums rtol 1e-5;
-  K1's plain version vs the port's own plain stages: atol 1e-6;
 - sigmoidize/desigmoidize: atol 3e-7 (measured <= 1.8e-7, exp/log);
 - detect_peak: the 64-bin histogram equals the reference's bins, the
   state atol 1e-5.
-The `cuda`-marked tests hold each K1 instance against its plain version
-on the card.
 """
 import numpy as np
 import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 from libplacebo_tpu.core import colorspace as jcs
 from libplacebo_tpu.core import tone_mapping as jtm
-from libplacebo_tpu.core.common import RectF as JRectF
 from libplacebo_tpu.ops import color as jcolor
 from libplacebo_tpu.ops import peak_detect as jpeak
 from libplacebo_tpu.ops import tone_dynamic as jtone
 from libplacebo_tpu.render.renderer import RenderParams as JParams
-from libplacebo_tpu.render.renderer import Renderer as JRenderer
-from libplacebo_tpu.render.renderer import Target as JTarget
 from libplacebo_tpu.render.renderer import color_map_stage as jcms
 
 import libplacebo_tpu_torch as lt
@@ -48,13 +38,11 @@ from libplacebo_tpu_torch.core import colorspace as tcs
 from libplacebo_tpu_torch.core import tone_mapping as ttm
 from libplacebo_tpu_torch.core.common import RectF as TRectF
 from libplacebo_tpu_torch.ops import color as tcolor
-from libplacebo_tpu_torch.ops import dithering as tdith
 from libplacebo_tpu_torch.ops import peak_detect as tpeak
 from libplacebo_tpu_torch.ops import tone_dynamic as ttone
 from libplacebo_tpu_torch.ops.cuda import color_map as k1
 from libplacebo_tpu_torch.render import renderer as trender
 
-LSB = 1.0 / 255.0
 TONE_NAMES = [f.name for f in jtm.TONE_MAP_FUNCTIONS]
 GAMUT_OPS = ("clip", "perceptual", "softclip", "relative", "desaturate",
              "saturation", "linear", "darken", "absolute", "highlight")
@@ -244,123 +232,16 @@ def test_detect_peak_and_applied_stats(percentile, delayed):
 
 
 # ---------------------------------------------------------------------------
-# K1: every built instance
+# K1: its plans and operation counts (its tails against the reference:
+# tests/test_torch_color_tails.py)
 # ---------------------------------------------------------------------------
 
-_SDR_2020 = (jcs.ColorSpace(jcs.ColorPrimaries.BT_2020,
-                            jcs.ColorTransfer.BT_1886),
-             tcs.ColorSpace(tcs.ColorPrimaries.BT_2020,
-                            tcs.ColorTransfer.BT_1886))
-_SDR_709 = (jcs.ColorSpace(jcs.ColorPrimaries.BT_709,
-                           jcs.ColorTransfer.BT_1886),
-            tcs.ColorSpace(tcs.ColorPrimaries.BT_709,
-                           tcs.ColorTransfer.BT_1886))
-
-# (tone, gamut) instance -> (source, params) of a chain that runs it
-_CHAINS = {(0, 0): (_SDR_709, {}),
-           (0, 2): (_SDR_2020, dict(gamut_mapping="perceptual")),
-           (0, 3): (_SDR_2020, dict(gamut_mapping="softclip"))}
-for _t, _name in enumerate(k1.TONES[1:], 1):
-    for _g, _op in ((1, "clip"), (2, "perceptual"), (3, "softclip")):
-        _CHAINS[(_t, _g)] = ((jcs.CSP_BT2100_PQ, tcs.CSP_BT2100_PQ),
-                             dict(tone_mapping_function=_name,
-                                  gamut_mapping=_op))
-_CHAINS["pass_clip"] = (_SDR_2020, dict(gamut_mapping="clip"))
-
-
-def _tails(key, h, w, dither=True):
-    """(port tail, JAX tail, source spaces, params) for a chain."""
-    (jsrc, tsrc), kw = _CHAINS[key]
-    if not dither:
-        kw = dict(kw, dither=None)
-    js, jd = jcs.color_space_infer_map(jsrc, jcs.CSP_SRGB)
-    ts, td = tcs.color_space_infer_map(tsrc, tcs.CSP_SRGB)
-    jp, tp = JParams(**kw), lt.RenderParams(**kw)
-    use_peak = ts.is_hdr()
-    jt = JTarget(w=w, h=h, color=jcs.CSP_SRGB, bit_depth=8)
-    tt = lt.Target(w=w, h=h, color=lt.CSP_SRGB, bit_depth=8)
-    jtail = JRenderer._fused_tail(jp, js, jd, jt, use_peak, None, False, w,
-                                  h, JRectF(0, 0, w, h))
-    ttail = lt.Renderer(device="cpu")._fused_tail(tp, ts, td, tt, use_peak,
-                                                  w, h, TRectF(0, 0, w, h))
-    return ttail, jtail, (ts, td), tp, use_peak
-
-
-def _capture_plan(monkeypatch):
-    seen = []
-    launch = k1.color_map_tail
-
-    def capture(img, plan, tone, lut):
-        seen.append((img, plan, tone, lut))
-        return launch(img, plan, tone, lut)
-    monkeypatch.setattr(k1, "color_map_tail", capture)
-    return seen
-
-
-@pytest.mark.parametrize("key", sorted(_CHAINS, key=str))
-def test_k1_plain_matches_pallas_tail(monkeypatch, key):
-    """K1's plain version of each chain vs fused_pointwise(interpret=
-    True) running the reference's tail_fn on the same input and stats:
-    within 1 LSB on < 1e-3 of values, histograms equal, stripe sums
-    rtol 1e-5; the chain runs the instance it is listed for."""
-    monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
-    seen = _capture_plan(monkeypatch)
-    h, w = 16, 128
-    ttail, jtail, _, _, use_peak = _tails(key, h, w)
-    assert ttail is not None and jtail is not None
-    scale = 30.0 if use_peak else 1.2
-    x = _linear_input(h, w, seed=21, scale=scale)
-    stats = (np.float32(0.31), np.float32(0.74)) if use_peak else ()
-    jres = jtail(jnp.asarray(x), tuple(jnp.float32(s) for s in stats)
-                 if use_peak else None)
-    out, tpart = ttail(torch.from_numpy(x), tuple(torch.tensor(s)
-                                                  for s in stats)
-                       if use_peak else None)
-    plan = seen[0][1]
-    if key != "pass_clip":
-        assert (plan.tone, plan.gamut) == key
-    else:
-        assert plan.gamut == 0 and plan.flags == (k1.FLAG_PASS_MATRIX |
-                                                  k1.FLAG_PASS_CLAMP)
-    ref = np.asarray(jres[0] if use_peak else jres)
-    d = np.abs(out.numpy() - ref)
-    assert d.max() <= LSB + 1e-6, d.max()
-    assert (d > 1e-6).mean() < 1e-3, (d > 1e-6).mean()
-    if use_peak:
-        jpart = np.asarray(jres[1])
-        np.testing.assert_array_equal(tpart[:, 0].numpy(), jpart[:, 0])
-        np.testing.assert_allclose(tpart[:, 1, :3].numpy(),
-                                   jpart[:, 1, :3], rtol=1e-5)
-    else:
-        assert tpart is None
-
-
-@pytest.mark.parametrize("key", sorted(_CHAINS, key=str))
-def test_k1_plain_is_the_plain_stages(monkeypatch, key):
-    """K1's plain version (packed constants) equals the port's own
-    stages composed as the reference's tail_fn composes them: atol
-    1e-6, partials as block_partials."""
-    h, w = 8, 128
-    ttail, _, (ts, td), tp, use_peak = _tails(key, h, w)
-    x = torch.from_numpy(_linear_input(h, w, seed=22,
-                                       scale=30.0 if use_peak else 1.2))
-    stats = (torch.tensor(0.28), torch.tensor(0.71)) if use_peak else None
-    out, part = ttail(x, stats)
-    y = trender.color_map_stage(x, ts, td, tp, stats)
-    y = tcolor.delinearize(y, td)
-    y = tdith.dither(y, 8, tdith.DitherParams(transfer=td.transfer))
-    np.testing.assert_allclose(out.numpy(), y.numpy(), atol=1e-6)
-    if use_peak:
-        ref = tpeak.block_partials(x, tpeak.PeakDetectParams())
-        np.testing.assert_array_equal(part[0, 0].numpy(), ref[0].numpy())
-
-
 def test_k1_plan_refuses_what_no_instance_runs():
-    """plan_tail admits a chain only where a templated instance exists:
-    the static curve, same-frame stats, other gamut operators,
-    show_clipping and non-sRGB targets get none, and the renderer runs
-    those tails on K1's generic instance instead; a tail the reference
-    runs plain (an ICC target, a conversion LUT) gets no K1 tail."""
+    """K1 plans every tail the renderer fuses — the players', the static
+    curve, same-frame stats, other gamut operators, show_clipping and
+    non-sRGB targets — for the instance compiled for it; only a tail the
+    reference runs plain (an ICC target, a conversion LUT) gets no K1
+    tail, and a plan needs its GenericSpec."""
     h, w = 8, 128
     ts, td = tcs.color_space_infer_map(tcs.CSP_BT2100_PQ, tcs.CSP_SRGB)
     r = lt.Renderer(device="cpu")
@@ -369,7 +250,9 @@ def test_k1_plan_refuses_what_no_instance_runs():
     def tail(params, use_peak=True, target=tt, dst=td):
         return r._fused_tail(params, ts, dst, target, use_peak, w, h,
                              TRectF(0, 0, w, h))
-    assert tail(lt.RenderParams(upscaler="ewa_lanczos")).plan.tone == 1
+    mode = tail(lt.RenderParams(upscaler="ewa_lanczos")).plan.instance
+    assert (k1.G_DYNAMIC[mode.curve], k1.G_GAMUTS[mode.gamut]) == \
+        ("spline", "perceptual") and mode.flags & k1.GFLAG_PEAK
     _, bt709 = tcs.color_space_infer_map(tcs.CSP_BT2100_PQ,
                                          tcs.ColorSpace(
                                              tcs.ColorPrimaries.BT_709,
@@ -382,12 +265,7 @@ def test_k1_plan_refuses_what_no_instance_runs():
             (dict(show_clipping=True), True, td),
             ({}, True, bt709)):
         run = tail(lt.RenderParams(**kw), use_peak=use_peak, dst=dst)
-        assert run.plan.tone == k1.GENERIC, kw
-        params = lt.RenderParams(**kw)
-        chain = trender.color_chain(ts, dst, params, use_peak)
-        fused = use_peak and params.peak_detect.allow_delayed
-        assert k1.plan_tail(chain, params, dst, tt, fused, tdith.dither_lut(
-            tdith.DitherParams(), 0)) is None, kw
+        assert run is not None and isinstance(run.plan, k1.TailPlan), kw
     from libplacebo_tpu_torch.core import icc as ticc
     from test_icc_h274 import _make_profile
     icc_target = lt.Target(w=w, h=h, color=lt.CSP_SRGB, bit_depth=8,
@@ -396,82 +274,26 @@ def test_k1_plan_refuses_what_no_instance_runs():
     lut = lt.parse_cube("LUT_1D_SIZE 2\n0 0 0\n1 1 1")
     assert tail(lt.RenderParams(lut=lut, lut_type="conversion")) is None
     assert tail(lt.RenderParams(lut=lut, lut_type="native")) is not None
-    assert len(k1.INSTANCES) == 15
     with pytest.raises(ValueError):
-        k1.TailPlan(np.zeros(k1.NCONST, np.float32), tone=1, gamut=0)
-    with pytest.raises(ValueError):
-        k1.TailPlan(np.zeros(k1.NCONST, np.float32), tone=k1.GENERIC,
-                    gamut=k1.GENERIC)
+        k1.TailPlan(np.zeros(k1.NCONST, np.float32), None)
 
 
-def test_k1_ops_per_pixel_per_instance(monkeypatch):
-    """The operation count behind each instance's bound: the flagship
-    chain keeps its 1180, the pass-through chain is its output stage
-    and dither, softclip's hue shift counts its second pass over both
-    fits."""
+def test_k1_ops_per_pixel_per_instance():
+    """The operation count behind each tail's bound: the players' chain
+    (spline, perceptual, sRGB, dither) counts 1180, the pass-through
+    chain is its output stage and dither, softclip's hue shift counts
+    its second pass over both fits."""
+    from test_torch_color_tails import TAILS, _tail_setup
     counts = {}
-    for key in _CHAINS:
-        seen = _capture_plan(monkeypatch)
-        ttail, _, _, _, use_peak = _tails(key, 8, 128)
-        ttail(torch.from_numpy(_linear_input(8, 128)),
-              (torch.tensor(0.3), torch.tensor(0.7)) if use_peak else None)
-        plan = seen[-1][1]
-        counts[key] = k1.ops_per_pixel(plan.consts, plan.instance)
-        monkeypatch.undo()
-    assert counts[(1, 2)] == 1180
-    assert counts[(0, 0)] == 36 + 12
-    assert counts["pass_clip"] == 36 + 12 + 15 + 6
-    assert counts[(2, 3)] > counts[(2, 2)] > counts[(2, 1)]
-    assert counts[(3, 2)] - counts[(1, 2)] == 89 - 12
-
-
-# ---------------------------------------------------------------------------
-# On the card
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dither", [True, False])
-@pytest.mark.parametrize("key", sorted(_CHAINS, key=str))
-def test_k1_instance_matches_plain_on_card(cuda_device, monkeypatch, key,
-                                           dither):
-    """Each K1 instance on the card vs its plain version on the same
-    input: within 1 LSB on < 1e-3 of values (recorded: exact or not),
-    histograms equal, stripe sums rtol 1e-5; two launches give identical
-    partials and outputs."""
-    seen = _capture_plan(monkeypatch)
-    h, w = 64, 256
-    ttail, _, _, _, use_peak = _tails(key, h, w, dither)
-    x = _linear_input(h, w, seed=23, scale=30.0 if use_peak else 1.2)
-    stats = (torch.tensor(0.3), torch.tensor(0.72)) if use_peak else None
-    ttail(torch.from_numpy(x), stats)
-    _, plan, tone, lut = seen[0]
-    img = torch.from_numpy(x).to(cuda_device)
-    tone = tone.to(cuda_device) if tone is not None else None
-    lut = lut.to(cuda_device) if lut is not None else None
-    before = k1.launches
-    out, part = k1.color_map_tail(img, plan, tone, lut)
-    out2, part2 = k1.color_map_tail(img, plan, tone, lut)
-    assert k1.launches == before + 2
-    ref, rpart = k1.color_map_plain(img, plan.consts, tone, lut,
-                                    plan.instance)
-    torch.cuda.synchronize()
-    diff = (out - ref).abs()
-    print(f"K1 {key} dither={dither}: max {diff.max().item():.3g}, "
-          f"differing {(diff > 0).float().mean().item():.3g}")
-    assert diff.max().item() <= LSB + 1e-6
-    assert (diff > 1e-6).float().mean().item() < 1e-3
-    assert torch.equal(out, out2)
-    if use_peak:
-        assert torch.equal(part[:, 0], rpart[:, 0])
-        torch.testing.assert_close(part[:, 1, :3], rpart[:, 1, :3],
-                                   rtol=1e-5, atol=0.0)
-        assert torch.equal(part, part2)
-    else:
-        assert part is None and rpart is None
+    for key in TAILS:
+        if key.startswith("chain-"):
+            ttail, *_ = _tail_setup(key, 8, 128)
+            counts[key] = k1.ops_per_pixel(ttail.plan.consts,
+                                           ttail.plan.instance)
+    assert counts["chain-spline-perceptual"] == 1180
+    assert counts["chain-pass"] == 36 + 12
+    assert counts["chain-pass-clip"] == 36 + 12 + 15 + 6
+    assert counts["chain-bt2390-softclip"] > \
+        counts["chain-bt2390-perceptual"] > counts["chain-bt2390-clip"]
+    assert counts["chain-st2094-40-perceptual"] - \
+        counts["chain-spline-perceptual"] == 89 - 12

@@ -1,8 +1,7 @@
 """PyTorch port vs the JAX package: the rest of the color pipeline — the
 remaining transfer curves, the non-linear decode systems, white-noise
-and low-depth dither, custom LUTs, ICC profiles — and K1's generic
-instance, which runs every tail the templated instances do not, on the
-CPU at small sizes.
+and low-depth dither, custom LUTs, ICC profiles — and K1 on every kind
+of tail, on the CPU at small sizes.
 
 The same numpy inputs, made from a seed, go through the JAX function
 (jitted, as the renderer runs it; K1's tails through fused_pointwise in
@@ -20,7 +19,7 @@ inputs); ROADMAP §3 records every one that is not exact:
 - K1's plain version vs the reference's fused tail (or, for an HLG or
   ICtCp target, which the reference's kernel cannot trace, its plain
   stages): dithered, within 1 LSB on < 1e-3 of values, peak partials'
-  histograms equal and stripe sums rtol 1e-5 (the templated gate); the
+  histograms equal and stripe sums rtol 1e-5; the
   static st2094-10, the inverse bt2446a and the ICtCp encode, whose
   pow-based curves magnify XLA's exp/log/pow ulps, on < 1e-2 (measured
   4.9e-3, 1.3e-3, 1.1e-3);
@@ -32,9 +31,9 @@ inputs); ROADMAP §3 records every one that is not exact:
   1 LSB of the target's depth apart, PSNR >= 80 dB (measured 95.2-98.7
   on path A); path B >= 75 dB (measured 77.0-78.1: a divergence of
   ulps magnified by the ICC encode's toe, bisected in ROADMAP §3).
-The `cuda`-marked tests hold the generic instance against its plain
-version on the card (bit for bit) and the GPU renders of both paths
-against the CPU renders.
+The `cuda`-marked tests hold K1's instance of each tail against its
+plain version on the card (bit for bit) and the GPU renders of both
+paths against the CPU renders.
 """
 import dataclasses
 import os
@@ -184,7 +183,7 @@ def test_low_depth_gamma_dither_matches_jax(depth):
 
 
 # ---------------------------------------------------------------------------
-# K1's generic instance against the reference's fused tail
+# K1 against the reference's fused tail
 # ---------------------------------------------------------------------------
 
 _STATIC = ("clip", "st2094-40", "st2094-10", "bt2390", "bt2446a", "spline",
@@ -230,6 +229,23 @@ TAILS["low-depth-gamma"] = (("bt.709", "bt.1886"), ("bt.709", "srgb"),
                             {}, 3, None)
 TAILS["pass-pq-target"] = (("bt.709", "bt.1886"), ("bt.2020", "pq"), {}, 10,
                            None)
+# the chains of color_map_stage on the players' paths, into 8-bit sRGB
+# with blue-noise dither: the pass-through chain (with a gamut clip), and
+# the IPT round trip with no tone curve or a dynamic one with delayed
+# stats under clip, perceptual and softclip (the players' own tail:
+# chain-spline-perceptual)
+TAILS["chain-pass"] = (("bt.709", "bt.1886"), ("bt.709", "srgb"), {}, 8,
+                       None)
+TAILS["chain-pass-clip"] = (("bt.2020", "bt.1886"), ("bt.709", "srgb"),
+                            dict(gamut_mapping="clip"), 8, None)
+for _g in ("perceptual", "softclip"):
+    TAILS[f"chain-sdr-{_g}"] = (("bt.2020", "bt.1886"), ("bt.709", "srgb"),
+                                dict(gamut_mapping=_g), 8, None)
+for _tm in ("spline", "bt2390", "st2094-40", "st2094-10"):
+    for _g in ("clip", "perceptual", "softclip"):
+        TAILS[f"chain-{_tm}-{_g}"] = (("bt.2020", "pq"), ("bt.709", "srgb"),
+                                      dict(tone_mapping_function=_tm,
+                                           gamut_mapping=_g), 8, None)
 # tails the reference's kernel cannot trace (its HLG delinearize and
 # ICtCp encode capture array constants): held against its plain stages
 _REF_PLAIN = ("target-hlg", "encode-ictcp")
@@ -293,11 +309,11 @@ def _capture_plan(monkeypatch):
 
 @pytest.mark.parametrize("key", list(TAILS))
 def test_k1_generic_plain_matches_reference_tail(monkeypatch, key):
-    """K1's plain version of each new tail vs the reference's fused tail
+    """K1's plain version of each tail vs the reference's fused tail
     (interpret mode) on the same input and stats — or its plain stages
     where its kernel cannot trace the tail: within 1 LSB on < 1e-3 of
     values, partials' histograms equal and sums rtol 1e-5; the tail runs
-    on the generic instance."""
+    on K1."""
     monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
     seen = _capture_plan(monkeypatch)
     h, w = 16, 128
@@ -308,7 +324,7 @@ def test_k1_generic_plain_matches_reference_tail(monkeypatch, key):
     out, tpart = ttail(torch.from_numpy(x), tuple(torch.tensor(s)
                                                   for s in stats)
                        if use_peak else None)
-    assert seen[0][1].tone == k1.GENERIC
+    assert isinstance(seen[0][1], k1.TailPlan)
     jpart = None
     if jtail is None:
         dp = dataclasses.replace(jp.dither, transfer=jd.transfer)
@@ -375,13 +391,13 @@ def _eligible_grid():
 
 
 def test_k1_plan_covers_every_tail_the_reference_fuses(monkeypatch):
-    """plan_tail plus the generic instance give a plan for every tail the
-    reference's _fused_tail admits (the grid of tone curves, gamut
-    operators, same-frame and delayed stats, targets, encodes, dither
-    depths and show_clipping); every new one runs the generic instance."""
+    """K1 has a plan for every tail the reference's _fused_tail admits
+    (the grid of tone curves, gamut operators, same-frame and delayed
+    stats, targets, encodes, dither depths and show_clipping), and for
+    none it does not."""
     monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
     h, w = 8, 128
-    n_generic = 0
+    n_fused = 0
     for kw, dst, rep, bits in _eligible_grid():
         jp = _params(JParams, JPeak, kw, True)
         tp = _params(lt.RenderParams, lt.PeakDetectParams, kw, False)
@@ -402,8 +418,8 @@ def test_k1_plan_covers_every_tail_the_reference_fuses(monkeypatch):
             tp, ts, td, tt, use_peak, w, h, TRectF(0, 0, w, h))
         assert (ttail is not None) == (jtail is not None), (kw, dst, rep)
         if ttail is not None:
-            n_generic += ttail.plan.tone == k1.GENERIC
-    assert n_generic > 200
+            n_fused += isinstance(ttail.plan, k1.TailPlan)
+    assert n_fused > 200
 
 
 def test_k1_generic_plan_layout():
@@ -682,12 +698,12 @@ _MIN_PSNR = {"A": 80.0, "B": 75.0}
 @pytest.mark.parametrize("path", ["A", "B"])
 def test_path_three_frames(monkeypatch, path):
     """Path A (HLG broadcast on a 600-nit PQ display: HLG's OOTF, EWA,
-    static bt2446a on K1's generic instance, PQ target, 10-bit dither)
-    and path B (SDR on a calibrated Display P3 monitor: a 33^3 native
-    LUT, the target's ICC profile, a plain tail as in the reference)
-    over 3 chained frames 64x128 -> 128x256 against the reference's
-    renderer: no value more than 1 LSB apart, PSNR >= 80 dB (path B
-    >= 75 dB, measured 77.0-78.1)."""
+    static bt2446a on K1, PQ target, 10-bit dither) and path B (SDR on
+    a calibrated Display P3 monitor: a 33^3 native LUT, the target's ICC
+    profile, a plain tail as in the reference) over 3 chained frames
+    64x128 -> 128x256 against the reference's renderer: no value more
+    than 1 LSB apart, PSNR >= 80 dB (path B >= 75 dB, measured
+    77.0-78.1)."""
     monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
     res, counts, bits = _render_path(path)
     lsb = 1.0 / ((1 << bits) - 1)
@@ -769,9 +785,8 @@ def cuda_device():
 
 @pytest.fixture(scope="module")
 def generic_libraries():
-    """Every TAILS case's generic instance (dithered and not, as the
-    tests below plan them; an undithered case a templated instance runs
-    has none), compiled side by side in one build_all before the first
+    """Every TAILS case's instance (dithered and not, as the tests below
+    plan them), compiled side by side in one build_all before the first
     test launches one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -785,10 +800,9 @@ def generic_libraries():
                         continue
                     mp.setitem(TAILS, key, (src, dst, kw, 0, rep))
                 ttail, *_ = _tail_setup(key, 64, 256)
-                if ttail.plan.tone == k1.GENERIC:
-                    plans.append(ttail.plan)
+                plans.append(ttail.plan)
                 mp.setitem(TAILS, key, (src, dst, kw, bits, rep))
-    return k1.libraries(generic=plans)
+    return k1.libraries(plans)
 
 
 @pytest.mark.cuda
@@ -796,7 +810,7 @@ def generic_libraries():
 @pytest.mark.parametrize("key", list(TAILS))
 def test_k1_generic_matches_plain_on_card(cuda_device, generic_libraries,
                                           monkeypatch, key, dither):
-    """The generic instance on the card vs its plain version (the port's
+    """K1's instance on the card vs its plain version (the port's
     stages) on the same input, dithered and not: bit for bit, partials'
     histograms equal and sums rtol 1e-5; two launches give identical
     outputs.  Each runs its own compiled instance (built up front by
@@ -813,7 +827,7 @@ def test_k1_generic_matches_plain_on_card(cuda_device, generic_libraries,
     stats = (torch.tensor(0.3), torch.tensor(0.72)) if use_peak else None
     ttail(torch.from_numpy(x), stats)
     _, plan, tone, lut = seen[0]
-    assert plan.tone != k1.GENERIC or plan.header in generic_libraries
+    assert plan.header in generic_libraries
     img = torch.from_numpy(x).to(cuda_device)
     tone = tone.to(cuda_device) if tone is not None else None
     lut = lut.to(cuda_device) if lut is not None else None
@@ -843,7 +857,7 @@ def test_k1_generic_matches_plain_on_card(cuda_device, generic_libraries,
 def test_k1_static_curve_matches_apply_device_on_card(cuda_device,
                                                       generic_libraries,
                                                       key):
-    """Each static curve of the generic instance alone, on PQ values
+    """Each static curve of K1's instance alone, on PQ values
     over [0, 1], against core/tone_mapping.py::apply_device run by
     PyTorch on the card: bit for bit (NaN where both are NaN: a curve's
     BT.1886 helpers take a power of a rounding-negative base at the

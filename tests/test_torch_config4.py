@@ -69,8 +69,7 @@ def _spaces(mod, case):
 
 
 # case -> RenderParams fields; config4_same_frame and config4_static run
-# K1's generic instance (same-frame detect_peak; the static metadata
-# curve)
+# K1 with same-frame detect_peak and the static metadata curve
 CASES = {
     "config4": dict(upscaler="ewa_lanczos", tone_mapping_function="bt2390",
                     gamut_mapping="softclip"),
@@ -131,8 +130,7 @@ def test_render_three_frames(monkeypatch, case):
     """Three chained frames 64x128 -> 128x256 against the reference's
     renderer: mean |diff| < 1e-4, > 1 LSB on <= 5e-4 of values, PSNR
     >= 45 dB, peak state atol 1e-5; every tail runs on K1 (its plain
-    version here): config 4 and config 2 on templated instances, the
-    same-frame and static cases on the generic instance."""
+    version here), each on the instance compiled for its tail."""
     monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
     res, (k1_tails, plain_tails) = render_pair(case)
     for out, ref, state, jstate in res:
@@ -141,8 +139,7 @@ def test_render_three_frames(monkeypatch, case):
         assert mean < 1e-4 and above <= 5e-4 and psnr >= 45.0, \
             (mean, above, psnr)
         np.testing.assert_allclose(state, jstate, atol=1e-5)
-    # every tail runs on K1: config 4 and config 2 on templated
-    # instances, the same-frame and static cases on the generic one
+    # every tail runs on K1
     assert (k1_tails, plain_tails) == (3, 0)
     if case.startswith("config4") and CASES[case].get("peak_detect", 1):
         assert res[-1][2][1] > 0

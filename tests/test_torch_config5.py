@@ -861,8 +861,8 @@ def _measure(n_frames=8):
         j_in, t_in = seen["jed"][i], seen["ted"][i][0].numpy()
         d_in = np.abs(t_in - j_in)
         plan, spline, lut = seen["tk1"][i][1]
-        tail, _ = k1.color_map_plain(torch.from_numpy(seen["jk1"][i]),
-                                     plan.consts, spline, lut)
+        tail, _ = k1.tail_plain(torch.from_numpy(seen["jk1"][i]), plan,
+                                spline, lut)
         print(f"  encoded frame: differing {(d_in > 0).mean():.4f}, "
               f"> 1e-5 {(d_in > 1e-5).mean():.4f}, max {d_in.max():.2e}; "
               f"port K1 on the JAX K1 input: max "

@@ -262,9 +262,9 @@ def test_path_d_k1_matches_plain_on_card(cuda_device, monkeypatch):
         d = np.abs(g.cpu().numpy().astype(np.float64) - c)
         assert d.mean() < 1e-4 and (d > LSB + 1e-6).mean() <= 5e-4
     img, plan, tone, lut = seen[1]
-    assert (plan.tone, plan.gamut) == (0, 0) and lut is not None
+    assert plan.instance.kind == 0 and lut is not None
     out, _ = real(img, plan, tone, lut)
-    ref, _ = k1.color_map_plain(img, plan.consts, tone, lut, plan.instance)
+    ref, _ = k1.tail_plain(img, plan, tone, lut)
     diff = (out - ref).abs()
     assert diff.max().item() <= LSB + 1e-6
     assert (diff > 1e-6).float().mean().item() < 1e-3

@@ -379,7 +379,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_path_c_k1_matches_plain_on_card(cuda_device, monkeypatch):
-    """Path C's K1 launch (<spline, perceptual> with dither) on the card
+    """Path C's K1 launch (spline, perceptual, with dither) on the card
     vs its plain version on the same input: within 1 LSB on < 1e-3 of
     values; the GPU frames vs the CPU frames: mean < 1e-4, more than 1
     LSB on <= 5e-4."""
@@ -399,9 +399,11 @@ def test_path_c_k1_matches_plain_on_card(cuda_device, monkeypatch):
         d = np.abs(g.cpu().numpy().astype(np.float64) - c)
         assert d.mean() < 1e-4 and (d > LSB + 1e-6).mean() <= 5e-4
     img, plan, tone, lut = seen[1]
-    assert (plan.tone, plan.gamut) == (1, 2) and lut is not None
+    mode = plan.instance
+    assert (k1.G_DYNAMIC[mode.curve], k1.G_GAMUTS[mode.gamut]) == \
+        ("spline", "perceptual") and lut is not None
     out, _ = real(img, plan, tone, lut)
-    ref, _ = k1.color_map_plain(img, plan.consts, tone, lut, plan.instance)
+    ref, _ = k1.tail_plain(img, plan, tone, lut)
     diff = (out - ref).abs()
     assert diff.max().item() <= LSB + 1e-6
     assert (diff > 1e-6).float().mean().item() < 1e-3

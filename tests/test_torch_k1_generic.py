@@ -1,7 +1,7 @@
-"""K1's generic instance is compiled once a tail: the tail's ids, the mix
-codes of its matrix rows, its fit-row masks and its switches become a
-generated header (ops/cuda/color_map.py::generic_header), and the
-library built from it is named by the header's hash.  These tests run
+"""K1 is compiled once a tail: the tail's ids, the mix codes of its
+matrix rows, its fit-row masks and its switches become a generated
+header (ops/cuda/color_map.py::generic_header), and the library built
+from it is named by the header's hash.  These tests run
 without nvcc: the header is a pure function of the plan's key, it says
 what the plan says (the ids and mix codes read back from the text equal
 the plan's, the codes recomputed from the chain's matrices), the build
@@ -25,7 +25,7 @@ _H, _W = 16, 128
 
 def _plan(key):
     ttail, *_ = _tail_setup(key, _H, _W)
-    assert ttail.plan.tone == k1.GENERIC, key
+    assert ttail is not None, key
     return ttail.plan
 
 
@@ -131,30 +131,24 @@ def test_k1_generic_rows_only_where_the_gamut_reads_them():
 
 
 def test_k1_build_specs_name_one_library_a_tail(monkeypatch, tmp_path):
-    """build_specs(generic=plans) adds one nvcc spec a distinct tail to
-    the templated ones: built with K1_TONE = -1 against the plan's header
-    (written into the build directory), named by its digest."""
+    """build_specs(plans) makes one nvcc spec a distinct tail: built
+    against the plan's header (written into the build directory), named
+    by its digest."""
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build, "nvcc_path", lambda: "/usr/local/cuda/nvcc")
     plans = [_plan("gamut-relative"), _plan("white-noise"),
              _plan("gamut-relative")]
-    specs = k1.build_specs(generic=plans)
-    templated = k1.build_specs()
-    assert specs[:len(templated)] == templated
-    generic = specs[len(templated):]
-    assert len(generic) == 2
-    for spec, plan in zip(generic, plans[:2]):
+    specs = k1.build_specs(plans)
+    assert len(specs) == 2
+    for spec, plan in zip(specs, plans[:2]):
         name, sources, compiler, flags = spec
         assert name == "k1_color_map_g" + _build.include_digest(
             "k1_generic.h", plan.header)
-        assert sources == ["csrc/color_map.cu"] and "-DK1_TONE=-1" in flags
+        assert sources == ["csrc/color_map.cu"]
         inc = flags[flags.index("-I") + 1]
         with open(f"{inc}/k1_generic.h") as f:
             assert f.read() == plan.header
-    assert all("-DK1_TONE=-1" not in f for *_, f in templated)
-    with pytest.raises(ValueError, match="generic plans"):
-        k1.build_specs(generic=[k1.TailPlan(plans[0].consts, tone=1,
-                                            gamut=2)])
+    assert k1.build_specs([]) == []
 
 
 def test_k1_generic_build_failure_raises_kernel_error(monkeypatch):
@@ -170,7 +164,7 @@ def test_k1_generic_build_failure_raises_kernel_error(monkeypatch):
         k1.prepare(plan)
     assert k1.launches == before
     with pytest.raises(ValueError):
-        k1.prepare(k1.TailPlan(plan.consts, tone=1, gamut=2))
+        k1.TailPlan(plan.consts, None)
 
 
 @pytest.mark.parametrize("key", ["white-noise", "static-hable"])
@@ -183,35 +177,3 @@ def test_k1_generic_header_does_not_depend_on_the_frame_size(key):
     assert small.plan.header == large.plan.header
     assert small.plan.header != _plan("static-clip").header
 
-
-def test_k1_split_tool_needs_the_card(monkeypatch, capsys):
-    """tools/k1_split.py measures on the card only: without a CUDA
-    device it exits non-zero and prints no figure."""
-    import torch
-    from libplacebo_tpu_torch.tools import k1_split
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert k1_split.main(["--source", "color_map.cu"]) == 1
-    assert "no CUDA device" in capsys.readouterr().err
-
-
-def test_k1_split_variants_make_the_chosen_groups_constant():
-    """The split's variants replace exactly the chosen groups of the
-    runtime-dispatch source's launch values with this tail's constants
-    (a stand-in source with the two places the tool rewrites)."""
-    from libplacebo_tpu_torch.tools import k1_split
-    old = ("template <int OFF, int CODE>\n__device__ __forceinline__ "
-           "void gmat(a) { (int)G(g_mix, CODE); (int)G(g_mix, CODE + 1); "
-           "(int)G(g_mix, CODE + 2); }\n"
-           "k1_generic(int block_rows, int src_kept,\n           int "
-           "dst_kept, int src_swap, int dst_swap,\n           const "
-           "__grid_constant__ K1Mode md) {\n}\n")
-    mode, mix, rows = tuple(range(9)), list(range(27)), (1, 2, 3, 4)
-    same = k1_split.variant_source(old, mode, mix, rows, False, False, False)
-    assert "gmix_c" not in same and "constexpr" not in same
-    text = k1_split.variant_source(old, mode, mix, rows, True, True, True)
-    assert text.count("gmix_c(CODE") == 3 and "(int)G(g_mix" not in text
-    assert "constexpr K1Mode md{0, 1, 2, 3, 4, 5, 6, 7, 8};" in text
-    assert "constexpr int src_kept = 1, dst_kept = 2, src_swap = 3, " \
-        "dst_swap = 4;" in text
-    masks = k1_split.variant_source(old, mode, mix, rows, False, False, True)
-    assert "K1Mode md) {" in masks and "src_kept_rt" in masks

@@ -206,7 +206,7 @@ def test_kernel_sites_raise_kernel_error():
     real."""
     import inspect
     from libplacebo_tpu_torch.ops.cuda import shear as k3
-    for mod, n in ((k1, 4), (k2, 1), (k3, 1)):
+    for mod, n in ((k1, 3), (k2, 1), (k3, 1)):
         src = inspect.getsource(mod)
         assert src.count("raise KernelError(") == n, mod.__name__
         assert "raise RuntimeError(" not in src, mod.__name__
@@ -262,7 +262,7 @@ def test_no_rung_swaps_a_kernel_on_the_card(monkeypatch, logs):
 @pytest.mark.parametrize("error", [
     lambda: torch.OutOfMemoryError("CUDA out of memory. Tried to allocate "
                                    "95.00 MiB"),
-    lambda: AttributeError("undefined symbol: k1_color_map_launch"),
+    lambda: AttributeError("undefined symbol: k1_generic_launch"),
     lambda: OSError("libk1.so: cannot open shared object file")],
     ids=["out_of_memory", "stale_library", "missing_library"])
 def test_kernel_work_failures_never_degrade(error, monkeypatch, logs):
@@ -270,10 +270,10 @@ def test_kernel_work_failures_never_degrade(error, monkeypatch, logs):
     allocation, its library, its launch) leaves it as a KernelError, so
     an out-of-memory error in K1's wrapper propagates out of
     Renderer.render with nothing recorded; every launch lies inside such
-    a block (K1: the flagship, the generic instance, the static curve,
-    the square-root check), and so does the build of a generic tail's
-    instance, or of an error-diffusion pattern's, when the renderer plans
-    it (K1's and K2's `prepare`)."""
+    a block (K1: a tail's instance, the static curve, the square-root
+    check), and so does the build of a tail's instance, or of an
+    error-diffusion pattern's, when the renderer plans it (K1's and K2's
+    `prepare`)."""
     import inspect
     from libplacebo_tpu_torch.ops.cuda import shear as k3
     exc = error()
@@ -293,7 +293,7 @@ def test_kernel_work_failures_never_degrade(error, monkeypatch, logs):
                                          error_diffusion="floyd-steinberg"))
     assert len(tried) == 1
     assert r.get_errors() == (frozenset(), frozenset()) and not logs["t"]
-    for mod, n in ((k1, 5), (k2, 2), (k3, 1)):
+    for mod, n in ((k1, 4), (k2, 2), (k3, 1)):
         src = inspect.getsource(mod)
         assert src.count("with kernel_work(") == n, mod.__name__
         assert src.count("_launch(") == src.count(

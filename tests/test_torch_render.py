@@ -1,28 +1,27 @@
-"""PyTorch port: kernel K1 and the flagship render against the JAX
-package.
+"""PyTorch port: kernel K1 on the flagship's tail, and the flagship
+render against the JAX package.
 
 The JAX side runs its fused tail (ops/pallas/color_map.py in interpret
 mode, forced with LPTPU_FUSED_COLORMAP=1 as tests/test_render.py does),
 because that is the semantics the port's main path has: peak partials
 per 8-row stripe, measured inside the color-map pass.
 
-Tolerances.  Both sides dither to 8 bits, so a last-ulp difference
+Tolerance.  Both sides dither to 8 bits, so a last-ulp difference
 upstream (see tests/test_torch_ops.py) flips a knife-edge pixel by one
-LSB:
-- K1's plain version vs the Pallas tail on the same input and stats:
-  every value within 1 LSB, fewer than 1e-3 of them differing
-  (measured 0), histograms equal, stripe sums rtol 1e-5;
-- the whole render, where the decode's and the EWA sum's rounding enter
-  too: the gate of tests/test_render.py's fused-vs-plain test (max
-  <= 1 LSB, fewer than 1e-3 of values differing; measured <= 4.5e-4),
-  peak state atol 1e-5.
+LSB: the whole render, where the decode's and the EWA sum's rounding
+enter too, is held to the gate of tests/test_render.py's fused-vs-plain
+test (max <= 1 LSB, fewer than 1e-3 of values differing; measured
+<= 4.5e-4), peak state atol 1e-5.  K1's plain version of each tail is
+held against the reference's fused tail by
+tests/test_torch_color_tails.py.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from libplacebo_tpu.core import colorspace as jcs
-from libplacebo_tpu.core.common import RectF as JRectF
 from libplacebo_tpu.render.frame import frame_from_yuv420p as j_frame
 from libplacebo_tpu.render.renderer import RenderParams as JParams
 from libplacebo_tpu.render.renderer import Renderer as JRenderer
@@ -32,9 +31,7 @@ import libplacebo_tpu_torch as lt
 from libplacebo_tpu_torch import carry
 from libplacebo_tpu_torch.core import colorspace as tcs
 from libplacebo_tpu_torch.core.common import RectF as TRectF
-from libplacebo_tpu_torch.ops import color as tcolor
-from libplacebo_tpu_torch.ops import dithering as tdith
-from libplacebo_tpu_torch.ops import peak_detect as tpeak
+from libplacebo_tpu_torch.core.fastmath import fma
 from libplacebo_tpu_torch.ops.cuda import color_map as k1
 from libplacebo_tpu_torch.render import renderer as trender
 
@@ -75,11 +72,11 @@ _J_PARAMS = JParams(upscaler="ewa_lanczos")
 _T_PARAMS = lt.RenderParams(upscaler="ewa_lanczos")
 
 
-def _port_tail(h, w):
+def _port_tail(h, w, params=_T_PARAMS):
     ts, td = tcs.color_space_infer_map(lt.CSP_BT2100_PQ, lt.CSP_SRGB)
     target = lt.Target(w=w, h=h, color=lt.CSP_SRGB, bit_depth=8)
     return lt.Renderer(device="cpu")._fused_tail(
-        _T_PARAMS, ts, td, target, True, w, h, TRectF(0, 0, w, h))
+        params, ts, td, target, True, w, h, TRectF(0, 0, w, h))
 
 
 def _linear_input(h, w, seed=11):
@@ -93,55 +90,6 @@ def _assert_render_parity(out, ref):
     diff = np.abs(out - ref)
     assert diff.max() <= LSB + 1e-6, diff.max()
     assert (diff > 1e-6).mean() < 1e-3, (diff > 1e-6).mean()
-
-
-def test_k1_plain_matches_pallas_tail(monkeypatch):
-    """K1's plain version vs fused_pointwise(interpret=True) running the
-    reference tail_fn, same input and (avg_pq, max_pq)."""
-    import jax.numpy as jnp
-    monkeypatch.setenv("LPTPU_FUSED_COLORMAP", "1")
-    h, w = 32, 256
-    x = _linear_input(h, w)
-    js, jd = jcs.color_space_infer_map(jcs.CSP_BT2100_PQ, jcs.CSP_SRGB)
-    jt = JTarget(w=w, h=h, color=jcs.CSP_SRGB, bit_depth=8)
-    jtail = JRenderer._fused_tail(_J_PARAMS, js, jd, jt, True, None, False,
-                                  w, h, JRectF(0, 0, w, h))
-    stats = (np.float32(0.31), np.float32(0.74))
-    ref, jpart = jtail(jnp.asarray(x), tuple(jnp.float32(s) for s in stats))
-    ref, jpart = np.asarray(ref), np.asarray(jpart)
-    out, tpart = _port_tail(h, w)(torch.from_numpy(x),
-                                  tuple(torch.tensor(s) for s in stats))
-    out, tpart = out.numpy(), tpart.numpy()
-    diff = np.abs(out - ref)
-    assert diff.max() <= LSB + 1e-6, diff.max()
-    assert (diff > 1e-6).mean() < 1e-3, (diff > 1e-6).mean()
-    assert tpart.shape == jpart.shape == (h // 8, 8, 128)
-    np.testing.assert_array_equal(tpart[:, 0], jpart[:, 0])
-    np.testing.assert_allclose(tpart[:, 1, :3], jpart[:, 1, :3], rtol=1e-5)
-    assert not tpart[:, 2:].any() and not tpart[:, 1, 3:].any()
-
-
-def test_k1_plain_is_the_plain_stages():
-    """K1's plain version (packed constants) equals the port's own stage
-    functions composed as the reference's tail_fn composes them — the
-    packed constants are the stages' constants, rounded once."""
-    h, w = 16, 128
-    x = torch.from_numpy(_linear_input(h, w, seed=12))
-    ts, td = tcs.color_space_infer_map(lt.CSP_BT2100_PQ, lt.CSP_SRGB)
-    stats = (torch.tensor(0.28), torch.tensor(0.71))
-    out, part = _port_tail(h, w)(x, stats)
-    y = trender.color_map_stage(x, ts, td, _T_PARAMS, stats)
-    y = tcolor.delinearize(y, td)
-    y = tcolor.encode_color(y, lt.Target(w=w, h=h).repr)
-    dp = tdith.DitherParams(transfer=td.transfer)
-    y = tdith.dither(y, 8, dp)
-    np.testing.assert_allclose(out.numpy(), y.numpy(), atol=1e-6)
-    ref = torch.stack([tpeak.block_partials(x[:, i:i + 8],
-                                            tpeak.PeakDetectParams())
-                       for i in range(0, h, 8)])
-    np.testing.assert_array_equal(part[:, 0].numpy(), ref[:, 0].numpy())
-    np.testing.assert_allclose(part[:, 1].numpy(), ref[:, 1].numpy(),
-                               rtol=1e-6)
 
 
 def _jax_renders(frames, monkeypatch, renderer=None):
@@ -209,12 +157,12 @@ def _capture_k1(monkeypatch):
     return captured, launch
 
 
-def _k1_inputs(monkeypatch, h=8, w=128):
+def _k1_inputs(monkeypatch, h=8, w=128, params=_T_PARAMS):
     """K1's inputs (img, plan, spline, lut) as the flagship's tail hands
     them over, on the CPU."""
     captured, _ = _capture_k1(monkeypatch)
-    _port_tail(h, w)(torch.from_numpy(_linear_input(h, w)),
-                     (torch.tensor(0.3), torch.tensor(0.7)))
+    _port_tail(h, w, params)(torch.from_numpy(_linear_input(h, w)),
+                             (torch.tensor(0.3), torch.tensor(0.7)))
     return captured[0]
 
 
@@ -241,11 +189,12 @@ def _old_kernel_masks(consts):
 @pytest.mark.parametrize("zeroed", [None, ("dst_coefs", 5),
                                     ("src_coefs", 0)])
 def test_k1_row_masks_match_kernel_rule(monkeypatch, zeroed):
-    """The row masks planned on the host (TailPlan.rows) are the masks
-    the kernel once derived per block, for the flagship plan and with
-    one row zeroed; the swap bits are mix's fusing rule per row.  A plan
-    derives its masks from its own read-only copy of the constants, so
-    the two cannot drift apart."""
+    """The row masks planned on the host (TailPlan.rows, compiled into
+    the tail's instance) are the masks the kernel once derived per
+    block, for the flagship plan and with one row zeroed; the swap bits
+    are mix's fusing rule per row.  A plan derives its masks from its
+    own read-only copy of the constants, so the two cannot drift
+    apart."""
     x, plan, spline, lut = _k1_inputs(monkeypatch)
     consts, rows = plan.consts, plan.rows
     assert rows == k1.row_masks(consts)
@@ -255,7 +204,7 @@ def test_k1_row_masks_match_kernel_rule(monkeypatch, zeroed):
     if zeroed is not None:
         off = k1._OFF[zeroed[0]] + 7 * zeroed[1]
         c[off:off + 7] = 0.0
-    got = k1.TailPlan(c, plan.lut).rows
+    got = k1.TailPlan(c, plan.generic, plan.lut).rows
     assert got == k1.row_masks(c)
     assert [got.src_kept, got.dst_kept] == _old_kernel_masks(c)
     if zeroed is not None:
@@ -265,39 +214,58 @@ def test_k1_row_masks_match_kernel_rule(monkeypatch, zeroed):
         cf = c[k1._OFF[name]:k1._OFF[name] + 17 * 7].reshape(17, 7)
         for r in range(17):
             assert bool((swap >> r) & 1) == bool(cf[r, 0] < 0 < cf[r, 1])
-    assert got.mat_swap == rows.mat_swap
+
+
+def _mix_row(xs, w, code):
+    """csrc/color_map.cu::mix_row of one matrix row with mix code
+    `code` (color_map.py::_mix_code): its products, in its order."""
+    acc = pend = None
+    for k in range(3):
+        if not (code >> k) & 1:
+            continue
+        one = (code >> (3 + k)) & 1
+        if acc is None and pend is None:
+            if one:
+                acc = xs[k]
+            else:
+                pend = (xs[k], w[k])
+        elif pend is not None:
+            if one:
+                acc = fma(pend[0], pend[1], xs[k])
+            elif (code >> 6) & 1:
+                acc = fma(xs[k], w[k], pend[0] * pend[1])
+            else:
+                acc = fma(pend[0], pend[1], xs[k] * w[k])
+            pend = None
+        elif one:
+            acc = acc + xs[k]
+        else:
+            acc = fma(xs[k], w[k], acc)
+    return pend[0] * pend[1] if pend is not None else acc
 
 
 @pytest.mark.parametrize("w, swapped", [
-    ((0.3, 0.5, 0.2), False), ((1.0, -0.4, 0.2), True),
+    ((0.3, 0.5, 0.2), False), ((1.0, -0.4, 0.2), False),
     ((-0.4, 1.0, 0.6), False), ((-0.4, 0.7, 1.0), True),
-    ((0.8, -0.4, 1.0), False), ((1.0, 1.0, -2.0), True),
+    ((0.8, -0.4, 1.0), False), ((1.0, 1.0, -2.0), False),
     ((-1.5, 2.5, -0.25), True)])
 def test_k1_matrix_row_form_is_mix(w, swapped):
-    """The kernel's one form of a matrix row, fmaf(x2, w2, fmaf(xa, wa,
-    xb * wb)) with (a, b) swapped where RowMasks.mat_swap says, is
-    core/fastmath.py::mix bit for bit, weights of 1 included.  Both
-    forms are exercised, and on these inputs (all of one scale) the
-    other order rounds differently unless the pair's weights are both 1."""
-    from libplacebo_tpu_torch.core.fastmath import fma, mix
+    """The kernel's form of a matrix row (mix_row, its products and
+    fusing order read from the row's mix code) is core/fastmath.py::mix
+    bit for bit, weights of 1 included.  Both fusing orders are
+    exercised, and on these inputs (all of one scale) the other order
+    rounds differently wherever the first pair has no weight of 1."""
+    from libplacebo_tpu_torch.core.fastmath import mix
     rng = np.random.default_rng(5)
     xs = [torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
           for _ in range(3)]
-    c = np.zeros(k1.NCONST, np.float32)
-    off = k1._OFF["lms2ipt"]
-    c[off:off + 3] = w
-    # row 0 of lms2ipt, matrix 1 of _MATRICES: bit 3 of mat_swap
-    swap = (k1.row_masks(c).mat_swap >> 3) & 1
-    assert swap == swapped
+    code = k1._mix_code(w)
+    assert bool((code >> 6) & 1) == swapped
     wf = [float(np.float32(v)) for v in w]
-
-    def row(swap):
-        first = fma(xs[1], wf[1], xs[0] * wf[0]) if swap else \
-            fma(xs[0], wf[0], xs[1] * wf[1])
-        return fma(xs[2], wf[2], first)
     want = mix(xs, wf)
-    assert torch.equal(row(swap), want), w
-    assert torch.equal(row(1 - swap), want) == (wf[:2] == [1.0, 1.0]), w
+    assert torch.equal(_mix_row(xs, wf, code), want), w
+    other = _mix_row(xs, wf, code ^ (1 << 6))
+    assert torch.equal(other, want) == (1.0 in wf[:2]), w
 
 
 def test_k1_constants_fit_kernel_parameters(monkeypatch):
@@ -306,23 +274,23 @@ def test_k1_constants_fit_kernel_parameters(monkeypatch):
     wrapper holds host memory only."""
     consts = _flagship_consts(monkeypatch)
     assert consts.dtype == np.float32 and consts.shape == (k1.NCONST,)
-    assert k1.PARAM_BYTES == 4 * k1.NCONST + 5 * 8 + 9 * 4
+    assert k1.PARAM_BYTES == 4 * k1.NCONST + 5 * 8 + 4 * 4
     assert k1.PARAM_BYTES <= k1.PARAM_LIMIT == 4096
 
 
 def test_k1_ops_per_pixel_counts_kept_rows(monkeypatch):
     """The operation count behind K1's bound follows the packed
-    constants: the flagship keeps all 17 rows of both boundary fits and
-    dithers (1180 operations, as counted in ops/cuda/color_map.py); a
-    pruned row (15) and a missing dither (12) are work the kernel
-    skips."""
-    c = _flagship_consts(monkeypatch).copy()
-    assert k1.ops_per_pixel(c) == 1180
+    constants and ids: the flagship keeps all 17 rows of both boundary
+    fits and dithers (1180 operations, as counted in ops/cuda/
+    color_map.py); a pruned row (15) and a missing dither (12) are work
+    the kernel skips."""
+    plan = _k1_inputs(monkeypatch)[1]
+    c, mode = plan.consts.copy(), plan.instance
+    assert k1.ops_per_pixel(c, mode) == 1180
     off = k1._OFF["dst_coefs"] + 7 * 5
     c[off:off + 7] = 0.0
-    assert k1.ops_per_pixel(c) == 1180 - 15
-    c[k1._OFF["dither_scale"]] = 0.0
-    assert k1.ops_per_pixel(c) == 1180 - 15 - 12
+    assert k1.ops_per_pixel(c, mode) == 1180 - 15
+    assert k1.ops_per_pixel(c, mode._replace(dither=0)) == 1180 - 15 - 12
 
 
 @pytest.mark.cuda
@@ -339,7 +307,7 @@ def test_k1_kernel_matches_plain_on_card(cuda_device, monkeypatch):
     before = k1.launches
     out, part = launch(x, plan, spline, lut)
     assert k1.launches == before + 1
-    ref, rpart = k1.color_map_plain(x, plan.consts, spline, lut)
+    ref, rpart = k1.tail_plain(x, plan, spline, lut)
     torch.cuda.synchronize()
     diff = (out - ref).abs()
     assert diff.max().item() <= LSB + 1e-6
@@ -372,17 +340,28 @@ def _k1_frame(kind, h=16, w=256):
 
 
 def _k1_case(monkeypatch, device, kind, variant):
-    x, plan, spline, lut = _k1_inputs(monkeypatch)
-    consts, lut_np = plan.consts.copy(), plan.lut
+    """The flagship tail's K1 inputs for one frame kind: as planned, with
+    row 5 of the target's boundary fit pruned (in the chain, so that the
+    plain stages prune it too), or without dither."""
+    params = _T_PARAMS
     if variant == "pruned_row":
-        off = k1._OFF["dst_coefs"] + 7 * 5
-        consts[off:off + 7] = 0.0
+        real = trender.color_chain
+
+        def pruned(*args):
+            chain = real(*args)
+            coefs = [list(r) for r in chain.b_dst.coefs]
+            coefs[5] = [0.0] * len(coefs[5])
+            b_dst = dataclasses.replace(chain.b_dst, coefs=tuple(
+                map(tuple, coefs)))
+            return dataclasses.replace(chain, b_dst=b_dst)
+        monkeypatch.setattr(trender, "color_chain", pruned)
     if variant == "no_dither":
-        lut = lut_np = None
-        consts[k1._OFF["dither_scale"]] = 0.0
-        consts[k1._OFF["dither_rcp"]] = 0.0
+        params = lt.RenderParams(upscaler="ewa_lanczos", dither=None)
+    _, plan, spline, lut = _k1_inputs(monkeypatch, params=params)
+    assert ((plan.rows.dst_kept >> 5) & 1) == (variant != "pruned_row")
+    assert (lut is None) == (variant == "no_dither")
     img = torch.from_numpy(_k1_frame(kind)).to(device)
-    return (img, k1.TailPlan(consts, lut_np), spline.to(device),
+    return (img, plan, spline.to(device),
             lut.to(device) if lut is not None else None)
 
 
@@ -397,7 +376,7 @@ def test_k1_kernel_exact_on_card(cuda_device, monkeypatch, kind, variant):
     img, plan, spline, lut = _k1_case(monkeypatch, cuda_device, kind,
                                       variant)
     out, part = k1.color_map_tail(img, plan, spline, lut)
-    ref, rpart = k1.color_map_plain(img, plan.consts, spline, lut)
+    ref, rpart = k1.tail_plain(img, plan, spline, lut)
     torch.cuda.synchronize()
     hist = rpart[:, 0, :64]
     if kind == "dark":
@@ -422,8 +401,9 @@ def test_k1_kernel_partials_repeat_on_card(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_k1_sqrt_in_range_is_sqrtf_on_card(cuda_device):
+def test_k1_sqrt_in_range_is_sqrtf_on_card(cuda_device, monkeypatch):
     """The check-free square root of K1's PQ curves equals sqrtf on
-    every float of the range their clamps allow ([1e-8, 1])."""
-    assert k1.sqrt_check(cuda_device) == 0
+    every float of the range their clamps allow ([1e-8, 1]), in the
+    flagship tail's library."""
+    assert k1.sqrt_check(_k1_inputs(monkeypatch)[1], cuda_device) == 0
     torch.cuda.synchronize()
