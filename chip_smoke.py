@@ -8,18 +8,19 @@ Phases (each runs uncaught: any failure exits non-zero):
     one a tail: those of paths A and I and of `K1_CASES`, planned on the
     CPU first, which hold every other path's; K2 one for the built-in
     patterns and one for each of phase 9's; one for the tail's scalars,
-    csrc/peak_tone.cu — all at once) and the native host code (blue
-    noise, film grain), keeping ptxas's register and spill report, and
-    read each K1 tail's pixel loop out of its SASS
-    (libplacebo_tpu_torch/_sass.py: instructions an iteration by class,
-    calls, ptxas's stack frame), the flagship's tail and the two of
-    phase 7 among them;
+    csrc/peak_tone.cu; one for the front, csrc/front.cu — all at once)
+    and the native host code (blue noise, film grain), keeping ptxas's
+    register and spill report, and read each K1 tail's pixel loop out of
+    its SASS (libplacebo_tpu_torch/_sass.py: instructions an iteration
+    by class, calls, ptxas's stack frame), the flagship's tail and the
+    two of phase 7 among them, and the front's (`front_sass`);
  2. the flagship path: render 3 chained frames — 1080p 8-bit limited
     BT.2020-NC yuv420p PQ -> 3840x2160 8-bit sRGB, EWA Lanczos, peak
     state carried — through libplacebo_tpu_torch.Renderer on "cuda",
     every kernel's launch count set to 0 just before and read just after
     (K1 3 times; the tail's scalars 6, a tone vector and a finish a
-    frame, `render.tail_scalars` 3; K2 and K3 never);
+    frame, `render.tail_scalars` 3; the front 3, `render.front_fused`
+    3; K2 and K3 never);
  3. hold K1 against its plain PyTorch version on frame 2's linear-light
     input at 4K, and the GPU render against the CPU render (plain
     versions) on a small input;
@@ -251,7 +252,15 @@ Phases (each runs uncaught: any failure exits non-zero):
     bound; each entry's `launches` are the main path's (the flagship's
     at 2160, path I's at 1080: prologues by `render.tail_scalars`, the
     rest finishes);
-26. the degradation ladder, last: deband made to raise RuntimeError
+26. the front (`front_phase`, ops/cuda/front.py): merge -> decode ->
+    PQ linearize of a 10-bit 4:2:0 HDR10 frame at 1920x1080 and
+    3840x2160 in one kernel against the plain chain on the card (bit for
+    bit), both timed by CUDA events beside the kernel's bound (bytes and
+    the plain chain's FP32 operations), host issue a call, the
+    kernel's SASS a pixel, registers and spills; each entry's
+    `launches` is the front's launches on the main path at that source
+    size (the flagship's 3 at 1080p, path I's 8 at 2160p);
+27. the degradation ladder, last: deband made to raise RuntimeError
     recovers (get_errors() shows it, the log records it); K1's launcher
     made to raise KernelError, and the exception torch raises for a
     CUDA error, each propagate out of Renderer.render with get_errors()
@@ -352,6 +361,13 @@ def _tail_scalars():
     (the renderer's `render.tail_scalars` counter)."""
     from libplacebo_tpu_torch.render import profiler
     return profiler.counters().get("render.tail_scalars", 0)
+
+
+def _front_fused():
+    """The frames whose merge, decode and linearize ran as the card's
+    front so far (the renderer's `render.front_fused` counter)."""
+    from libplacebo_tpu_torch.render import profiler
+    return profiler.counters().get("render.front_fused", 0)
 
 
 def _render_run(renderer, frames, target, params, counters):
@@ -1247,7 +1263,7 @@ def path_i_phase(lt, dev, counters, k1, W=3840, H=2160):
         finally:
             k1.color_map_tail = real
         assert launches == {"k1": 8, "k2": 0, "k3": 0,
-                            "peak_tone": 16}, launches
+                            "peak_tone": 16, "front": 8}, launches
         assert scalars == 8, scalars
         assert tails == (8, 0, 0), tails
         assert counts == {"acquire": 8, "release": 8}, counts
@@ -1584,8 +1600,8 @@ def path_j_phase(lt, dev, counters, k2, k3, W=1920, H=1080):
     finally:
         k2.wavefront = real
         restore_k3()
-    assert launches == {"k1": 0, "k2": 8, "k3": 16, "peak_tone": 0}, \
-        launches
+    assert launches == {"k1": 0, "k2": 8, "k3": 16, "peak_tone": 0,
+                        "front": 0}, launches
     assert tails == (0, 0, 8), tails
     assert not errors and renderer.get_errors() == \
         (frozenset(), frozenset()), (errors, renderer.get_errors())
@@ -1873,9 +1889,10 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
     finally:
         k1.color_map_tail = real_k1
     # the halo step's tail takes the sharded detection's stats: one
-    # prologue a frame, no finish
+    # prologue a frame, no finish; the step merges, decodes and
+    # linearizes its own halo rows (no front)
     assert launches == {"k1": PATH_K_FRAMES, "k2": 0, "k3": 0,
-                        "peak_tone": PATH_K_FRAMES}, launches
+                        "peak_tone": PATH_K_FRAMES, "front": 0}, launches
     assert tails == (PATH_K_FRAMES, 0, 0), tails
     lanes = [lt.Renderer(device=dev) for _ in range(2)]
     plain_lanes = [lt.Renderer(device=dev) for _ in range(2)]
@@ -1979,7 +1996,7 @@ def path_k_phase(lt, dev, counters, k1, k2, k3, W=1920, H=1080):
         restore_k3()
     n5 = PATH_K_CONFIG5_FRAMES
     assert launches5 == {"k1": n5, "k2": n5, "k3": 2 * n5,
-                         "peak_tone": 2 * n5}, launches5
+                         "peak_tone": 2 * n5, "front": 0}, launches5
     assert tails5 == (n5, 0, 0), tails5
     lanes5 = [lt.Renderer(device=dev) for _ in range(2)]
     rep_gate = []
@@ -2148,7 +2165,8 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
         assert launches["plplay"]["k1"] >= 24 and \
             launches["plplay"]["k2"] == launches["plplay"]["k3"] == 0 and \
             launches["plplay"]["peak_tone"] == \
-            2 * launches["plplay"]["k1"], launches["plplay"]
+            2 * launches["plplay"]["k1"] == \
+            2 * launches["plplay"]["front"], launches["plplay"]
         figures["path_l_plplay"] = st
         # the same argv small, on the card and on the CPU
         for d in ("cuda", "cpu"):
@@ -2203,7 +2221,9 @@ def path_l_phase(lt, dev, counters, k1, k2, k3):
     rows = driven("multichip_bench", lambda: multichip_bench.main(
         ["--size", "1920x1080", "--iters", "3"]))
     assert len(rows) == 1 and rows[0]["route"] == "halo", rows
-    assert launches["multichip_bench"]["k1"] >= 3, launches
+    # the front only in the two single-card reference renders
+    assert launches["multichip_bench"]["k1"] >= 3 and \
+        launches["multichip_bench"]["front"] == 2, launches
     figures["path_l_multichip_bench"] = rows[0]
 
     # bench_micro over every pass (K2, K3 captured on the first FS call)
@@ -2610,6 +2630,84 @@ def peak_tone_phase(dev, main, reps=200):
     return entries
 
 
+def front_sass(lib):
+    """The front's shape from its built library: ptxas's report
+    (registers, stack, spills) and the pixel loop's instruction mix (one
+    pixel an iteration; a branch inside it on a launch-uniform choice
+    counts both ways).  Phase 1 reads it, before any profiler session."""
+    from libplacebo_tpu_torch import _sass
+    from libplacebo_tpu_torch._build import build_log
+    report, = [v for n, v in _sass.ptxas_report(build_log(lib)).items()
+               if "front_kernel" in n]
+    return report, _sass.loop_mix(_sass.disassemble(lib._name),
+                                  "front_kernel")
+
+
+def front_phase(lt, dev, shape, launches, reps=50):
+    """The front (ops/cuda/front.py) at the cells' source sizes: a 10-bit
+    limited BT.2020-NC PQ 4:2:0 frame (left siting) shown at its own
+    size, planned on the CPU (a plan is host data; no library loads
+    after phase 1).  The kernel against the plain merge -> decode ->
+    linearize on the same planes, bit for bit; device ms a call of each
+    by CUDA events over `reps` calls; host issue ms a call (host clock
+    over `reps` calls before one synchronize); the bound max(bytes /
+    3.35 TB/s, FP32 ops / 67 TFLOP/s), with the bytes each plane read
+    once and the frame written once, and the ops a pixel counted from
+    the plain chain (`front.ops_per_pixel`).  `shape` is phase 1's
+    `front_sass`; `launches` the main path's front launches by source
+    height, each entry's `launches`.  Returns `kernels` entries."""
+    import torch
+    from libplacebo_tpu_torch.ops.cuda import front
+    hbm, fp32 = 3.35e12, 67e12
+    entries = []
+    for W, H in ((1920, 1080), (3840, 2160)):
+        f = _frame(lt, _flagship_yuv(1, H, W, seed=29, bits=10)[0], "cpu",
+                   config="config4")
+        plan = lt.Renderer(device="cpu")._plan(
+            f, lt.Target(w=W, h=H, bit_depth=8, color=lt.CSP_SRGB),
+            lt.RenderParams()).front
+        assert plan is not None
+        planes = [p.data.to(dev) for p in f.planes]
+        got = front.run(plan, planes)
+        want = plan.plain(*planes)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        assert differ == 0, (H, differ)
+
+        def measure(fn):
+            ms = _cuda_ms(fn, reps)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_ms = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+            return ms, host_ms
+        k_ms, k_host = measure(lambda: front.run(plan, planes))
+        p_ms, p_host = measure(lambda: plan.plain(*planes))
+        nbytes = front.bytes_per_frame(plan)
+        ops = front.ops_per_pixel(plan)
+        report, mix = shape
+        by_bytes, by_ops = nbytes / hbm * 1e3, ops * H * W / fp32 * 1e3
+        entries.append({
+            "name": f"front_{H}p", "route": "cuda",
+            "source": "libplacebo_tpu_torch/csrc/front.cu",
+            "replaces": None, "launches": launches[H], "max_abs_err": 0.0,
+            "ms": k_ms, "host_ms": k_host, "plain_ms": p_ms,
+            "plain_host_ms": p_host,
+            "bytes": nbytes, "ops_per_pixel": ops,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "sass_per_pixel": mix["per_iteration"],
+            "sass_classes": mix["classes"],
+            "inner_loops": mix["inner_loops"],
+            "registers": report.get("registers"),
+            "stack_frame": report.get("stack_frame"),
+            "spill_stores": report.get("spill_stores"),
+            "spill_loads": report.get("spill_loads"),
+            "library_ms": None})
+    return entries
+
+
 def _take_colmaj(forward, args):
     """The reference layout's entries (shear_to_colmaj's or
     unshear_from_colmaj's (x, w_out, s, W, H)) as one torch.take over
@@ -2650,6 +2748,7 @@ def main() -> int:
     from libplacebo_tpu_torch.ops import polar
     from libplacebo_tpu_torch.ops.cuda import color_map as k1
     from libplacebo_tpu_torch.ops.cuda import error_diffusion as k2
+    from libplacebo_tpu_torch.ops.cuda import front
     from libplacebo_tpu_torch.ops.cuda import peak_tone
     from libplacebo_tpu_torch.ops.cuda import shear as k3
     from libplacebo_tpu_torch.render import renderer as trender
@@ -2663,7 +2762,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    counters = {"k1": k1, "k2": k2, "k3": k3, "peak_tone": peak_tone}
+    counters = {"k1": k1, "k2": k2, "k3": k3, "peak_tone": peak_tone,
+                "front": front}
 
     # 1. build: one compiler process per library, all started together
     # (K1's tails planned on the CPU first: a library a tail)
@@ -2674,7 +2774,7 @@ def main() -> int:
     k2_custom = [cdither.ErrorDiffusionKernel(*case) for case in K2_CUSTOM]
     build_all([*k1.build_specs(generic_plans.values()),
                k2.build_spec(), k3.build_spec(), peak_tone.build_spec(),
-               *native.build_specs(),
+               front.build_spec(), *native.build_specs(),
                *[k2.build_spec(k2.tap_table_header([k]))
                  for k in k2_custom]])
     cdither.blue_noise(6)
@@ -2682,6 +2782,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {n: build_log(m.build()) for n, m in counters.items()
              if n != "k1"}
+    front_shape = front_sass(front.build())
     # every K1 library of the run loaded here (K1_CASES holds every
     # other path's tail): a CUDA library loaded after a profiler session
     # has started costs each later session device activities (path J
@@ -2774,10 +2875,11 @@ def main() -> int:
     frames4 = [_frame(lt, f, dev, config="config4") for f in yuvs4]
     frames2 = [_frame(lt, f, dev, config="config2") for f in yuvs]
     try:
-        scalars0 = _tail_scalars()
+        scalars0, fused0 = _tail_scalars(), _front_fused()
         outs, flag_launches, flag_tails = _render_run(
             renderer, frames, target, params, counters)
         flag_scalars = _tail_scalars() - scalars0
+        flag_fused = _front_fused() - fused0
         flag_k1 = captured["k1"][1]
         captured["k1"].clear()
         # 4. the config-5 path: the same frames with film grain
@@ -2953,38 +3055,43 @@ def main() -> int:
     # frame's counted once in `render.tail_scalars`; SDR, pass-through
     # and HLG (bt2446a, a static curve) tails in none
     assert flag_launches == {"k1": 3, "k2": 0, "k3": 0,
-                             "peak_tone": 6}, flag_launches
+                             "peak_tone": 6, "front": 3}, flag_launches
     assert c5_launches == {"k1": 3, "k2": 3, "k3": 6,
-                           "peak_tone": 6}, c5_launches
+                           "peak_tone": 6, "front": 0}, c5_launches
     assert c4_launches == {"k1": 3, "k2": 0, "k3": 0,
-                           "peak_tone": 6}, c4_launches
+                           "peak_tone": 6, "front": 3}, c4_launches
     assert (flag_scalars, c5_scalars, c4_scalars) == (3, 3, 3), \
         (flag_scalars, c5_scalars, c4_scalars)
+    # the front runs the merge, decode and linearize of every PQ frame
+    # without grain, deband, deinterlacing, hooks or Dolby Vision, once
+    # a frame rendered (the flagship, config 4, paths E, G and I); every
+    # other path keeps the plain stages
+    assert flag_fused == 3, flag_fused
     assert c2_launches == {"k1": 3, "k2": 0, "k3": 0,
-                           "peak_tone": 0}, c2_launches
+                           "peak_tone": 0, "front": 0}, c2_launches
     assert c3_launches == {"k1": 3, "k2": 0, "k3": 0,
-                           "peak_tone": 0}, c3_launches
+                           "peak_tone": 0, "front": 0}, c3_launches
     assert pa_launches == {"k1": 3, "k2": 0, "k3": 0,
-                           "peak_tone": 0}, pa_launches
+                           "peak_tone": 0, "front": 0}, pa_launches
     assert pb_launches == {"k1": 0, "k2": 0, "k3": 0,
-                           "peak_tone": 0}, pb_launches
+                           "peak_tone": 0, "front": 0}, pb_launches
     assert pc_launches == {"k1": 3, "k2": 0, "k3": 0,
-                           "peak_tone": 6}, pc_launches
+                           "peak_tone": 6, "front": 0}, pc_launches
     assert pd_launches == {"k1": 4, "k2": 0, "k3": 0,
-                           "peak_tone": 0}, pd_launches
+                           "peak_tone": 0, "front": 0}, pd_launches
     assert px_launches == {"k1": 0, "k2": 0, "k3": 0,
-                           "peak_tone": 0}, px_launches
+                           "peak_tone": 0, "front": 0}, px_launches
     # path E: one K1 launch a new source frame (frames 0-4 over vsyncs
     # 0-9), the rest mix-cache hits; path F: the tail plain, as in the
     # reference (a target crop, contrast recovery): counted ineligible
     assert pe_launches == {"k1": 5, "k2": 0, "k3": 0,
-                           "peak_tone": 10}, pe_launches
+                           "peak_tone": 10, "front": 5}, pe_launches
     assert pe_tails == (5, 0, 0) and pe_hits == 15, (pe_tails, pe_hits)
     assert len(rendererE._cache) == 1
     assert _tail(k1, pe_k1[1]) == ("spline", "perceptual") and \
         pe_k1[2] is not None and pe_k1[3] is None
     assert pf_launches == {"k1": 0, "k2": 0, "k3": 0,
-                           "peak_tone": 0}, pf_launches
+                           "peak_tone": 0, "front": 0}, pf_launches
     assert pf_tails == (0, 0, 3), pf_tails
     # path G: every vsync emitted a mix; each source frame shown was
     # mapped once and rendered once on K1 (<spline, perceptual> without
@@ -2995,7 +3102,8 @@ def main() -> int:
     assert pg_status_count == {"ok": 60}, pg_status_count
     pg_hits = pg["refs"] - pg_tails[0]
     assert pg_launches["k2"] == pg_launches["k3"] == 0, pg_launches
-    assert pg_launches["peak_tone"] == 2 * pg_launches["k1"], pg_launches
+    assert pg_launches["peak_tone"] == 2 * pg_launches["k1"] and \
+        pg_launches["front"] == pg_launches["k1"], pg_launches
     assert pg_launches["k1"] == pg_tails[0] == pg_frames["map"] \
         and pg_tails[1:] == (0, 0), (pg_launches, pg_tails, pg_frames)
     assert 20 <= pg_tails[0] <= 24 and pg_hits > 0, (pg_tails, pg_hits)
@@ -3010,7 +3118,7 @@ def main() -> int:
     # ineligible), then K2 and K3 a frame; one plan for the 8 frames
     # (the auto-exposure's state is frame data)
     assert ph_launches == {"k1": 0, "k2": 8, "k3": 16,
-                           "peak_tone": 0}, ph_launches
+                           "peak_tone": 0, "front": 0}, ph_launches
     assert ph_tails == (0, 0, 8), ph_tails
     assert len(rendererH._cache) == 1
     for out in list(pg["outs"].values()) + outsH:
@@ -3662,7 +3770,7 @@ def main() -> int:
     custom_by_lib = dict(k2.launches_by)
     assert custom_counts == {"k1": 0, "k2": len(k2_custom),
                              "k3": 2 * len(k2_custom),
-                             "peak_tone": 0}, custom_counts
+                             "peak_tone": 0, "front": 0}, custom_counts
     inv_scale = rcp(float((1 << depth) - 1))      # error_diffusion's
     for k, out in zip(k2_custom, custom_out):
         lib, index = k2.prepare(k)
@@ -3825,7 +3933,12 @@ def main() -> int:
         2160: (flag_scalars, flag_launches["peak_tone"] - flag_scalars),
         1080: (pi_scalars, pi_launches["peak_tone"] - pi_scalars)})
 
-    # 26. the degradation ladder, last, everything restored after it:
+    # 26. the front at the cells' source sizes: kernel and plain chain,
+    # device and host time, exact against each other
+    fr_entries = front_phase(lt, dev, front_shape, {
+        1080: flag_launches["front"], 2160: pi_launches["front"]})
+
+    # 27. the degradation ladder, last, everything restored after it:
     # (a) a plain stage made to fail (deband raising RuntimeError)
     # recovers, get_errors() shows `deband` and the log records it;
     # (b) K1's launcher raising KernelError and (c) raising the
@@ -3966,6 +4079,7 @@ def main() -> int:
         _k1_entry(k1, "k1_color_map_path_i", pi_k1, pi_part,
                   pi_launches["k1"], pi_err, k1_pi_ms, k1_pi_plain_ms),
         *ph_entries, *pj_entries, *pk_entries, *pl_entries, *pt_entries,
+        *fr_entries,
         {"name": "k2_error_diffusion", "route": "cuda",
          "source": "libplacebo_tpu_torch/csrc/error_diffusion.cu",
          "replaces": "libplacebo_tpu/ops/pallas/error_diffusion.py:226",

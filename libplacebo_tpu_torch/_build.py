@@ -115,8 +115,13 @@ def generated_include(filename: str, text: str) -> str:
 
 
 def _digest(paths, flags) -> str:
+    """The hash of the flags, the sources and the CUDA headers beside
+    them (`*.cuh`, which a kernel source may include)."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for p in paths:
+    dirs = sorted({os.path.dirname(p) for p in paths if p.endswith(".cu")})
+    headers = [os.path.join(d, n) for d in dirs
+               for n in sorted(os.listdir(d)) if n.endswith(".cuh")]
+    for p in list(paths) + headers:
         with open(p, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]

@@ -31,7 +31,9 @@ frame carry its sequence number: the upload stamps it on the `Frame`
 a counter (`render.plan_misses`: the renderer planned a signature anew;
 `upload.parallel`: the upload copied a plane into pinned memory on
 several host threads; `render.tail_scalars`: a frame's tone-curve
-scalars came from the card's kernel, ops/cuda/peak_tone.py) and, inside
+scalars came from the card's kernel, ops/cuda/peak_tone.py;
+`render.front_fused`: a frame's merge, decode and linearize ran as the
+card's one kernel, ops/cuda/front.py) and, inside
 a session, puts a `Record` of it in the ring too, so a reader can count
 the events inside a window.  An operator reads them
 in two ways: the "lt.*" ranges of a torch.profiler trace (its own
@@ -245,15 +247,17 @@ def counters() -> Dict[str, int]:
     """The counters of `count`, and the launch and tail counters where
     they live: kernels K1-K3 (`k1.launches`, `k2.launches` and by
     library `k2.launches.<library>`, `k3.launches`), the tail's scalars
-    (`peak_tone.launches`) and the color-map tails (`render.k1_tails`,
-    `render.plain_tails`, `render.ineligible_tails`)."""
-    from ..ops.cuda import color_map, error_diffusion, peak_tone, shear
+    (`peak_tone.launches`), the front (`front.launches`) and the
+    color-map tails (`render.k1_tails`, `render.plain_tails`,
+    `render.ineligible_tails`)."""
+    from ..ops.cuda import color_map, error_diffusion, front, peak_tone, shear
     from . import renderer
     out = dict(_COUNTS)
     out.update({"k1.launches": color_map.launches,
                 "k2.launches": error_diffusion.launches,
                 "k3.launches": shear.launches,
                 "peak_tone.launches": peak_tone.launches,
+                "front.launches": front.launches,
                 "render.k1_tails": renderer.k1_tails,
                 "render.plain_tails": renderer.plain_tails,
                 "render.ineligible_tails": renderer.ineligible_tails})

@@ -87,6 +87,7 @@ from ..ops import sampling as ops_sampling
 from ..ops import tone_dynamic as ops_tone
 from ..ops.cuda import color_map as k1
 from ..ops.cuda import error_diffusion as k2
+from ..ops.cuda import front
 from ..ops.cuda import peak_tone
 from ..ops.deband import DebandParams
 from ..ops.dithering import DitherParams
@@ -340,6 +341,73 @@ def _find_scaler(name: str) -> flt.FilterConfig:
     if cfg is None:
         raise RenderError(f"unknown filter: {name}")
     return cfg
+
+
+def _plane_resample(ph: int, pw: int, H: int, W: int, sx: float, sy: float,
+                    ox: float, oy: float, params: RenderParams,
+                    up_cfg: flt.FilterConfig, down_cfg: flt.FilterConfig):
+    """How the merge aligns a (ph, pw) plane sited at (sx, sy), offset
+    by (ox, oy) of its own texels, to the (H, W) reference grid: None
+    (taken as it is) or (the plane upscaler `up_cfg`, or `down_cfg` for
+    a plane larger than the grid, the source RectF).  A same-size
+    plane's subpixel siting snaps to the texel unless
+    params.correct_subpixel_offsets."""
+    if (ph, pw) == (H, W) and (sx or sy) and not ox and not oy \
+            and not params.correct_subpixel_offsets:
+        return None
+    if (ph, pw) == (H, W) and not (sx or sy or ox or oy):
+        return None
+    cfg = down_cfg if (ph > H or pw > W) else up_cfg
+    s0x = -sx * pw / W + ox
+    s0y = -sy * ph / H + oy
+    return cfg, RectF(s0x, s0y, s0x + pw, s0y + ph)
+
+
+# the systems whose decode is the matrix alone (decode_color's last path)
+_NONLINEAR_DECODE = (ColorSystem.DOLBYVISION, ColorSystem.XYZ,
+                     ColorSystem.BT_2100_PQ, ColorSystem.BT_2100_HLG,
+                     ColorSystem.BT_2020_C)
+
+
+def _front_plan(plane_metas, params: RenderParams, frame_repr: ColorRepr,
+                src_color: ColorSpace, plain, *, linear_next: bool,
+                plain_planes: bool, frame_icc=None, rotation: int = 0):
+    """The front (ops/cuda/front.py) that runs a signature's merge,
+    decode and linearize in one pass, or None where the plain stages
+    run: three planes of one channel each, taken as they are or sampled
+    by a phased separable plane scaler; a system whose decode is the
+    matrix alone, without the adjustment's gamma; a PQ source linearized
+    by its nominal curve (no frame ICC profile) right after the decode
+    (`linear_next`); no rotation, native LUT or hook, and nothing the
+    merge does to a plane before sampling it (`plain_planes`: no
+    deinterlacing, deband or film grain).  An alpha plane is a fourth
+    plane.  `plain(*planes)` is the plain chain."""
+    adj = params.color_adjustment
+    if not (linear_next and plain_planes) or params.hooks or rotation or \
+            frame_icc is not None or frame_repr.sys in _NONLINEAR_DECODE or \
+            (adj is not None and adj.gamma != 1.0) or \
+            (params.lut is not None and params.lut_type == "native") or \
+            src_color.infer().transfer != ColorTransfer.PQ:
+        return None
+    if len(plane_metas) != 3 or sorted(
+            m for _, m, _, _ in plane_metas) != [(0,), (1,), (2,)]:
+        return None
+    ref_shape = plane_metas[Renderer._ref_plane_index(plane_metas)][0]
+    H, W = ref_shape[-2], ref_shape[-1]
+    up_cfg = _find_scaler(params.plane_upscaler or params.upscaler)
+    down_cfg = _find_scaler(params.plane_downscaler or params.downscaler)
+    planes = [None] * 3
+    for i, (shape, (ch,), sx, sy) in enumerate(plane_metas):
+        ph, pw = shape[-2], shape[-1]
+        resample = _plane_resample(ph, pw, H, W, sx, sy, 0.0, 0.0, params,
+                                   up_cfg, down_cfg)
+        if resample is not None:
+            cfg, rect = resample
+            resample = (cfg, rect, params.antiringing_strength or
+                        cfg.antiring)
+        planes[ch] = (i, ph, pw, resample)
+    tr, _ = color_repr_decode(frame_repr, adj)
+    return front.plan_front(planes, H, W, tr.mat.m, tr.c, plain)
 
 
 def _boundaries(src: ColorSpace, dst: ColorSpace, params: RenderParams,
@@ -783,14 +851,10 @@ class Renderer:
             # grid, in its own texels
             ox = 0.0 if hr is hr_ref else hr.ox - ref_off[0] * pw / W
             oy = 0.0 if hr is hr_ref else hr.oy - ref_off[1] * ph / H
-            if (ph, pw) == (H, W) and (sx or sy) and not ox and not oy \
-                    and not params.correct_subpixel_offsets:
-                pass    # a same-size subpixel siting snaps to the texel
-            elif (ph, pw) != (H, W) or sx or sy or ox or oy:
-                cfg = down_cfg if (ph > H or pw > W) else up_cfg
-                s0x = -sx * pw / W + ox
-                s0y = -sy * ph / H + oy
-                rect = RectF(s0x, s0y, s0x + pw, s0y + ph)
+            resample = _plane_resample(ph, pw, H, W, sx, sy, ox, oy, params,
+                                       up_cfg, down_cfg)
+            if resample is not None:
+                cfg, rect = resample
                 antiring = params.antiringing_strength or cfg.antiring
                 if cfg.polar:
                     data = ops_polar.sample_polar(data, cfg, H, W, rect,
@@ -941,6 +1005,30 @@ class Renderer:
                                           dst_crop, has_alpha, dither_phase)
         src_max_pq = hdr_rescale(HdrScaling.NITS, HdrScaling.PQ,
                                  src_color.hdr.max_luma)
+
+        def plain_front(*planes):
+            """The front's plain version: merge, decode, linearize."""
+            img, _, _ = self._merge_planes(planes, plane_metas, params)
+            img = ops_color.decode_color(img, frame_repr, src_color.primaries,
+                                         adjustment=params.color_adjustment)
+            return linearize_src(img)
+        # the linearize directly follows the decode where it opens the
+        # linear-light scaling, or where nothing is scaled before the tail
+        needs0, lin0, sig0, _, _, _ = scale_plan(crop)
+        front_plan = _front_plan(
+            plane_metas, params, frame_repr, src_color, plain_front,
+            linear_next=sig0 is None and (lin0 or (
+                need_color_map and not needs0 and params.cone is None)),
+            plain_planes=not (deinterlace or params.deband is not None or
+                              grain_cfgs is not None or
+                              h274_grain is not None),
+            frame_icc=frame_icc, rotation=rotation)
+        # the card runs it; the CPU keeps the plain stages
+        fused_front = front_plan if self.device.type == "cuda" else None
+        if fused_front is not None:
+            # the kernel's library, loaded now rather than at its first
+            # launch (KernelError if it cannot be built)
+            front.prepare()
         dp = _dither_params(params, dst_color) if params.dither else None
         quantize = target.bit_depth and (target.bit_depth < 16 or
                                          params.force_dither)
@@ -1001,9 +1089,15 @@ class Renderer:
                                  states=hstates, rect=rect, dst_w=dst_w,
                                  dst_h=dst_h)
             with profiler.span("render.merge"):
-                img, (h_act, w_act), ref_off = self._merge_planes(
-                    planes, plane_metas, params, deband, grain, fields,
-                    h274, hook, frame_repr.sys)
+                if fused_front is not None:
+                    # merge, decode and linearize in one launch
+                    img = front.run(fused_front, planes)
+                    profiler.count("render.front_fused")
+                    (h_act, w_act), ref_off = frame_hw, (0.0, 0.0)
+                else:
+                    img, (h_act, w_act), ref_off = self._merge_planes(
+                        planes, plane_metas, params, deband, grain, fields,
+                        h274, hook, frame_repr.sys)
             alpha = None
             if has_alpha:
                 # the alpha plane runs beside the color, un-premultiplied
@@ -1029,18 +1123,20 @@ class Renderer:
             sy_n = img.shape[-2] / h_pre
             if rotation % 2:
                 sx_n, sy_n = sy_n, sx_n
-            with profiler.span("render.decode"):
-                img = ops_color.decode_color(
-                    img, frame_repr, src_color.primaries,
-                    dovi_packed=inputs.dovi_packed,
-                    adjustment=params.color_adjustment)
-                if rotation:
-                    # the decoded image turns before scaling; the crop
-                    # lies in the turned image
-                    img = torch.rot90(img, rotation, dims=(-2, -1))
-                    if alpha is not None:
-                        alpha = torch.rot90(alpha, rotation, dims=(-2, -1))
-                    hr_main.rotate(rotation)
+            if fused_front is None:
+                with profiler.span("render.decode"):
+                    img = ops_color.decode_color(
+                        img, frame_repr, src_color.primaries,
+                        dovi_packed=inputs.dovi_packed,
+                        adjustment=params.color_adjustment)
+                    if rotation:
+                        # the decoded image turns before scaling; the
+                        # crop lies in the turned image
+                        img = torch.rot90(img, rotation, dims=(-2, -1))
+                        if alpha is not None:
+                            alpha = torch.rot90(alpha, rotation,
+                                                dims=(-2, -1))
+                        hr_main.rotate(rotation)
             h_rot, w_rot = img.shape[-2], img.shape[-1]
             img = hook(HookStage.RGB, img, rect=hr_main)
 
@@ -1061,8 +1157,9 @@ class Renderer:
             needs_scale, use_linear, sig, scaler, cfg_down, antiring = \
                 scale_plan(crop_probe)
             if use_linear:
-                with profiler.span("render.linearize"):
-                    img = linearize_src(img)
+                if fused_front is None:
+                    with profiler.span("render.linearize"):
+                        img = linearize_src(img)
                 img = hook(HookStage.LINEAR, img, rect=hr_main)
                 if sig is not None:
                     with profiler.span("render.linearize"):
@@ -1106,7 +1203,7 @@ class Renderer:
                                              already_linear=use_linear)
             new_state = peak_state
             if need_color_map:
-                if not use_linear:
+                if not use_linear and fused_front is None:
                     with profiler.span("render.linearize"):
                         img = linearize_src(img)
                 with profiler.span("render.tail"):
@@ -1227,6 +1324,9 @@ class Renderer:
                     for h, names in hook_state_specs for n in names)
             return img, new_state, hs_out
 
+        # the front this signature takes on the card (None: the plain
+        # stages there too)
+        pipeline.front = front_plan
         return pipeline
 
     @staticmethod
@@ -1664,14 +1764,7 @@ class Renderer:
         if fn is None:
             profiler.count("render.plan_misses")
             with profiler.span("render.plan"):
-                fn = self._trace_pipeline(
-                    frame.meta_key(), target, params, frame.repr,
-                    frame.color, frame.get_crop(), frame.film_grain,
-                    dither_phase=dither_phase, frame_icc=frame.icc,
-                    field=frame.field, first_field=frame.first_field,
-                    rotation=int(frame.rotation),
-                    overlays=tuple((ov, False) for ov in frame.overlays)
-                    + tuple((ov, True) for ov in target.overlays))
+                fn = self._plan(frame, target, params, dither_phase)
         self._cache[key] = fn
         while len(self._cache) > _MAX_CACHED_PIPELINES:
             self._cache.pop(next(iter(self._cache)))
@@ -1703,6 +1796,18 @@ class Renderer:
             self._harvest_telemetry(block=False)
             self._telemetry_pending.append((t0, t1))
         return out
+
+    def _plan(self, frame: Frame, target: Target, params: RenderParams,
+              dither_phase: int = 0):
+        """The per-frame stage function of `frame`'s signature
+        (`_trace_pipeline`), planned anew."""
+        return self._trace_pipeline(
+            frame.meta_key(), target, params, frame.repr, frame.color,
+            frame.get_crop(), frame.film_grain, dither_phase=dither_phase,
+            frame_icc=frame.icc, field=frame.field,
+            first_field=frame.first_field, rotation=int(frame.rotation),
+            overlays=tuple((ov, False) for ov in frame.overlays)
+            + tuple((ov, True) for ov in target.overlays))
 
     def _frame_inputs(self, frame: Frame, params: RenderParams,
                       target: Optional[Target] = None) -> FrameInputs:
